@@ -20,9 +20,25 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    attention dispatch on the flash kernel and then forced to the plain path:
    the kernel's check inside the model (phase 3's speed weights leave the
    attention nearly uniform).
+5. The SD3 path at full width and depth: SD3-medium 1024x1024 txt2img
+   without T5 (a zero T5 block), 20 steps of DiscreteFlow (shift 3), CFG
+   batch 2, guidance 4.5, through ``StableDiffusion3Pipeline.generate_images``
+   (CLIP-L and bigG in float32, the MMDiT in bf16, the 16-channel VAE in
+   float32), as phase 3 does for SD-2.1: warm-up, median of 3, launch counts
+   of both kernel entries, then one generation forced to the plain path.
+6. One full-width MMDiT forward with variance-preserving weights, on the
+   multi-stream kernel and then forced plain (the SD3 counterpart of phase 4).
 
-Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+Every kernel launch counter is set to 0 just before each main path (phases
+3 and 5) and read just after it.  Prints a ``{"kernels": [...]}`` JSON line,
+the card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile sd3   (or sd21)
+
+runs instead one generation of that path under ``torch.profiler`` after a
+warm-up and prints where the device time goes: the kernels grouped (the
+flash kernel, matrix products, convolutions, the rest), the top kernels by
+device time, and the device's busy share of the generation's wall time.
 """
 
 from __future__ import annotations
@@ -53,16 +69,27 @@ ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REL_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: kv rows per tile of both kernel bodies (csrc/flash_attention.cu)
 KV_TILE = 64
-#: flash launches per generation: 15 per UNet call (5 each at 4096, 1024 and
-#: 256 tokens) x 20 steps, plus the VAE mid block
-FLASH_PER_GENERATION = 301
 STEPS = 20
-GUIDANCE = 7.5
 PROMPTS = ["a photo of an astronaut riding a horse on mars",
            "a cat wearing a tiny hat", "a watercolor bridge at dawn",
            "a robot reading in a library"]
-#: bf16-level agreement of the full UNet, flash kernel vs plain attention
-UNET_MIN_PSNR_DB = 30.0
+#: the two main paths: what each generation must launch of each kernel entry
+#: (flash_attention: 15 per UNet call, 5 each at 4096, 1024 and 256 tokens, x
+#: 20 steps, plus the VAE mid block; flash_attention_multi_q: one joint
+#: attention per MMDiT block, 24 x 20 steps, plus SD3's VAE mid block on the
+#: single-stream entry)
+PATHS = {
+    "sd21": dict(label="SD-2.1-base 512x512, 20 steps DPM++ 2M, CFG batch 2",
+                 image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5,
+                 scheduler="DPMSolverMultistep",
+                 per_generation={"flash_attention": 301, "flash_attention_multi_q": 0}),
+    "sd3": dict(label="SD3-medium 1024x1024 (no T5), 20 steps DiscreteFlow, CFG batch 2",
+                image_hw=(1024, 1024), latents=(1, 128, 128, 16), guidance=4.5,
+                scheduler="DiscreteFlow",
+                per_generation={"flash_attention": 1, "flash_attention_multi_q": 480}),
+}
+#: bf16-level agreement of a full denoiser call, flash kernel vs plain attention
+MODEL_MIN_PSNR_DB = 30.0
 #: relative max-abs agreement of 20-step latents, flash vs plain generation
 GEN_MAX_REL_ERR = 2e-2
 
@@ -108,53 +135,65 @@ def abs_and_rel_rms(got, ref):
     return diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
 
 
-#: (label, (B, S, H, D), dtype, launches per generation)
+#: (label, query stream lengths, Sk, B, H, D, dtype, path, launches per
+#: generation of that path)
 FLASH_SHAPES = [
-    ("unet 64x64", (2, 4096, 5, 64), torch.bfloat16, 100),
-    ("unet 32x32", (2, 1024, 10, 64), torch.bfloat16, 100),
-    ("unet 16x16", (2, 256, 20, 64), torch.bfloat16, 100),
-    ("vae mid", (1, 4096, 1, 512), torch.float32, 1),
-    ("ragged f32", (2, 330, 3, 64), torch.float32, 0),
-    ("ragged bf16", (2, 330, 3, 64), torch.bfloat16, 0),
+    ("unet 64x64", (4096,), 4096, 2, 5, 64, torch.bfloat16, "sd21", 100),
+    ("unet 32x32", (1024,), 1024, 2, 10, 64, torch.bfloat16, "sd21", 100),
+    ("unet 16x16", (256,), 256, 2, 20, 64, torch.bfloat16, "sd21", 100),
+    ("vae mid 512", (4096,), 4096, 1, 1, 512, torch.float32, "sd21", 1),
+    ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32, "sd3", 1),
+    ("ragged f32", (330,), 330, 2, 3, 64, torch.float32, None, 0),
+    ("ragged bf16", (330,), 330, 2, 3, 64, torch.bfloat16, None, 0),
+]
+MULTI_Q_SHAPES = [
+    ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16, "sd3", 480),
+    ("ragged f32", (384, 77), 461, 2, 3, 64, torch.float32, None, 0),
+    ("ragged bf16", (384, 77), 461, 2, 3, 64, torch.bfloat16, None, 0),
 ]
 
 
-def check_flash_kernel():
+def check_kernel(kernel, reference, shapes):
+    """Each shape: the kernel against its plain version (max abs and
+    relative RMS), what a dropped last KV tile would show, and the times of
+    the kernel, the plain version and SDPA on the concatenated queries."""
     import torch.nn.functional as F
-
-    from ml_stable_diffusion_torch.ops.flash_attention import (
-        flash_attention_cuda,
-        flash_attention_reference,
-    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for label, shape, dtype, per_gen in FLASH_SHAPES:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                   for _ in range(3))
-        out = flash_attention_cuda(q, k, v)
+    for label, q_lens, sk, B, H, D, dtype, path, per_gen in shapes:
+        def rand(s):
+            return torch.randn((B, s, H, D), generator=gen, device="cuda").to(dtype)
+
+        qs = [rand(n) for n in q_lens]
+        k, v = rand(sk), rand(sk)
+        out = torch.cat(kernel(qs, k, v), dim=1)
         torch.cuda.synchronize()
-        ref = flash_attention_reference(q, k, v).float()
+        ref = torch.cat(reference(qs, k, v), dim=1).float()
         err, rel = abs_and_rel_rms(out, ref)
         if not (math.isfinite(err) and err <= ATOL[dtype] and rel <= REL_RMS[dtype]):
-            fail(f"flash kernel disagrees with its plain version at {shape} {dtype}: "
-                 f"max abs err {err} (atol {ATOL[dtype]}), rel RMS err {rel} "
-                 f"(tol {REL_RMS[dtype]})")
+            fail(f"{label}: kernel disagrees with its plain version at q {q_lens} over "
+                 f"{sk} keys {dtype}: max abs err {err} (atol {ATOL[dtype]}), rel RMS "
+                 f"err {rel} (tol {REL_RMS[dtype]})")
         # what the check would see from a kernel that skipped the last KV tile
-        cut = flash_attention_reference(q, k[:, :-KV_TILE], v[:, :-KV_TILE])
+        cut = torch.cat(reference(qs, k[:, :-KV_TILE], v[:, :-KV_TILE]), dim=1)
         cut_err, cut_rel = abs_and_rel_rms(cut, ref)
         if cut_rel <= REL_RMS[dtype]:
-            fail(f"at {shape} {dtype} the check cannot tell a dropped KV tile: "
+            fail(f"{label}: the check cannot tell a dropped KV tile: "
                  f"rel RMS {cut_rel} <= {REL_RMS[dtype]}")
-        B, S, H, D = shape
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = time_ms(lambda: flash_attention_cuda(q, k, v), reps=20)
-        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v), reps=3)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=20)
-        nbytes = 4 * q.numel() * q.element_size()  # q, k, v read, o written
-        flops = 4 * B * H * S * S * D
+        # every q and k/v read once, every output written once
+        nbytes = (2 * sum(q_lens) + 2 * sk) * B * H * D * qs[0].element_size()
+        flops = 4 * B * H * sum(q_lens) * sk * D
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-        row = dict(label=label, shape=list(shape), dtype=str(dtype).split(".")[-1],
+        qt = torch.cat(qs, dim=1).transpose(1, 2)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        slow = max(t_bytes, t_ops) > 1e-3  # fewer repetitions past 1 ms of bound
+        ms = time_ms(lambda: kernel(qs, k, v), reps=3 if slow else 20)
+        plain_ms = time_ms(lambda: reference(qs, k, v), reps=1 if slow else 3)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                             reps=3 if slow else 20)
+        row = dict(label=label, q_lens=list(q_lens), sk=sk, B=B, H=H, D=D,
+                   dtype=str(dtype).split(".")[-1], path=path,
                    launches_per_generation=per_gen, max_abs_err=err, atol=ATOL[dtype],
                    rel_rms_err=rel, rel_rms_tol=REL_RMS[dtype],
                    dropped_tile_max_abs=cut_err, dropped_tile_rel_rms=cut_rel,
@@ -162,24 +201,37 @@ def check_flash_kernel():
                    bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         rows.append(row)
-        log(f"flash {label:12s} {shape} {row['dtype']:8s} err {err:.3g} (atol {ATOL[dtype]}) "
-            f"rel RMS {rel:.3g} (tol {REL_RMS[dtype]}; a dropped KV tile: {cut_err:.3g} abs, "
-            f"{cut_rel:.3g} rel) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"sdpa {library_ms:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        log(f"{label:15s} q {list(q_lens)} k {sk} B{B} H{H} D{D} {row['dtype']:8s} "
+            f"err {err:.3g} (atol {ATOL[dtype]}) rel RMS {rel:.3g} (tol {REL_RMS[dtype]}; "
+            f"a dropped KV tile: {cut_err:.3g} abs, {cut_rel:.3g} rel) kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']})")
     return rows
 
 
-# -- phase 3 -------------------------------------------------------------------
+def check_kernels():
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_multi_q_cuda,
+        flash_attention_multi_q_reference,
+        flash_attention_reference,
+    )
 
-def build_pipeline(tokdir: Path):
-    from ml_stable_diffusion_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
-    from ml_stable_diffusion_torch.models.init import init_random_
-    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
-    from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
-    from ml_stable_diffusion_torch.pipelines import StableDiffusionPipeline
+    return {
+        "flash_attention": check_kernel(
+            lambda qs, k, v: [flash_attention_cuda(qs[0], k, v)],
+            lambda qs, k, v: [flash_attention_reference(qs[0], k, v)], FLASH_SHAPES),
+        "flash_attention_multi_q": check_kernel(
+            flash_attention_multi_q_cuda, flash_attention_multi_q_reference, MULTI_Q_SHAPES),
+    }
+
+
+# -- phases 3 and 5 -------------------------------------------------------------
+
+def letters_tokenizer(tokdir: Path):
+    """A throw-away letters-only vocab with CLIP's special ids (bench.py's rig)."""
     from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
 
-    # a throw-away letters-only vocab with CLIP's special ids (bench.py's rig)
     vocab = {}
     for ch in "abcdefghijklmnopqrstuvwxyz":
         vocab[ch] = len(vocab)
@@ -188,115 +240,326 @@ def build_pipeline(tokdir: Path):
     vocab["<|endoftext|>"] = 49407
     (tokdir / "vocab.json").write_text(json.dumps(vocab))
     (tokdir / "merges.txt").write_text("#version: 0.2\n")
+    return CLIPTokenizer.from_pretrained_dir(tokdir)
+
+
+def materialize(module, gen, dtype=None, std=0.02):
+    """A module built on the meta device, on the card with random weights:
+    speed weights N(0, std) as bench.py draws them, or variance-preserving
+    ones for std=None."""
+    from ml_stable_diffusion_torch.models.init import init_random_
+
+    module = module.to_empty(device="cuda")
+    if dtype is not None:
+        module = module.to(dtype)
+    return init_random_(module, gen, std=std)
+
+
+def build_sd21_pipeline(tokdir: Path):
+    from ml_stable_diffusion_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
+    from ml_stable_diffusion_torch.pipelines import StableDiffusionPipeline
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.device("meta"):
         te = CLIPTextEncoder(CLIPTextConfig.sd2())
         unet = UNet2DConditionModel(UNetConfig.sd21())
         vae = VAEDecoder(VAEConfig.sd())
-    # speed weights: every leaf ~ N(0, 0.02), as bench.py draws them
-    te = init_random_(te.to_empty(device="cuda"), gen, std=0.02)
-    unet = init_random_(unet.to_empty(device="cuda").to(torch.bfloat16), gen, std=0.02)
-    vae = init_random_(vae.to_empty(device="cuda"), gen, std=0.02)
-    return StableDiffusionPipeline(tokenizer=CLIPTokenizer.from_pretrained_dir(tokdir),
-                                   text_encoder=te, unet=unet, vae_decoder=vae,
-                                   device="cuda")
+    return StableDiffusionPipeline(
+        tokenizer=letters_tokenizer(tokdir), text_encoder=materialize(te, gen),
+        unet=materialize(unet, gen, torch.bfloat16), vae_decoder=materialize(vae, gen),
+        device="cuda")
 
 
-def run_main_path(pipe, counter_owner):
+def build_sd3_pipeline(tokdir: Path):
+    from ml_stable_diffusion_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+    from ml_stable_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
+    from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
+    from ml_stable_diffusion_torch.pipelines import StableDiffusion3Pipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.device("meta"):
+        te_l = CLIPTextEncoder(CLIPTextConfig.sd1())
+        te_g = CLIPTextEncoder(CLIPTextConfig.sdxl_g())
+        mmdit = MMDiT(MMDiTConfig.sd3_medium())
+        vae = VAEDecoder(VAEConfig.sd3())
+    tok = letters_tokenizer(tokdir)
+    return StableDiffusion3Pipeline(
+        tokenizer=tok, tokenizer2=tok, text_encoder=materialize(te_l, gen),
+        text_encoder2=materialize(te_g, gen), mmdit=materialize(mmdit, gen, torch.bfloat16),
+        vae_decoder=materialize(vae, gen), device="cuda")
+
+
+def reset_counters(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def run_main_path(pipe, path, counters):
+    """One warm-up and 3 timed generations with distinct prompts and seeds,
+    the counters set to 0 just before and read just after; then the last
+    generation again with attention forced to the plain path."""
     from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+
+    spec = PATHS[path]
 
     def generate(i, attention="auto"):
         cfg = PipelineConfiguration(
-            prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS, guidance_scale=GUIDANCE,
-            seed=1000 + i, scheduler="DPMSolverMultistep", rng="numpy",
-            disable_safety=True, attention_implementation=attention)
-        before = counter_owner.launches
-        res = pipe.generate_images(cfg, image_hw=(512, 512))
-        launched = counter_owner.launches - before
-        if res.images.shape != (1, 512, 512, 3) or res.images.dtype.name != "uint8":
-            fail(f"images {res.images.shape} {res.images.dtype}, want (1, 512, 512, 3) uint8")
-        if res.latents.shape != (1, 64, 64, 4) or not bool(
+            prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS,
+            guidance_scale=spec["guidance"], seed=1000 + i, scheduler=spec["scheduler"],
+            rng="numpy", disable_safety=True, attention_implementation=attention)
+        before = {name: fn.launches for name, fn in counters.items()}
+        t0 = time.perf_counter()
+        res = pipe.generate_images(cfg, image_hw=spec["image_hw"])
+        seconds = time.perf_counter() - t0  # the images reach the host in it
+        launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+        want = (1, *spec["image_hw"], 3)
+        if res.images.shape != want or res.images.dtype.name != "uint8":
+            fail(f"{path}: images {res.images.shape} {res.images.dtype}, want {want} uint8")
+        if res.latents.shape != spec["latents"] or not bool(
                 torch.isfinite(torch.from_numpy(res.latents)).all()):
-            fail(f"latents {res.latents.shape} not finite or misshapen")
-        return res, launched
+            fail(f"{path}: latents {res.latents.shape} not finite or not {spec['latents']}")
+        return res, launched, seconds
 
-    counter_owner.launches = 0
+    reset_counters(counters)
     t0 = time.perf_counter()
     runs = [generate(i) for i in range(4)]  # warm-up + 3 timed
     wall = time.perf_counter() - t0
-    launches = counter_owner.launches
-    for res, launched in runs:
-        if launched != FLASH_PER_GENERATION:
-            fail(f"flash kernel launched {launched} times in a generation, "
-                 f"want {FLASH_PER_GENERATION}")
-    sps = statistics.median(r.seconds_per_step for r, _ in runs[1:])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for _, launched, _ in runs:
+        if launched != spec["per_generation"]:
+            fail(f"{path}: a generation launched {launched}, want {spec['per_generation']}")
+    sps = statistics.median(r.seconds_per_step for r, _, _ in runs[1:])
+    spi = statistics.median(secs for _, _, secs in runs[1:])
     # the same generation with attention forced to the plain path.  On these
     # N(0, 0.02) weights q.k is near zero and attention nearly uniform, so
     # this shows the plain path runs end to end more than it tests the
-    # kernel: phase 4, on variance-preserving weights, is the in-model check
-    plain, plain_launches = generate(3, attention="plain")
-    if plain_launches:
-        fail("attention_implementation='plain' still launched the flash kernel")
+    # kernel: phases 4 and 6, on variance-preserving weights, are the
+    # in-model checks
+    plain, plain_launched, plain_secs = generate(3, attention="plain")
+    if any(plain_launched.values()):
+        fail(f"{path}: attention_implementation='plain' still launched {plain_launched}")
     rel = float(abs(runs[3][0].latents - plain.latents).max()
                 / max(abs(plain.latents).max(), 1e-12))
     if not rel <= GEN_MAX_REL_ERR:
-        fail(f"flash vs plain generation latents differ by {rel} (rel) > {GEN_MAX_REL_ERR}")
-    return dict(seconds_per_step=sps, iter_per_s=1.0 / sps,
-                seconds_per_step_runs=[r.seconds_per_step for r, _ in runs],
+        fail(f"{path}: flash vs plain latents differ by {rel} (rel) > {GEN_MAX_REL_ERR}")
+    return dict(seconds_per_step=sps, iter_per_s=1.0 / sps, seconds_per_image=spi,
+                seconds_per_step_runs=[r.seconds_per_step for r, _, _ in runs],
+                seconds_per_image_runs=[secs for _, _, secs in runs],
                 seconds_per_step_plain=plain.seconds_per_step,
-                wall_s_4_generations=wall, flash_launches=launches,
+                seconds_per_image_plain=plain_secs,
+                wall_s_4_generations=wall, launches=launches,
                 flash_vs_plain_latents_rel_err=rel)
 
 
-# -- phase 4 -------------------------------------------------------------------
+# -- phases 4 and 6 ------------------------------------------------------------------
 
-def check_unet_flash_vs_plain(counter_owner):
-    from ml_stable_diffusion_torch.models.init import init_random_
-    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+def check_model_flash_vs_plain(label, model, inputs, counter, want_launches):
+    """One forward with the attention dispatch on the kernel, one forced to
+    the plain path: PSNR of the outputs and the launch counts."""
     from ml_stable_diffusion_torch.ops.attention import set_attention_implementation
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    with torch.device("meta"):
-        unet = UNet2DConditionModel(UNetConfig.sd21())
-    unet = init_random_(unet.to_empty(device="cuda").to(torch.bfloat16), gen)
-    x = torch.randn(2, 4, 64, 64, generator=gen, device="cuda")
-    ctx = torch.randn(2, 77, 1024, generator=gen, device="cuda")
-    t = torch.tensor(500.0, device="cuda")
-    outs = {}
+    outs, launched = {}, {}
     try:
         with torch.inference_mode():
-            for impl in ("flash", "plain"):
-                set_attention_implementation("auto" if impl == "flash" else "plain")
-                before = counter_owner.launches
-                outs[impl] = unet(x, t, ctx)
+            for impl in ("auto", "plain"):
+                set_attention_implementation(impl)
+                before = counter.launches
+                outs[impl] = model(*inputs)
                 torch.cuda.synchronize()
-                outs[impl + "_launches"] = counter_owner.launches - before
+                launched[impl] = counter.launches - before
     finally:
         set_attention_implementation("auto")
-    if outs["flash_launches"] != 15 or outs["plain_launches"] != 0:
-        fail(f"UNet forward launched flash {outs['flash_launches']} / "
-             f"{outs['plain_launches']} times, want 15 / 0")
-    ref, got = outs["plain"], outs["flash"]
+    if launched != {"auto": want_launches, "plain": 0}:
+        fail(f"{label} forward launched the kernel {launched['auto']} / {launched['plain']} "
+             f"times (auto / plain), want {want_launches} / 0")
+    ref, got = outs["plain"], outs["auto"]
     max_abs = (got - ref).abs().max().item()
     mse = ((got - ref) ** 2).mean().item()
     peak = ref.abs().max().item()
     psnr = 10 * math.log10(peak ** 2 / mse) if mse > 0 else math.inf
-    log(f"unet flash vs plain: max abs {max_abs:.4g}, PSNR {psnr:.2f} dB "
-        f"(min {UNET_MIN_PSNR_DB}), output peak {peak:.4g}")
-    if not (math.isfinite(max_abs) and psnr >= UNET_MIN_PSNR_DB):
-        fail(f"UNet flash vs plain PSNR {psnr} dB < {UNET_MIN_PSNR_DB}")
-    return dict(max_abs=max_abs, psnr_db=psnr, peak=peak)
+    log(f"{label} flash vs plain: max abs {max_abs:.4g}, PSNR {psnr:.2f} dB "
+        f"(min {MODEL_MIN_PSNR_DB}), output peak {peak:.4g}, {want_launches} launches")
+    if not (math.isfinite(max_abs) and psnr >= MODEL_MIN_PSNR_DB):
+        fail(f"{label} flash vs plain PSNR {psnr} dB < {MODEL_MIN_PSNR_DB}")
+    return dict(max_abs=max_abs, psnr_db=psnr, peak=peak, launches=want_launches)
+
+
+def check_unet_flash_vs_plain(counter):
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(UNetConfig.sd21())
+    unet = materialize(unet, gen, torch.bfloat16, std=None)
+    inputs = (torch.randn(2, 4, 64, 64, generator=gen, device="cuda"),
+              torch.tensor(500.0, device="cuda"),
+              torch.randn(2, 77, 1024, generator=gen, device="cuda"))
+    return check_model_flash_vs_plain("unet", unet, inputs, counter, 15)
+
+
+def check_mmdit_flash_vs_plain(counter):
+    from ml_stable_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cfg = MMDiTConfig.sd3_medium()
+    with torch.device("meta"):
+        mmdit = MMDiT(cfg)
+    mmdit = materialize(mmdit, gen, torch.bfloat16, std=None)
+    inputs = (torch.randn(2, 16, 128, 128, generator=gen, device="cuda"),
+              torch.tensor(500.0, device="cuda"),
+              torch.randn(2, 154, cfg.context_dim, generator=gen, device="cuda"),
+              torch.randn(2, cfg.pooled_dim, generator=gen, device="cuda"))
+    return check_model_flash_vs_plain("mmdit", mmdit, inputs, counter, cfg.depth)
+
+
+def per_generation(rows, path):
+    """Times of one generation's launches on ``path``: sum over its shapes
+    of per-launch time x launches at that shape."""
+    rows = [r for r in rows if r["path"] == path and r["launches_per_generation"]]
+    out = {key: sum(r[key] * r["launches_per_generation"] for r in rows)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out["launches"] = sum(r["launches_per_generation"] for r in rows)
+    return out
+
+
+def kernel_entry(name, replaces, rows, main_launches, paths):
+    """The kernel's line: launches from the main paths' runs, and the times
+    of its launches in one generation of each path it runs on."""
+    per_gen = {p: per_generation(rows, p) for p in paths}
+    # what bounds the shape that takes the largest share of the bound
+    heavy = max((r for r in rows if r["path"] in paths),
+                key=lambda r: r["bound_ms"] * r["launches_per_generation"])
+    entry = dict(name=name, route="cuda",
+                 source="ml_stable_diffusion_torch/csrc/flash_attention.cu",
+                 replaces=replaces, launches=sum(main_launches[p][name] for p in paths),
+                 max_abs_err=max(r["max_abs_err"] for r in rows))
+    for key in ("ms", "plain_ms", "bound_ms"):
+        entry[key] = sum(g[key] for g in per_gen.values())
+    entry["bound_by"] = heavy["bound_by"]
+    entry["library_ms"] = sum(g["library_ms"] for g in per_gen.values())
+    entry["launches_by_path"] = {p: main_launches[p][name] for p in paths}
+    entry["per_generation"] = per_gen
+    entry["shapes"] = rows
+    return entry
+
+
+#: kernel name fragments -> group; the first match wins (cuDNN's implicit-GEMM
+#: convolutions carry "gemm" in their names too)
+_KERNEL_GROUPS = (("flash kernel", ("flash_mma", "flash_fma")),
+                  ("convolution", ("conv", "fprop", "dgrad", "implicit")),
+                  ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
+                  ("softmax", ("softmax",)))
+
+
+def _device_time(prof):
+    """-> (busy us, {group: us}, {kernel name: (launches, us)}) of the device
+    kernels a profiler recorded; busy is the union of their intervals."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        fail("the profiler recorded no device time")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    groups, names = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        low = e.name.lower()
+        group = next((g for g, keys in _KERNEL_GROUPS if any(k in low for k in keys)),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + us
+        n, t = names.get(e.name, (0, 0.0))
+        names[e.name] = (n + 1, t + us)
+    return busy, groups, names
+
+
+def profile_generation(path):
+    """One generation of ``path`` under torch.profiler after a warm-up, then
+    its VAE decode alone: device time by kernel group for the generation,
+    the decode, and per denoise step (generation less decode, over the
+    steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+
+    spec = PATHS[path]
+    build = build_sd21_pipeline if path == "sd21" else build_sd3_pipeline
+    with tempfile.TemporaryDirectory() as tokdir:
+        pipe = build(Path(tokdir))
+
+    def generate(i):
+        return pipe.generate_images(PipelineConfiguration(
+            prompt=PROMPTS[i], step_count=STEPS, guidance_scale=spec["guidance"],
+            seed=1000 + i, scheduler=spec["scheduler"], rng="numpy", disable_safety=True),
+            image_hw=spec["image_hw"])
+
+    res = generate(0)
+    pipe.decode_latents(res.latents)
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        res = generate(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with profile(activities=activities) as prof_decode:
+        pipe.decode_latents(res.latents)
+        torch.cuda.synchronize()
+    busy, groups, names = _device_time(prof)
+    dec_busy, dec_groups, _ = _device_time(prof_decode)
+    per_step = {g: (t - dec_groups.get(g, 0.0)) / 1e3 / STEPS for g, t in groups.items()}
+    summary = dict(path=path, wall_s=wall, seconds_per_step=res.seconds_per_step,
+                   device_busy_s=busy / 1e6, device_busy_share=busy / 1e6 / wall,
+                   decode_device_s=dec_busy / 1e6,
+                   device_ms_by_group={g: t / 1e3 for g, t in groups.items()},
+                   decode_device_ms_by_group={g: t / 1e3 for g, t in dec_groups.items()},
+                   step_device_ms_by_group=per_step)
+    log(f"profiled one {path} generation (profiler on: host work is slower than in "
+        f"phases 3/5): wall {wall:.3f} s, {res.seconds_per_step * 1e3:.2f} ms/step, "
+        f"device busy {busy / 1e6:.3f} s ({100 * busy / 1e6 / wall:.1f} % of wall), "
+        f"of it the VAE decode {dec_busy / 1e6:.3f} s")
+    step_total = sum(per_step.values())
+    for g, ms in sorted(per_step.items(), key=lambda kv: -kv[1]):
+        log(f"  {g:12s} {ms:8.2f} ms per step ({100 * ms / step_total:.1f} %); "
+            f"decode {dec_groups.get(g, 0.0) / 1e3:8.2f} ms")
+    for name, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][1])[:25]:
+        log(f"  {us / 1e3:10.2f} ms  {n:6d} x  {name[:110]}")
+    log(json.dumps({"profile": summary}))
 
 
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile" and sys.argv[2] in PATHS:
+        if not torch.cuda.is_available():
+            print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
+            return 1
+        from ml_stable_diffusion_torch.utils.numerics import apply_numerics
+
+        apply_numerics()
+        log(f"card: {card_line()}")
+        profile_generation(sys.argv[2])
+        return 0
+    if len(sys.argv) > 1:
+        print(f"usage: {sys.argv[0]} [--profile {'|'.join(PATHS)}]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from ml_stable_diffusion_torch.ops.flash_attention import flash_attention_cuda
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_multi_q_cuda,
+    )
     from ml_stable_diffusion_torch.utils import cuda_build
     from ml_stable_diffusion_torch.utils.numerics import apply_numerics, numerics_settings
 
+    counters = {"flash_attention": flash_attention_cuda,
+                "flash_attention_multi_q": flash_attention_multi_q_cuda}
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -313,43 +576,36 @@ def main():
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
 
-    rows = check_flash_kernel()
+    rows = check_kernels()
 
-    with tempfile.TemporaryDirectory() as tokdir:
-        pipe = build_pipeline(Path(tokdir))
-        main_path = run_main_path(pipe, flash_attention_cuda)
-    log(f"main path: SD-2.1 512x512, {STEPS} steps DPM++ 2M, CFG batch 2: "
-        f"{main_path['seconds_per_step'] * 1e3:.2f} ms/step, "
-        f"{main_path['iter_per_s']:.2f} iter/s ({card}); plain attention "
-        f"{main_path['seconds_per_step_plain'] * 1e3:.2f} ms/step; "
-        f"flash vs plain latents rel err {main_path['flash_vs_plain_latents_rel_err']:.3g}")
-    del pipe
-    torch.cuda.empty_cache()
+    main_paths, model_checks = {}, {}
+    for path, build, check in (("sd21", build_sd21_pipeline, check_unet_flash_vs_plain),
+                               ("sd3", build_sd3_pipeline, check_mmdit_flash_vs_plain)):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tokdir:
+            pipe = build(Path(tokdir))
+            res = main_paths[path] = run_main_path(pipe, path, counters)
+        log(f"main path {path}: {PATHS[path]['label']}: "
+            f"{res['seconds_per_step'] * 1e3:.2f} ms/step, {res['iter_per_s']:.2f} iter/s, "
+            f"{res['seconds_per_image']:.3f} s/image ({card}); plain attention "
+            f"{res['seconds_per_step_plain'] * 1e3:.2f} ms/step; flash vs plain latents rel "
+            f"err {res['flash_vs_plain_latents_rel_err']:.3g}; launches {res['launches']}")
+        del pipe
+        torch.cuda.empty_cache()
+        counter = counters["flash_attention" if path == "sd21" else "flash_attention_multi_q"]
+        model_checks[path] = check(counter)
+        torch.cuda.empty_cache()
+        log(f"phases of {path}: {time.perf_counter() - t0:.1f} s")
 
-    unet_check = check_unet_flash_vs_plain(flash_attention_cuda)
-
-    per_gen = [r for r in rows if r["launches_per_generation"]]
-
-    def total(key):
-        return sum(r[key] * r["launches_per_generation"] for r in per_gen)
-
-    # what bounds the shape that takes the largest share of the bound
-    bound_by = max(per_gen, key=lambda r: r["bound_ms"] * r["launches_per_generation"])
-    kernels = [dict(
-        name="flash_attention",
-        route="cuda",
-        source="ml_stable_diffusion_torch/csrc/flash_attention.cu",
-        replaces="ml_stable_diffusion_tpu/ops/flash_attention.py:151",
-        launches=main_path["flash_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in rows),
-        # times of one generation's 301 launches: sum over its shapes of
-        # per-launch time x launches at that shape
-        ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-        bound_by=bound_by["bound_by"],
-        library_ms=total("library_ms"),
-        shapes=rows,
-    )]
-    log(json.dumps({"main_path": main_path, "unet_flash_vs_plain": unet_check,
+    launches = {p: r["launches"] for p, r in main_paths.items()}
+    kernels = [
+        kernel_entry("flash_attention", "ml_stable_diffusion_tpu/ops/flash_attention.py:151",
+                     rows["flash_attention"], launches, ("sd21", "sd3")),
+        kernel_entry("flash_attention_multi_q",
+                     "ml_stable_diffusion_tpu/ops/flash_attention.py:281",
+                     rows["flash_attention_multi_q"], launches, ("sd3",)),
+    ]
+    log(json.dumps({"main_paths": main_paths, "flash_vs_plain_in_model": model_checks,
                     "numerics": numerics_settings()}))
     log(json.dumps({"kernels": kernels}))
     log(card)

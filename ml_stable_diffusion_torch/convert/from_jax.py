@@ -4,7 +4,7 @@ The input is a Flax parameter tree as nested dicts of numpy arrays (the
 caller runs ``np.asarray`` over the leaves; this module imports no JAX).
 The output is a diffusers/transformers-keyed state dict of torch tensors that
 ``load_state_dict(strict=True)`` accepts for ``UNet2DConditionModel``,
-``VAEDecoder`` and ``CLIPTextEncoder``.
+``VAEDecoder``, ``CLIPTextEncoder`` and ``MMDiT``.
 
 Layouts: a conv kernel goes HWIO -> OIHW, a dense kernel is transposed,
 a norm ``scale`` becomes ``weight``, an embedding table stays as it is.
@@ -109,5 +109,51 @@ def clip_text_state_dict(params) -> dict[str, torch.Tensor]:
             name = "text_projection"
         else:
             raise KeyError(f"unexpected CLIP parameter {'/'.join(path)}")
+        sd[f"{name}.{leaf}"] = tensor
+    return sd
+
+
+# flax MMDiT module name -> diffusers SD3Transformer2DModel module path
+_MMDIT_TOP = {
+    "patch_proj": "pos_embed.proj",
+    "timestep_embedder": "time_text_embed.timestep_embedder",
+    "text_embedder": "time_text_embed.text_embedder",
+    "context_embedder": "context_embedder",
+    "norm_out_linear": "norm_out.linear",
+    "proj_out": "proj_out",
+}
+_MMDIT_BLOCK = {
+    "norm1_linear": "norm1.linear", "norm1_context_linear": "norm1_context.linear",
+    "to_q": "attn.to_q", "to_k": "attn.to_k", "to_v": "attn.to_v",
+    "add_q_proj": "attn.add_q_proj", "add_k_proj": "attn.add_k_proj",
+    "add_v_proj": "attn.add_v_proj", "to_out_0": "attn.to_out.0",
+    "to_add_out": "attn.to_add_out",
+    "norm_q": "attn.norm_q", "norm_k": "attn.norm_k",
+    "norm_added_q": "attn.norm_added_q", "norm_added_k": "attn.norm_added_k",
+    "ff_proj": "ff.net.0.proj", "ff_out": "ff.net.2",
+    "ff_context_proj": "ff_context.net.0.proj", "ff_context_out": "ff_context.net.2",
+}
+
+
+def mmdit_state_dict(params) -> dict[str, torch.Tensor]:
+    """Flax ``MMDiT`` params -> port ``MMDiT`` state dict (diffusers
+    ``SD3Transformer2DModel`` keys).  The positional table goes from the
+    Flax (M, M, D) grid to the diffusers (1, M*M, D) layout."""
+    sd = {}
+    for path, value in _leaves(params):
+        head = path[0]
+        if head == "pos_embed":
+            M1, M2, D = value.shape
+            sd["pos_embed.pos_embed"] = torch.tensor(
+                np.ascontiguousarray(value.reshape(1, M1 * M2, D)))
+            continue
+        leaf, tensor = _tensor(path[-1], value)
+        m = re.fullmatch(r"blocks_(\d+)", head)
+        if m:
+            name = f"transformer_blocks.{m.group(1)}.{_MMDIT_BLOCK[path[1]]}"
+        elif head in _MMDIT_TOP:
+            name = ".".join([_MMDIT_TOP[head], *path[1:-1]])
+        else:
+            raise KeyError(f"unexpected MMDiT parameter {'/'.join(path)}")
         sd[f"{name}.{leaf}"] = tensor
     return sd

@@ -1,10 +1,23 @@
 // Flash attention forward for Hopper (sm_90a), bound to Python through ctypes.
 //
 // Replaces the Pallas TPU kernel ml_stable_diffusion_tpu/ops/flash_attention.py
-// (_flash_kernel, launched by _flash_bhsd).  Same function: non-causal
-// multi-head attention, softmax(q k^T / sqrt(D)) v, computed blockwise with an
-// online softmax in base 2 (log2 e folded into the logit scale, exp2f), the
-// running max and sum kept in f32, one division at the end.
+// (_flash_kernel, launched by _flash_bhsd, once per query stream by
+// flash_attention_multi_q).  Same function: non-causal multi-head attention,
+// softmax(q k^T / sqrt(D)) v, computed blockwise with an online softmax in
+// base 2 (log2 e folded into the logit scale, exp2f), the running max and sum
+// kept in f32, one division at the end.
+//
+// Two C entries share one launch path:
+//  * flash_attention_fwd: one query stream (the UNet and VAE self-attention);
+//  * flash_attention_multi_q_fwd: up to 4 query streams over ONE shared k/v,
+//    the MMDiT joint attention (SD3-medium 1024^2: 4096 latent rows and 154
+//    context rows over the 4250 concatenated keys).  It is the same as
+//    attending the concatenated queries and splitting.  One launch covers
+//    every stream: blockIdx.x counts the query tiles of all streams and each
+//    block finds its stream in a small table passed by value (QStreams), so
+//    the context stream's 3 x B*H tiles fill the tail wave of the latent
+//    stream's 64 x B*H instead of a second launch.  The single-stream entry
+//    is the one-stream case of the same kernels.
 //
 // What bounds it on the H100.  At the UNet's shapes (D = 64, 256..4096 tokens)
 // the work is 4*S^2*D flops against 4*S*D elements of traffic, so it is bound
@@ -18,7 +31,8 @@
 //  * One thread block per (batch*head, query tile); a loop over KV tiles
 //    inside the block takes the place of the TPU grid's sequential KV axis.
 //  * q, k and v are read in place from their (B, S, H, D) layout through
-//    strides: there are no BSHD->BHSD transposes and no pad copies.
+//    strides: there are no BSHD->BHSD transposes, no pad copies and, for
+//    several streams, no q concatenation or output split.
 //  * Ragged Sq and Sk edges are masked in the kernel (rows past Sq are not
 //    stored, columns past Sk get a -1e30 logit), so the TPU kernel's
 //    ones-column normalizer / KV mask is not needed.
@@ -48,6 +62,49 @@ constexpr float kNegBig = -1e30f;
 struct Strides {
   long long b, s, h;  // element strides of the batch, sequence and head axes
 };
+
+constexpr int kMaxStreams = 4;
+
+// The query streams of one launch; every stream attends over the same k/v.
+// Stream i owns the query tiles [tile0[i], tile0[i + 1]) of blockIdx.x.
+struct QStreams {
+  const void* q[kMaxStreams];
+  void* o[kMaxStreams];
+  int sq[kMaxStreams];
+  int tile0[kMaxStreams + 1];
+  Strides qs[kMaxStreams], os[kMaxStreams];
+  int n;
+};
+
+struct QTile {
+  const void* q;
+  void* o;
+  int sq, q0;  // the stream's length and this block's first query row
+  Strides qs, os;
+};
+
+// This block's stream.  Unrolled over the table with constant indices, so the
+// table is read from the parameter bank and never copied to local memory.
+__device__ __forceinline__ QTile find_tile(const QStreams& t, int bq) {
+  const int x = static_cast<int>(blockIdx.x);
+  int si = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxStreams; ++i)
+    if (i < t.n && x >= t.tile0[i]) si = i;
+  QTile r{};
+#pragma unroll
+  for (int i = 0; i < kMaxStreams; ++i) {
+    if (i == si) {
+      r.q = t.q[i];
+      r.o = t.o[i];
+      r.sq = t.sq[i];
+      r.q0 = (x - t.tile0[i]) * bq;
+      r.qs = t.qs[i];
+      r.os = t.os[i];
+    }
+  }
+  return r;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -118,9 +175,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 template <int D>
 __global__ void __launch_bounds__(128)
-flash_mma_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
-               int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+flash_mma_bf16(const __grid_constant__ QStreams streams, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, int H, int Sk, Strides ks, Strides vs,
                float scale_log2) {
   constexpr int BQ = 64;       // query rows per block: 4 warps x 16
   constexpr int BK = 64;       // kv rows per tile
@@ -141,12 +197,14 @@ flash_mma_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma group id / thread in group
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BQ;
+  const QTile tile = find_tile(streams, BQ);
+  const int Sq = tile.sq, q0 = tile.q0;
+  const Strides qs = tile.qs, os = tile.os;
 
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(tile.q) + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(tile.o) + b * os.b + h * os.h;
 
   // rows at or past `limit` load as zeros
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, long long ss, int row0,
@@ -305,9 +363,8 @@ constexpr int fma_smem_bytes() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kFmaThreads)
-flash_fma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int H, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-          Strides os, float scale_log2) {
+flash_fma(const __grid_constant__ QStreams streams, const T* __restrict__ k,
+          const T* __restrict__ v, int H, int Sk, Strides ks, Strides vs, float scale_log2) {
   constexpr int BQ = kFmaBQ, BK = kFmaBK;
   constexpr int LD = D + 1;     // padded k|v rows: column reads hit distinct banks
   constexpr int LDP = BQ + 4;   // P rows stay 16-byte aligned
@@ -324,12 +381,14 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int r0 = (tid >> 5) * 4;
   const int lane = tid & 31;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BQ;
+  const QTile tile = find_tile(streams, BQ);
+  const int Sq = tile.sq, q0 = tile.q0;
+  const Strides qs = tile.qs, os = tile.os;
 
-  const T* qb = q + b * qs.b + h * qs.h;
+  const T* qb = static_cast<const T*>(tile.q) + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
-  T* ob = o + b * os.b + h * os.h;
+  T* ob = static_cast<T*>(tile.o) + b * os.b + h * os.h;
 
   // 4 elements per load (the wrapper aligns rows to 16 bytes), unrolled so
   // that many loads are in flight at once
@@ -440,18 +499,45 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 template <typename T, int D>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, int B, int H,
-                       int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-                       float scale_log2, cudaStream_t stream) {
+cudaError_t launch_fma(const QStreams& streams, const void* k, const void* v, int B, int H,
+                       int Sk, Strides ks, Strides vs, float scale_log2, cudaStream_t stream) {
   constexpr int smem = fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fma<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kFmaBQ - 1) / kFmaBQ, B * H);
+  dim3 grid(streams.tile0[streams.n], B * H);
   flash_fma<T, D><<<grid, kFmaThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Sq, Sk, qs, ks, vs, os, scale_log2);
+      streams, static_cast<const T*>(k), static_cast<const T*>(v), H, Sk, ks, vs, scale_log2);
   return cudaGetLastError();
+}
+
+// One launch over every stream of the table: fills in the tile offsets for
+// the kernel that takes this (dtype, D), then launches it.
+int launch(QStreams streams, const void* k, const void* v, int B, int H, int Sk, int D,
+           int dtype, Strides ks, Strides vs, cudaStream_t stream) {
+  const bool mma = dtype == 1 && D == 64;
+  const int bq = mma ? 64 : kFmaBQ;
+  streams.tile0[0] = 0;
+  for (int i = 0; i < streams.n; ++i)
+    streams.tile0[i + 1] = streams.tile0[i] + (streams.sq[i] + bq - 1) / bq;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  if (mma) {
+    dim3 grid(streams.tile0[streams.n], B * H);
+    flash_mma_bf16<64><<<grid, 128, 0, stream>>>(
+        streams, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), H,
+        Sk, ks, vs, scale_log2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype == 1 && D == 512)
+    return static_cast<int>(
+        launch_fma<__nv_bfloat16, 512>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+  if (dtype == 0 && D == 64)
+    return static_cast<int>(
+        launch_fma<float, 64>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+  if (dtype == 0 && D == 512)
+    return static_cast<int>(
+        launch_fma<float, 512>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -464,26 +550,37 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long k_ss, long long k_sh, long long v_sb,
                                    long long v_ss, long long v_sh, long long o_sb,
                                    long long o_ss, long long o_sh, void* stream) {
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
-      os{o_sb, o_ss, o_sh};
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64) {
-    dim3 grid((Sq + 63) / 64, B * H);
-    flash_mma_bf16<64><<<grid, 128, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, Sq, Sk, qs, ks,
-        vs, os, scale_log2);
-    return static_cast<int>(cudaGetLastError());
+  QStreams streams{};
+  streams.n = 1;
+  streams.q[0] = q;
+  streams.o[0] = o;
+  streams.sq[0] = Sq;
+  streams.qs[0] = Strides{q_sb, q_ss, q_sh};
+  streams.os[0] = Strides{o_sb, o_ss, o_sh};
+  return launch(streams, k, v, B, H, Sk, D, dtype, Strides{k_sb, k_ss, k_sh},
+                Strides{v_sb, v_ss, v_sh}, static_cast<cudaStream_t>(stream));
+}
+
+// n query streams (1..4) over one k/v.  q[i] and o[i] are (B, sq[i], H, D);
+// q_strides and o_strides hold each stream's (batch, sequence, head) strides,
+// 3 per stream.  Same dtype codes and return value as flash_attention_fwd.
+extern "C" int flash_attention_multi_q_fwd(int n, const void* const* q, void* const* o,
+                                           const int* sq, const long long* q_strides,
+                                           const long long* o_strides, const void* k,
+                                           const void* v, int B, int H, int Sk, int D,
+                                           int dtype, long long k_sb, long long k_ss,
+                                           long long k_sh, long long v_sb, long long v_ss,
+                                           long long v_sh, void* stream) {
+  if (n < 1 || n > kMaxStreams) return static_cast<int>(cudaErrorInvalidValue);
+  QStreams streams{};
+  streams.n = n;
+  for (int i = 0; i < n; ++i) {
+    streams.q[i] = q[i];
+    streams.o[i] = o[i];
+    streams.sq[i] = sq[i];
+    streams.qs[i] = Strides{q_strides[3 * i], q_strides[3 * i + 1], q_strides[3 * i + 2]};
+    streams.os[i] = Strides{o_strides[3 * i], o_strides[3 * i + 1], o_strides[3 * i + 2]};
   }
-  if (dtype == 1 && D == 512)
-    return static_cast<int>(launch_fma<__nv_bfloat16, 512>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs,
-                                                           os, scale_log2, st));
-  if (dtype == 0 && D == 64)
-    return static_cast<int>(
-        launch_fma<float, 64>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale_log2, st));
-  if (dtype == 0 && D == 512)
-    return static_cast<int>(
-        launch_fma<float, 512>(q, k, v, o, B, H, Sq, Sk, qs, ks, vs, os, scale_log2, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(streams, k, v, B, H, Sk, D, dtype, Strides{k_sb, k_ss, k_sh},
+                Strides{v_sb, v_ss, v_sh}, static_cast<cudaStream_t>(stream));
 }

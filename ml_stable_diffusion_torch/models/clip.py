@@ -35,9 +35,22 @@ class CLIPTextConfig:
     projection_dim: int = 1280
 
     @classmethod
+    def sd1(cls) -> "CLIPTextConfig":
+        """openai/clip-vit-large-patch14 (SD 1.x; SD3's first encoder)."""
+        return cls(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                   num_attention_heads=12, hidden_act="quick_gelu")
+
+    @classmethod
     def sd2(cls) -> "CLIPTextConfig":
         """OpenCLIP ViT-H trimmed to 23 layers (SD 2.x checkpoints ship 23)."""
         return cls()
+
+    @classmethod
+    def sdxl_g(cls) -> "CLIPTextConfig":
+        """OpenCLIP bigG (SDXL text encoder 2; SD3's second encoder)."""
+        return cls(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+                   num_attention_heads=20, use_text_projection=True,
+                   projection_dim=1280)
 
 
 def _activation(name: str):

@@ -1,0 +1,254 @@
+"""MMDiT, the multimodal diffusion transformer of SD3 (port of
+ml_stable_diffusion_tpu/models/mmdit.py).
+
+NCHW latents in, a float32 velocity out, NCHW; the model computes in the
+dtype of its parameters.  Parameter names are the diffusers
+``SD3Transformer2DModel`` keys (``pos_embed.proj``, ``pos_embed.pos_embed``,
+``time_text_embed.timestep_embedder.linear_1``, ``context_embedder``,
+``transformer_blocks.0.norm1.linear``, ``...attn.to_q``,
+``...attn.add_q_proj``, ``...ff.net.0.proj``, ``...ff_context.net.2``,
+``norm_out.linear``, ``proj_out``), so a converted checkpoint loads with
+``load_state_dict(strict=True)``.  The math follows the Flax module:
+
+- each block modulates with adaLN-Zero, split ``[shift, scale, gate, shift2,
+  scale2, gate2]``; the last block's context stream and the final norm use
+  the AdaLayerNormContinuous order ``[scale, shift]``;
+- the last block (``context_pre_only``) projects the context to q/k/v but
+  has no ``to_add_out`` and no ``ff_context``;
+- LayerNorms carry no affine parameters, eps 1e-6; qk RMSNorm (SD3.5) eps
+  1e-6;
+- the learned positional table is centre-cropped from its M x M grid;
+- the latent and context streams attend jointly over their concatenated
+  keys (ops/attention.py:joint_dot_product_attention): on the card one
+  launch of the multi-stream flash kernel per block.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.activations import gelu_tanh
+from ..ops.attention import joint_dot_product_attention
+from .unet import TimestepEmbedding, get_timestep_embedding
+
+
+@dataclasses.dataclass(frozen=True)
+class MMDiTConfig:
+    patch_size: int = 2
+    in_channels: int = 16
+    out_channels: int = 16
+    depth: int = 24
+    hidden_size: int = 1536  # = 64 * depth for SD3-medium
+    num_heads: int = 24
+    context_dim: int = 4096  # CLIP-L + CLIP-G (zero-padded) and T5 width
+    pooled_dim: int = 2048
+    pos_embed_max_size: int = 192
+    #: SD3.5 uses RMS qk-normalization
+    qk_norm: bool = False
+
+    @classmethod
+    def sd3_medium(cls) -> "MMDiTConfig":
+        return cls()
+
+    @classmethod
+    def sd35_large(cls) -> "MMDiTConfig":
+        return cls(depth=38, hidden_size=2432, num_heads=38, qk_norm=True)
+
+
+def _layer_norm(x):
+    return F.layer_norm(x, (x.shape[-1],), eps=1e-6)
+
+
+def _modulate(x, shift, scale):
+    return x * (1 + scale[:, None]) + shift[:, None]
+
+
+class _RMSNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        return (xf * (var + 1e-6) ** -0.5).to(x.dtype) * self.weight.to(x.dtype)
+
+
+class _AdaLN(nn.Module):
+    """The modulation linear of diffusers' AdaLayerNormZero/Continuous:
+    ``n`` chunks of width D from silu(c)."""
+
+    def __init__(self, dim: int, n: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, n * dim)
+
+    def forward(self, c):
+        return self.linear(F.silu(c))
+
+
+class _GELUProj(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner)
+
+    def forward(self, x):
+        return gelu_tanh(self.proj(x))
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        # diffusers' [GELU(proj), Dropout, Linear]
+        self.net = nn.ModuleList([_GELUProj(dim, 4 * dim), nn.Identity(),
+                                  nn.Linear(4 * dim, dim)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class _JointAttention(nn.Module):
+    def __init__(self, cfg: MMDiTConfig, context_pre_only: bool):
+        super().__init__()
+        D = cfg.hidden_size
+        self.heads = cfg.num_heads
+        self.to_q, self.to_k, self.to_v = (nn.Linear(D, D) for _ in range(3))
+        self.add_q_proj, self.add_k_proj, self.add_v_proj = (nn.Linear(D, D)
+                                                             for _ in range(3))
+        self.to_out = nn.ModuleList([nn.Linear(D, D)])
+        if not context_pre_only:
+            self.to_add_out = nn.Linear(D, D)
+        if cfg.qk_norm:
+            Dh = D // cfg.num_heads
+            self.norm_q, self.norm_k = _RMSNorm(Dh), _RMSNorm(Dh)
+            self.norm_added_q, self.norm_added_k = _RMSNorm(Dh), _RMSNorm(Dh)
+
+    def forward(self, x, ctx):
+        """-> (latent output, context output or None), both projected."""
+        B, Nx, D = x.shape
+        Nc = ctx.shape[1]
+        H = self.heads
+
+        def heads(proj, t, n):
+            return proj(t).view(B, n, H, D // H)
+
+        q_x, k_x, v_x = (heads(p, x, Nx) for p in (self.to_q, self.to_k, self.to_v))
+        q_c, k_c, v_c = (heads(p, ctx, Nc)
+                         for p in (self.add_q_proj, self.add_k_proj, self.add_v_proj))
+        if hasattr(self, "norm_q"):
+            q_x, k_x = self.norm_q(q_x), self.norm_k(k_x)
+            q_c, k_c = self.norm_added_q(q_c), self.norm_added_k(k_c)
+        k = torch.cat([k_x, k_c], dim=1)
+        v = torch.cat([v_x, v_c], dim=1)
+        attn_x, attn_c = joint_dot_product_attention([q_x, q_c], k, v)
+        out_x = self.to_out[0](attn_x.reshape(B, Nx, D))
+        if not hasattr(self, "to_add_out"):
+            return out_x, None
+        return out_x, self.to_add_out(attn_c.reshape(B, Nc, D))
+
+
+class JointTransformerBlock(nn.Module):
+    """Dual-stream block with joint attention and adaLN-Zero modulation."""
+
+    def __init__(self, cfg: MMDiTConfig, context_pre_only: bool = False):
+        super().__init__()
+        D = cfg.hidden_size
+        self.context_pre_only = context_pre_only
+        self.norm1 = _AdaLN(D, 6)
+        self.norm1_context = _AdaLN(D, 2 if context_pre_only else 6)
+        self.attn = _JointAttention(cfg, context_pre_only)
+        self.ff = _FeedForward(D)
+        if not context_pre_only:
+            self.ff_context = _FeedForward(D)
+
+    def forward(self, x, ctx, c):
+        sh1, sc1, g1, sh2, sc2, g2 = self.norm1(c).chunk(6, dim=-1)
+        if self.context_pre_only:
+            csc1, csh1 = self.norm1_context(c).chunk(2, dim=-1)
+        else:
+            csh1, csc1, cg1, csh2, csc2, cg2 = self.norm1_context(c).chunk(6, dim=-1)
+
+        attn_x, attn_c = self.attn(_modulate(_layer_norm(x), sh1, sc1),
+                                   _modulate(_layer_norm(ctx), csh1, csc1))
+        x = x + g1[:, None] * attn_x
+        x = x + g2[:, None] * self.ff(_modulate(_layer_norm(x), sh2, sc2))
+        if self.context_pre_only:
+            return x, ctx
+        ctx = ctx + cg1[:, None] * attn_c
+        ctx = ctx + cg2[:, None] * self.ff_context(_modulate(_layer_norm(ctx), csh2, csc2))
+        return x, ctx
+
+
+class _PatchEmbed(nn.Module):
+    """Patchify conv plus the centre-cropped learned positional table."""
+
+    def __init__(self, cfg: MMDiTConfig):
+        super().__init__()
+        P, D, M = cfg.patch_size, cfg.hidden_size, cfg.pos_embed_max_size
+        self.max_size = M
+        self.proj = nn.Conv2d(cfg.in_channels, D, P, stride=P)
+        self.pos_embed = nn.Parameter(torch.zeros(1, M * M, D))
+
+    def forward(self, latents):
+        x = self.proj(latents)  # (B, D, hp, wp)
+        hp, wp = x.shape[2:]
+        x = x.flatten(2).transpose(1, 2)  # (B, hp*wp, D), row-major patches
+        M, D = self.max_size, x.shape[-1]
+        top, left = (M - hp) // 2, (M - wp) // 2
+        pos = self.pos_embed.view(1, M, M, D)[:, top:top + hp, left:left + wp]
+        return x + pos.reshape(1, hp * wp, D).to(x.dtype)
+
+
+class _TimeTextEmbed(nn.Module):
+    def __init__(self, cfg: MMDiTConfig):
+        super().__init__()
+        self.timestep_embedder = TimestepEmbedding(256, cfg.hidden_size)
+        self.text_embedder = TimestepEmbedding(cfg.pooled_dim, cfg.hidden_size)
+
+    def forward(self, t_emb, pooled):
+        return self.timestep_embedder(t_emb) + self.text_embedder(pooled)
+
+
+class MMDiT(nn.Module):
+    """latents (B, C, H, W), timesteps (B,) or scalar float (sigma * 1000),
+    context (B, S, context_dim), pooled (B, pooled_dim) -> velocity
+    (B, out_channels, H, W) float32."""
+
+    def __init__(self, config: MMDiTConfig):
+        super().__init__()
+        self.config = config
+        D = config.hidden_size
+        self.pos_embed = _PatchEmbed(config)
+        self.time_text_embed = _TimeTextEmbed(config)
+        self.context_embedder = nn.Linear(config.context_dim, D)
+        self.transformer_blocks = nn.ModuleList(
+            JointTransformerBlock(config, context_pre_only=i == config.depth - 1)
+            for i in range(config.depth))
+        self.norm_out = _AdaLN(D, 2)
+        self.proj_out = nn.Linear(D, config.patch_size ** 2 * config.out_channels)
+
+    def forward(self, latents, timesteps, context, pooled, controlnet_residuals=None):
+        if controlnet_residuals is not None:
+            raise NotImplementedError("SD3 ControlNet residuals: ROADMAP Queue 1 item 14")
+        cfg = self.config
+        P, C = cfg.patch_size, cfg.out_channels
+        B, _, H, W = latents.shape
+        dtype = self.proj_out.weight.dtype
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(B)
+
+        x = self.pos_embed(latents.to(dtype))
+        t_emb = get_timestep_embedding(timesteps, 256, flip_sin_to_cos=True, freq_shift=0)
+        c = self.time_text_embed(t_emb.to(dtype), pooled.to(dtype))
+        ctx = self.context_embedder(context.to(dtype))
+        for block in self.transformer_blocks:
+            x, ctx = block(x, ctx, c)
+
+        scale, shift = self.norm_out(c).chunk(2, dim=-1)
+        x = self.proj_out(_modulate(_layer_norm(x), shift, scale))
+        # unpatchify: (B, hp, wp, P, P, C) -> (B, C, hp, P, wp, P) -> NCHW
+        x = x.reshape(B, H // P, W // P, P, P, C).permute(0, 5, 1, 3, 2, 4)
+        return x.reshape(B, C, H, W).float()

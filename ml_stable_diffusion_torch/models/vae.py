@@ -34,6 +34,11 @@ class VAEConfig:
     def sd(cls) -> "VAEConfig":
         return cls()
 
+    @classmethod
+    def sd3(cls) -> "VAEConfig":
+        """SD3's 16-channel VAE, without quant convs."""
+        return cls(latent_channels=16, use_quant_conv=False)
+
 
 class VAEResnetBlock(nn.Module):
     """Resnet block without time conditioning."""

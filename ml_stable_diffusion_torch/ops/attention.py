@@ -13,6 +13,11 @@ Two interchangeable implementations over (B, S, H, D) tensors:
 As in the JAX package, UNet cross attention (Sk = 77), the causal text
 encoder attention and the 8x8 mid-block attention (64 tokens) stay on the
 plain path.
+
+``joint_dot_product_attention`` is the MMDiT joint attention of SD3: several
+query streams (the 4096 latent and 154 context rows at 1024x1024) over one
+shared KV, the same as attending the concatenated streams and splitting.
+Its FLASH branch is the kernel's multi-stream entry, one launch per call.
 """
 
 from __future__ import annotations
@@ -59,6 +64,13 @@ def _plain_attention(q, k, v, bias=None, causal=False):
     return out.to(q.dtype)
 
 
+def _plain_joint_attention(q_streams, k, v):
+    """The JAX joint-attention XLA path: concatenate the query streams along
+    the sequence, attend, split."""
+    out = _plain_attention(torch.cat(list(q_streams), dim=1), k, v)
+    return list(out.split([q.shape[1] for q in q_streams], dim=1))
+
+
 def _flash_qualifies(q, k) -> bool:
     """The JAX rule (Sq >= 256, Sk >= 256) on a CUDA tensor whose head width
     the kernel is built for."""
@@ -90,3 +102,22 @@ def dot_product_attention(q, k, v, bias=None, causal=False,
 
         return flash_attention(q, k, v, bias=bias, causal=causal)
     return _plain_attention(q, k, v, bias=bias, causal=causal)
+
+
+def joint_dot_product_attention(q_streams, k, v,
+                                impl: AttentionImpl | str = AttentionImpl.AUTO):
+    """Joint attention: several (B, Sq_i, H, D) query streams over ONE shared
+    (B, Sk, H, D) k/v; -> one output per stream.  AUTO decides on the first
+    stream, as the JAX package does, so the latent stream takes the context
+    stream onto the kernel with it."""
+    impl = AttentionImpl(impl)
+    if impl == AttentionImpl.AUTO:
+        impl = ATTENTION_IMPLEMENTATION_IN_EFFECT
+    if impl == AttentionImpl.AUTO:
+        impl = (AttentionImpl.FLASH if _flash_qualifies(q_streams[0], k)
+                else AttentionImpl.PLAIN)
+    if impl == AttentionImpl.FLASH:
+        from .flash_attention import flash_attention_multi_q
+
+        return flash_attention_multi_q(q_streams, k, v)
+    return _plain_joint_attention(q_streams, k, v)

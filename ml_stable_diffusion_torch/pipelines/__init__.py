@@ -2,5 +2,7 @@
 
 from .config import PipelineConfiguration
 from .sd import GenerationResult, StableDiffusionPipeline
+from .sd3 import StableDiffusion3Pipeline
 
-__all__ = ["PipelineConfiguration", "GenerationResult", "StableDiffusionPipeline"]
+__all__ = ["PipelineConfiguration", "GenerationResult", "StableDiffusionPipeline",
+           "StableDiffusion3Pipeline"]

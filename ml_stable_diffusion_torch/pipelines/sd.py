@@ -67,24 +67,27 @@ _UNPORTED_FIELDS = {
     "target_size": "SDXL micro-conditioning: ROADMAP Queue 1 item 13",
     "aesthetic_score": "SDXL micro-conditioning: ROADMAP Queue 1 item 13",
     "negative_aesthetic_score": "SDXL micro-conditioning: ROADMAP Queue 1 item 13",
-    "timestep_shift": "the rectified-flow shift (SD3): ROADMAP Queue 1 item 14",
+    "timestep_shift": ("the rectified-flow shift, which only the DiscreteFlow scheduler "
+                       "reads (SD3: pipelines/sd3.py), with another scheduler"),
     "ip_adapter_image": "IP-Adapter: ROADMAP Queue 1 item 15",
     "ip_adapter_scale": "IP-Adapter: ROADMAP Queue 1 item 15",
     "reduce_memory": "reduce_memory staging: ROADMAP Queue 1 item 17",
 }
 
 
-def _unported(cfg: PipelineConfiguration):
+def _unported(cfg: PipelineConfiguration, scheduler: str):
     defaults = PipelineConfiguration()
     for name, what in _UNPORTED_FIELDS.items():
+        if name == "timestep_shift" and scheduler == "DiscreteFlow":
+            continue
         value, default = getattr(cfg, name), getattr(defaults, name)
         if isinstance(default, tuple):
             value = tuple(value)
         if value is not None if default is None else value != default:
             raise NotImplementedError(f"{what} ({name}={value!r}) is not ported yet")
-    if cfg.scheduler not in SCHEDULER_MAP:
+    if scheduler not in SCHEDULER_MAP:
         raise NotImplementedError(
-            f"scheduler {cfg.scheduler!r}: ROADMAP Queue 1 item 11 is not ported yet")
+            f"scheduler {scheduler!r}: ROADMAP Queue 1 item 11 is not ported yet")
 
 
 class StableDiffusionPipeline:
@@ -122,11 +125,18 @@ class StableDiffusionPipeline:
 
     # -- scheduler -------------------------------------------------------------
 
+    def _scheduler_name(self, cfg: PipelineConfiguration) -> str:
+        """The scheduler this family runs for ``cfg.scheduler``."""
+        return cfg.scheduler
+
     def _make_scheduler(self, cfg: PipelineConfiguration) -> Scheduler:
-        cls = SCHEDULER_MAP[cfg.scheduler]
+        name = self._scheduler_name(cfg)
+        cls = SCHEDULER_MAP[name]
         kwargs = {}
         if cfg.timestep_spacing is not None:
             kwargs["timestep_spacing"] = TimestepSpacing(cfg.timestep_spacing)
+        if name == "DiscreteFlow":
+            kwargs["shift"] = cfg.timestep_shift
         return cls(self.scheduler_config, **kwargs)
 
     # -- text ------------------------------------------------------------------
@@ -148,7 +158,8 @@ class StableDiffusionPipeline:
             raise ValueError("negative_prompt list length must match prompt")
         return neg, pos
 
-    def _tokenize(self, cfg: PipelineConfiguration) -> np.ndarray:
+    def _tokenize(self, cfg: PipelineConfiguration) -> dict:
+        """-> {"ids": (2N or 2, 77) int32}, negatives first."""
         neg, pos = self._prompt_lists(cfg)
         rows = []
         for text in neg + pos:
@@ -159,11 +170,16 @@ class StableDiffusionPipeline:
                 raise NotImplementedError(
                     "prompts longer than one 77-token window: ROADMAP Queue 1 item 12")
             rows.append(self.tokenizer.tokenize(text, TEXT_LEN)[0])
-        return np.stack(rows)
+        return {"ids": np.stack(rows)}
 
-    def _encode_text(self, ids: np.ndarray) -> torch.Tensor:
-        ids = torch.from_numpy(ids).long().to(self.device)
-        return self.text_encoder(ids)[self.text_embedding_key]
+    def _ids(self, token_inputs: dict, key: str) -> torch.Tensor:
+        return torch.from_numpy(token_inputs[key]).long().to(self.device)
+
+    def _encode_text(self, token_inputs: dict) -> dict:
+        """-> {"context": (2N or 2, 77, C), ...}: what the denoiser is
+        conditioned on (SD3 adds the pooled vector)."""
+        return {"context": self.text_encoder(self._ids(token_inputs, "ids"))[
+            self.text_embedding_key]}
 
     @staticmethod
     def _split_neg_pos(t, N: int):
@@ -173,6 +189,16 @@ class StableDiffusionPipeline:
             return t[0:1].expand(N, *t.shape[1:]), t[1:2].expand(N, *t.shape[1:])
         half = t.shape[0] // 2
         return t[:half], t[half:]
+
+    def _phase_conditioning(self, text: dict, N: int):
+        """-> (ctx_neg, ctx_pos, added_neg, added_pos): the text conditioning
+        split into its negative and positive halves; ``added`` holds what
+        the denoiser takes beside the context (None here)."""
+        ctx_neg, ctx_pos = self._split_neg_pos(text["context"], N)
+        return ctx_neg, ctx_pos, None, None
+
+    def _call_unet(self, latents, t, context, added_cond):
+        return self.unet(latents, t, context)
 
     # -- latents ---------------------------------------------------------------
 
@@ -189,21 +215,26 @@ class StableDiffusionPipeline:
         src = make_random_source(cfg.rng, cfg.seed)
         return nchw_to_nhwc(src.normal((N, C, h, w))).astype(np.float32)
 
-    def _denoise(self, latents, context, N, plan, scheduler, guidance_on, g):
+    def _denoise(self, latents, text, N, plan, scheduler, guidance_on, g):
         """The denoise loop on NCHW float32 latents."""
-        ctx_neg, ctx_pos = self._split_neg_pos(context, N)
-        ctx2 = torch.cat([ctx_neg, ctx_pos]) if guidance_on else None
+        ctx_neg, ctx_pos, added_neg, added_pos = self._phase_conditioning(text, N)
+        ctx2 = added2 = None
+        if guidance_on:
+            ctx2 = torch.cat([ctx_neg, ctx_pos])
+            if added_pos is not None:
+                added2 = {key: torch.cat([added_neg[key], added_pos[key]])
+                          for key in added_pos}
         timesteps = torch.from_numpy(plan.timesteps).to(self.device)
         state = scheduler.initial_state(plan, latents)
         for i in range(plan.num_steps):
             t = timesteps[i]
             lat_in = scheduler.scale_model_input(plan, state, latents, i)
             if guidance_on:
-                out = self.unet(torch.cat([lat_in, lat_in]), t, ctx2)
+                out = self._call_unet(torch.cat([lat_in, lat_in]), t, ctx2, added2)
                 out_neg, out_pos = out.chunk(2)
                 noise_pred = out_neg + g * (out_pos - out_neg)
             else:
-                noise_pred = self.unet(lat_in, t, ctx_pos)
+                noise_pred = self._call_unet(lat_in, t, ctx_pos, added_pos)
             state, latents = scheduler.step(plan, state, noise_pred, i, latents)
         return latents
 
@@ -228,7 +259,7 @@ class StableDiffusionPipeline:
     def generate_images(self, cfg: PipelineConfiguration, progress_handler=None,
                         image_hw: tuple[int, int] = (512, 512)) -> GenerationResult:
         cfg.validate()
-        _unported(cfg)
+        _unported(cfg, self._scheduler_name(cfg))
         if progress_handler is not None:
             raise NotImplementedError("progress callbacks: ROADMAP Queue 1 item 12")
         N = cfg.image_count
@@ -238,15 +269,15 @@ class StableDiffusionPipeline:
         guidance_on = cfg.guidance_scale > 1.0
         set_attention_implementation(cfg.attention_implementation)
 
-        ids = self._tokenize(cfg)
+        token_inputs = self._tokenize(cfg)
         noise = self._initial_noise(cfg, N, h, w)
 
         t0 = time.perf_counter()
         with torch.inference_mode():
-            context = self._encode_text(ids)
+            text = self._encode_text(token_inputs)
             latents = torch.from_numpy(noise).to(self.device).permute(0, 3, 1, 2)
             latents = latents.contiguous() * plan.init_noise_sigma
-            latents = self._denoise(latents, context, N, plan, scheduler,
+            latents = self._denoise(latents, text, N, plan, scheduler,
                                     guidance_on, float(cfg.guidance_scale))
             # the host fetch waits for the device
             latents = latents.permute(0, 2, 3, 1).cpu().numpy()

@@ -1,4 +1,5 @@
-"""The flash CUDA kernel against its plain version, on the card.
+"""The flash CUDA kernel against its plain version, on the card: the
+single-stream entry and the multi-stream one (SD3's joint attention).
 
 Skips without an NVIDIA GPU.  This file imports no JAX, so it also runs on
 a machine that has only the port's dependencies:
@@ -12,6 +13,9 @@ import torch
 from ml_stable_diffusion_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_cuda,
+    flash_attention_multi_q,
+    flash_attention_multi_q_cuda,
+    flash_attention_multi_q_reference,
     flash_attention_reference,
 )
 
@@ -80,3 +84,40 @@ def test_flash_kernel_rejects_unsupported(cuda_device):
     q = torch.zeros(1, 256, 2, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_lens,sk,heads,dtype", [
+    ((4096, 154), 4250, 24, torch.bfloat16),  # SD3-medium 1024x1024
+    ((384, 77), 461, 3, torch.float32),       # ragged: both streams and the keys
+    ((384, 77), 461, 3, torch.bfloat16),
+    ((300,), 300, 2, torch.bfloat16),         # one stream
+    ((5, 70, 64, 1), 140, 2, torch.float32),  # four streams, tiny ones among them
+])
+def test_multi_q_kernel_matches_plain(q_lens, sk, heads, dtype, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qs = [torch.randn(2, n, heads, 64, generator=g, device=cuda_device).to(dtype)
+          for n in q_lens]
+    k, v = (torch.randn(2, sk, heads, 64, generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    before = flash_attention_multi_q_cuda.launches
+    got = flash_attention_multi_q(qs, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_multi_q_cuda.launches == before + 1
+    refs = flash_attention_multi_q_reference(qs, k, v)
+    for out, ref, q in zip(got, refs, qs):
+        assert out.dtype == dtype and out.shape == q.shape
+        diff = out.float() - ref.float()
+        assert diff.abs().max().item() <= ATOL[dtype]
+        assert (diff.norm() / ref.float().norm()).item() <= REL_RMS[dtype]
+
+
+@pytest.mark.cuda
+def test_multi_q_kernel_rejects_unsupported(cuda_device):
+    q = torch.zeros(1, 256, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1 to 4 query streams"):
+        flash_attention_multi_q_cuda([q] * 5, q, q)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention_multi_q_cuda([q, q.float()], q, q)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        flash_attention_multi_q_cuda([q, q[:, :, :1]], q, q)
