@@ -9,8 +9,10 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the TF32 settings; build every kernel from csrc/.
 2. Every kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it plus a ragged one, with timings of the kernel, the
-   plain version and one PyTorch library call computing the same function.
+   the main paths give it plus ragged ones, with timings of the kernel (CUDA
+   events and the profiler's device time per launch), the plain version and
+   one PyTorch library call computing the same function.  The GroupNorm+SiLU
+   shapes are recorded from the SDXL base and refiner UNets themselves.
 3. The main path at full width: SD-2.1-base 512x512 txt2img, 20 steps of
    DPM-Solver++(2M), CFG batch 2, guidance 7.5, through
    ``StableDiffusionPipeline.generate_images`` with random weights from a
@@ -28,21 +30,35 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    of both kernel entries, then one generation forced to the plain path.
 6. One full-width MMDiT forward with variance-preserving weights, on the
    multi-stream kernel and then forced plain (the SD3 counterpart of phase 4).
+7. The SDXL path at full width and depth: SDXL-base 1024x1024 txt2img, 20
+   steps of DPM-Solver++(2M), CFG batch 2, guidance 5.0, through
+   ``StableDiffusionXLPipeline.generate_images`` (CLIP-L and bigG in float32,
+   the UNet in bf16 with ``fused_groupnorm=True``, the VAE in float32), as
+   phase 3: warm-up, median of 3, launch counts, one generation forced to
+   plain attention.  Then base + refiner (``UNetConfig.sdxl_refiner``, also
+   fused, ``refiner_start=0.8``: 16 base and 4 refiner steps): a warm-up and
+   one timed generation, its launch counts read around both.
+8. One full-width SDXL base UNet forward with variance-preserving weights:
+   the fused GroupNorm+SiLU kernel against a second UNet on ``nn.GroupNorm``
+   with the same state dict, and the flash kernel against plain attention.
 
 Every kernel launch counter is set to 0 just before each main path (phases
-3 and 5) and read just after it.  Prints a ``{"kernels": [...]}`` JSON line,
-the card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+3, 5 and both runs of 7) and read just after it.  Prints a
+``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --profile sd3   (or sd21)
+    python3 chip_smoke.py --profile sdxl   (or sd3, sd21)
 
 runs instead one generation of that path under ``torch.profiler`` after a
 warm-up and prints where the device time goes: the kernels grouped (the
-flash kernel, matrix products, convolutions, the rest), the top kernels by
-device time, and the device's busy share of the generation's wall time.
+GroupNorm and flash kernels, matrix products, convolutions, the rest), the
+top kernels by device time, and the device's busy share of the generation's
+wall time.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -73,25 +89,56 @@ STEPS = 20
 PROMPTS = ["a photo of an astronaut riding a horse on mars",
            "a cat wearing a tiny hat", "a watercolor bridge at dawn",
            "a robot reading in a library"]
-#: the two main paths: what each generation must launch of each kernel entry
-#: (flash_attention: 15 per UNet call, 5 each at 4096, 1024 and 256 tokens, x
-#: 20 steps, plus the VAE mid block; flash_attention_multi_q: one joint
-#: attention per MMDiT block, 24 x 20 steps, plus SD3's VAE mid block on the
-#: single-stream entry)
+#: the main paths: what each generation must launch of each kernel entry
+#: (flash_attention: SD-2.1 15 per UNet call, 5 each at 4096, 1024 and 256
+#: tokens, x 20 steps, plus the VAE mid block; SDXL base 70 per UNet call,
+#: 10 at 4096 and 60 at 1024 tokens, and the refiner 41, 20 at 4096, 20 at
+#: 1024 and 1 at 256, plus the VAE mid block; flash_attention_multi_q: one
+#: joint attention per MMDiT block, 24 x 20 steps; group_norm_silu: one per
+#: resnet GroupNorm+SiLU, 34 per SDXL base UNet call and 44 per refiner call)
 PATHS = {
     "sd21": dict(label="SD-2.1-base 512x512, 20 steps DPM++ 2M, CFG batch 2",
                  image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5,
                  scheduler="DPMSolverMultistep",
-                 per_generation={"flash_attention": 301, "flash_attention_multi_q": 0}),
+                 per_generation={"flash_attention": 301, "flash_attention_multi_q": 0,
+                                 "group_norm_silu": 0}),
     "sd3": dict(label="SD3-medium 1024x1024 (no T5), 20 steps DiscreteFlow, CFG batch 2",
                 image_hw=(1024, 1024), latents=(1, 128, 128, 16), guidance=4.5,
                 scheduler="DiscreteFlow",
-                per_generation={"flash_attention": 1, "flash_attention_multi_q": 480}),
+                per_generation={"flash_attention": 1, "flash_attention_multi_q": 480,
+                                "group_norm_silu": 0}),
+    "sdxl": dict(label="SDXL-base 1024x1024, 20 steps DPM++ 2M, CFG batch 2, guidance 5",
+                 image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
+                 scheduler="DPMSolverMultistep",
+                 per_generation={"flash_attention": 1401, "flash_attention_multi_q": 0,
+                                 "group_norm_silu": 680}),
+    "sdxl_refiner": dict(label="SDXL base + refiner 1024x1024, refiner_start 0.8 "
+                               "(16 + 4 steps DPM++ 2M), CFG batch 2, guidance 5",
+                         image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
+                         scheduler="DPMSolverMultistep", extra=dict(refiner_start=0.8),
+                         per_generation={"flash_attention": 1285,
+                                         "flash_attention_multi_q": 0,
+                                         "group_norm_silu": 720}),
 }
+#: steps of each UNet in one generation of a path: (base, refiner)
+UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4)}
+#: the attention kernel entries (phase 7's plain-attention run launches none)
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_multi_q")
 #: bf16-level agreement of a full denoiser call, flash kernel vs plain attention
 MODEL_MIN_PSNR_DB = 30.0
 #: relative max-abs agreement of 20-step latents, flash vs plain generation
 GEN_MAX_REL_ERR = 2e-2
+#: GroupNorm+SiLU kernel against its plain version: max abs (bf16:
+#: tests/test_pallas_kernels.py's) and relative RMS.  With per-channel
+#: offsets and scales in the inputs, statistics that left out a group's last
+#: channel move the output by rel RMS >= 6e-3 at the refiner's 96 channels a
+#: group (the least sensitive shape; the inputs are seeded, so every run
+#: reads the same) and far more at fewer channels: these bounds see it
+GN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+GN_REL_RMS = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+#: f32 operations per element of the GroupNorm+SiLU function: sum and square
+#: sum (3), normalise, scale and shift (4), SiLU (exp, add, divide, ~4)
+GN_OPS_PER_ELEMENT = 11
 
 
 def log(*args):
@@ -135,22 +182,66 @@ def abs_and_rel_rms(got, ref):
     return diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
 
 
-#: (label, query stream lengths, Sk, B, H, D, dtype, path, launches per
-#: generation of that path)
+def device_ms_per_call(fn, calls: int = 10) -> float:
+    """The profiler's device time of ``calls`` calls, per call: at shapes
+    where a CUDA-event loop of back-to-back calls measures the host's issue
+    rate (~0.05 ms and less), this still reads the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    _, _, names = _device_time(prof)
+    return sum(us for _, us in names.values()) / 1e3 / calls
+
+
+def timings(kernel, plain, library, bound_s):
+    """ms per call of the kernel (CUDA events and profiler device time), the
+    plain version and the library call; fewer repetitions past 1 ms of
+    bound."""
+    slow = bound_s > 1e-3
+    return dict(ms=time_ms(kernel, reps=3 if slow else 20),
+                device_ms=device_ms_per_call(kernel, calls=3 if slow else 10),
+                plain_ms=time_ms(plain, reps=1 if slow else 3),
+                library_ms=time_ms(library, reps=3 if slow else 20))
+
+
+#: (label, query stream lengths, Sk, B, H, D, dtype, {path: launches per
+#: generation of that path})
 FLASH_SHAPES = [
-    ("unet 64x64", (4096,), 4096, 2, 5, 64, torch.bfloat16, "sd21", 100),
-    ("unet 32x32", (1024,), 1024, 2, 10, 64, torch.bfloat16, "sd21", 100),
-    ("unet 16x16", (256,), 256, 2, 20, 64, torch.bfloat16, "sd21", 100),
-    ("vae mid 512", (4096,), 4096, 1, 1, 512, torch.float32, "sd21", 1),
-    ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32, "sd3", 1),
-    ("ragged f32", (330,), 330, 2, 3, 64, torch.float32, None, 0),
-    ("ragged bf16", (330,), 330, 2, 3, 64, torch.bfloat16, None, 0),
+    ("unet 64x64", (4096,), 4096, 2, 5, 64, torch.bfloat16, {"sd21": 100}),
+    ("unet 32x32", (1024,), 1024, 2, 10, 64, torch.bfloat16, {"sd21": 100}),
+    ("unet 16x16", (256,), 256, 2, 20, 64, torch.bfloat16, {"sd21": 100}),
+    ("vae mid 512", (4096,), 4096, 1, 1, 512, torch.float32, {"sd21": 1}),
+    ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32,
+     {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1}),
+    ("sdxl 64x64", (4096,), 4096, 2, 10, 64, torch.bfloat16,
+     {"sdxl": 10 * 20, "sdxl_refiner": 10 * 16}),
+    ("sdxl 32x32", (1024,), 1024, 2, 20, 64, torch.bfloat16,
+     {"sdxl": 60 * 20, "sdxl_refiner": 60 * 16}),
+    ("refiner 64x64", (4096,), 4096, 2, 12, 64, torch.bfloat16, {"sdxl_refiner": 20 * 4}),
+    ("refiner 32x32", (1024,), 1024, 2, 24, 64, torch.bfloat16, {"sdxl_refiner": 20 * 4}),
+    ("refiner 16x16", (256,), 256, 2, 24, 64, torch.bfloat16, {"sdxl_refiner": 1 * 4}),
+    ("ragged f32", (330,), 330, 2, 3, 64, torch.float32, {}),
+    ("ragged bf16", (330,), 330, 2, 3, 64, torch.bfloat16, {}),
 ]
 MULTI_Q_SHAPES = [
-    ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16, "sd3", 480),
-    ("ragged f32", (384, 77), 461, 2, 3, 64, torch.float32, None, 0),
-    ("ragged bf16", (384, 77), 461, 2, 3, 64, torch.bfloat16, None, 0),
+    ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16, {"sd3": 480}),
+    ("ragged f32", (384, 77), 461, 2, 3, 64, torch.float32, {}),
+    ("ragged bf16", (384, 77), 461, 2, 3, 64, torch.bfloat16, {}),
 ]
+
+
+def check_shape_launches(name, rows):
+    """The rows' launches on each path add up to the path's count."""
+    for path, spec in PATHS.items():
+        got = sum(r["launches_per_generation"].get(path, 0) for r in rows)
+        if got != spec["per_generation"][name]:
+            fail(f"{name}: phase 2 rows launch {got} times on {path}, "
+                 f"the path launches {spec['per_generation'][name]}")
 
 
 def check_kernel(kernel, reference, shapes):
@@ -161,7 +252,7 @@ def check_kernel(kernel, reference, shapes):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for label, q_lens, sk, B, H, D, dtype, path, per_gen in shapes:
+    for label, q_lens, sk, B, H, D, dtype, per_gen in shapes:
         def rand(s):
             return torch.randn((B, s, H, D), generator=gen, device="cuda").to(dtype)
 
@@ -187,25 +278,134 @@ def check_kernel(kernel, reference, shapes):
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         qt = torch.cat(qs, dim=1).transpose(1, 2)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        slow = max(t_bytes, t_ops) > 1e-3  # fewer repetitions past 1 ms of bound
-        ms = time_ms(lambda: kernel(qs, k, v), reps=3 if slow else 20)
-        plain_ms = time_ms(lambda: reference(qs, k, v), reps=1 if slow else 3)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                             reps=3 if slow else 20)
         row = dict(label=label, q_lens=list(q_lens), sk=sk, B=B, H=H, D=D,
-                   dtype=str(dtype).split(".")[-1], path=path,
-                   launches_per_generation=per_gen, max_abs_err=err, atol=ATOL[dtype],
-                   rel_rms_err=rel, rel_rms_tol=REL_RMS[dtype],
-                   dropped_tile_max_abs=cut_err, dropped_tile_rel_rms=cut_rel,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   dtype=str(dtype).split(".")[-1], launches_per_generation=per_gen,
+                   max_abs_err=err, atol=ATOL[dtype], rel_rms_err=rel,
+                   rel_rms_tol=REL_RMS[dtype], dropped_tile_max_abs=cut_err,
+                   dropped_tile_rel_rms=cut_rel,
+                   **timings(lambda: kernel(qs, k, v), lambda: reference(qs, k, v),
+                             lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                             max(t_bytes, t_ops)),
                    bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         rows.append(row)
         log(f"{label:15s} q {list(q_lens)} k {sk} B{B} H{H} D{D} {row['dtype']:8s} "
             f"err {err:.3g} (atol {ATOL[dtype]}) rel RMS {rel:.3g} (tol {REL_RMS[dtype]}; "
-            f"a dropped KV tile: {cut_err:.3g} abs, {cut_rel:.3g} rel) kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {row['bound_ms']:.4f} "
-            f"ms ({row['bound_by']})")
+            f"a dropped KV tile: {cut_err:.3g} abs, {cut_rel:.3g} rel) kernel "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f})  plain "
+            f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def gn_shapes():
+    """(label, (B, C, H, W), dtype, apply_silu, {path: launches per
+    generation}) for every resnet GroupNorm+SiLU shape of the SDXL base and
+    refiner UNets at 1024x1024, CFG batch 2 (recorded from the port's UNets
+    on the meta device by kernel_bounds.py), plus ragged ones."""
+    from kernel_bounds import gn_calls
+    from ml_stable_diffusion_torch.models.unet import UNetConfig
+
+    base = gn_calls(UNetConfig.sdxl(), (128, 128), 2048, n_time_ids=6)
+    refiner = gn_calls(UNetConfig.sdxl_refiner(), (128, 128), 1280, n_time_ids=5)
+    if (sum(base.values()), sum(refiner.values())) != (34, 44):
+        fail(f"SDXL UNets make {sum(base.values())} / {sum(refiner.values())} "
+             "GroupNorm+SiLU calls, want 34 / 44")
+    rows = []
+    for shape in sorted(set(base) | set(refiner), key=lambda s: (s[2], s[1])):
+        per_gen = {}
+        for path, (n_base, n_ref) in UNET_STEPS.items():
+            n = n_base * base[shape] + n_ref * refiner[shape]
+            if n:
+                per_gen[path] = n
+        who = "+".join(w for w, c in (("base", base), ("refiner", refiner)) if c[shape])
+        rows.append((f"{who} {shape[1]}@{shape[2]}x{shape[3]}", shape, torch.bfloat16, True,
+                     per_gen))
+    rows += [("ragged f32", (2, 96, 7, 9), torch.float32, True, {}),
+             ("ragged bf16", (2, 96, 7, 9), torch.bfloat16, True, {}),
+             ("ragged bf16 no silu", (2, 96, 7, 9), torch.bfloat16, False, {})]
+    return rows
+
+
+def gn_dropped_channel(x, gamma, beta, groups, eps, apply_silu):
+    """The plain version with each group's statistics taken without its last
+    channel: what the check must be able to tell from the kernel."""
+    B, C, H, W = x.shape
+    cg = C // groups
+    xf = x.float().reshape(B, groups, cg, H * W)
+    kept = xf[:, :, :cg - 1]
+    n = kept[0, 0].numel()
+    mean = kept.sum((2, 3), keepdim=True) / n
+    var = (kept * kept).sum((2, 3), keepdim=True) / n - mean * mean
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(B, C, H, W)
+    y = y * gamma.float()[:, None, None] + beta.float()[:, None, None]
+    return y * torch.sigmoid(y) if apply_silu else y
+
+
+def check_gn_kernel(shapes, groups=32, eps=1e-5):
+    """Each shape: the GroupNorm+SiLU kernel against its plain version, on
+    x = a_c * z + b_c with per-channel a_c in [0.5, 2] and b_c in [-2, 2];
+    what statistics without each group's last channel would show; times of
+    the kernel, the plain version and F.group_norm then F.silu."""
+    import torch.nn.functional as F
+
+    from ml_stable_diffusion_torch.ops.groupnorm import (
+        group_norm_silu_cuda,
+        group_norm_silu_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for label, (B, C, H, W), dtype, silu, per_gen in shapes:
+        a = 0.5 + 1.5 * torch.rand(C, 1, 1, generator=gen, device="cuda")
+        b = 4.0 * torch.rand(C, 1, 1, generator=gen, device="cuda") - 2.0
+        x = (a * torch.randn((B, C, H, W), generator=gen, device="cuda") + b).to(dtype)
+        gamma = (1.0 + 0.5 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+        beta = (0.5 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+
+        def kernel():
+            return group_norm_silu_cuda(x, gamma, beta, groups, eps, silu)
+
+        def plain():
+            return group_norm_silu_reference(x, gamma, beta, groups, eps, silu)
+
+        def library():
+            y = F.group_norm(x, groups, gamma, beta, eps)
+            return F.silu(y) if silu else y
+
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain().float()
+        err, rel = abs_and_rel_rms(out, ref)
+        if not (math.isfinite(err) and err <= GN_ATOL[dtype] and rel <= GN_REL_RMS[dtype]):
+            fail(f"group_norm_silu {label}: kernel disagrees with its plain version at "
+                 f"{(B, C, H, W)} {dtype}: max abs err {err} (atol {GN_ATOL[dtype]}), "
+                 f"rel RMS err {rel} (tol {GN_REL_RMS[dtype]})")
+        cut_err, cut_rel = abs_and_rel_rms(gn_dropped_channel(x, gamma, beta, groups, eps,
+                                                              silu), ref)
+        if cut_rel <= GN_REL_RMS[dtype]:
+            fail(f"group_norm_silu {label}: the check cannot tell statistics without a "
+                 f"group's last channel: rel RMS {cut_rel} <= {GN_REL_RMS[dtype]}")
+        # x read once, y written once, gamma and beta read once
+        nbytes = 2 * x.numel() * x.element_size() + 2 * C * gamma.element_size()
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = GN_OPS_PER_ELEMENT * x.numel() / PEAK_FLOPS[torch.float32]
+        row = dict(label=label, shape=[B, C, H, W], groups=groups,
+                   dtype=str(dtype).split(".")[-1], apply_silu=silu,
+                   launches_per_generation=per_gen, max_abs_err=err, atol=GN_ATOL[dtype],
+                   rel_rms_err=rel, rel_rms_tol=GN_REL_RMS[dtype],
+                   dropped_channel_max_abs=cut_err, dropped_channel_rel_rms=cut_rel,
+                   **timings(kernel, plain, library, max(t_bytes, t_ops)),
+                   library="F.group_norm + F.silu (two calls)" if silu else "F.group_norm",
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        rows.append(row)
+        log(f"gn {label:22s} {(B, C, H, W)} {row['dtype']:8s} silu {int(silu)} err {err:.3g} "
+            f"(atol {GN_ATOL[dtype]}) rel RMS {rel:.3g} (tol {GN_REL_RMS[dtype]}; without "
+            f"the last channel: {cut_rel:.3g} rel) kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f})  plain {row['plain_ms']:.4f} ms  group_norm+silu "
+            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"  launches {per_gen}")
     return rows
 
 
@@ -217,13 +417,17 @@ def check_kernels():
         flash_attention_reference,
     )
 
-    return {
+    rows = {
         "flash_attention": check_kernel(
             lambda qs, k, v: [flash_attention_cuda(qs[0], k, v)],
             lambda qs, k, v: [flash_attention_reference(qs[0], k, v)], FLASH_SHAPES),
         "flash_attention_multi_q": check_kernel(
             flash_attention_multi_q_cuda, flash_attention_multi_q_reference, MULTI_Q_SHAPES),
+        "group_norm_silu": check_gn_kernel(gn_shapes()),
     }
+    for name, kernel_rows in rows.items():
+        check_shape_launches(name, kernel_rows)
+    return rows
 
 
 # -- phases 3 and 5 -------------------------------------------------------------
@@ -291,15 +495,58 @@ def build_sd3_pipeline(tokdir: Path):
         vae_decoder=materialize(vae, gen), device="cuda")
 
 
+def build_sdxl_pipeline(tokdir: Path):
+    """SDXL base, its UNet on the fused GroupNorm+SiLU."""
+    from ml_stable_diffusion_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
+    from ml_stable_diffusion_torch.pipelines import StableDiffusionXLPipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with torch.device("meta"):
+        te_l = CLIPTextEncoder(CLIPTextConfig.sd1())
+        te_g = CLIPTextEncoder(CLIPTextConfig.sdxl_g())
+        unet = UNet2DConditionModel(dataclasses.replace(UNetConfig.sdxl(),
+                                                        fused_groupnorm=True))
+        vae = VAEDecoder(VAEConfig.sd())
+    tok = letters_tokenizer(tokdir)
+    return StableDiffusionXLPipeline(
+        tokenizer=tok, tokenizer2=tok, text_encoder=materialize(te_l, gen),
+        text_encoder2=materialize(te_g, gen), unet=materialize(unet, gen, torch.bfloat16),
+        vae_decoder=materialize(vae, gen), device="cuda")
+
+
+def sdxl_with_refiner(pipe):
+    """The SDXL pipeline over the same modules plus a full-width refiner, its
+    UNet on the fused GroupNorm+SiLU too."""
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from ml_stable_diffusion_torch.pipelines import StableDiffusionXLPipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.device("meta"):
+        refiner = UNet2DConditionModel(dataclasses.replace(UNetConfig.sdxl_refiner(),
+                                                           fused_groupnorm=True))
+    return StableDiffusionXLPipeline(
+        tokenizer=pipe.tokenizer, tokenizer2=pipe.tokenizer2, text_encoder=pipe.text_encoder,
+        text_encoder2=pipe.text_encoder2, unet=pipe.unet,
+        refiner_unet=materialize(refiner, gen, torch.bfloat16), vae_decoder=pipe.vae_decoder,
+        device="cuda")
+
+
+#: the paths ``--profile`` takes, and their pipelines
+PROFILE_BUILDERS = {"sd21": build_sd21_pipeline, "sd3": build_sd3_pipeline,
+                    "sdxl": build_sdxl_pipeline}
+
+
 def reset_counters(counters):
     for fn in counters.values():
         fn.launches = 0
 
 
-def run_main_path(pipe, path, counters):
-    """One warm-up and 3 timed generations with distinct prompts and seeds,
-    the counters set to 0 just before and read just after; then the last
-    generation again with attention forced to the plain path."""
+def run_main_path(pipe, path, counters, timed=3, plain=True):
+    """One warm-up and ``timed`` generations with distinct prompts and seeds,
+    the counters set to 0 just before and read just after; then (``plain``)
+    the last generation again with attention forced to the plain path."""
     from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 
     spec = PATHS[path]
@@ -308,7 +555,8 @@ def run_main_path(pipe, path, counters):
         cfg = PipelineConfiguration(
             prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS,
             guidance_scale=spec["guidance"], seed=1000 + i, scheduler=spec["scheduler"],
-            rng="numpy", disable_safety=True, attention_implementation=attention)
+            rng="numpy", disable_safety=True, attention_implementation=attention,
+            **spec.get("extra", {}))
         before = {name: fn.launches for name, fn in counters.items()}
         t0 = time.perf_counter()
         res = pipe.generate_images(cfg, image_hw=spec["image_hw"])
@@ -324,7 +572,7 @@ def run_main_path(pipe, path, counters):
 
     reset_counters(counters)
     t0 = time.perf_counter()
-    runs = [generate(i) for i in range(4)]  # warm-up + 3 timed
+    runs = [generate(i) for i in range(1 + timed)]  # warm-up + timed
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     for _, launched, _ in runs:
@@ -332,28 +580,32 @@ def run_main_path(pipe, path, counters):
             fail(f"{path}: a generation launched {launched}, want {spec['per_generation']}")
     sps = statistics.median(r.seconds_per_step for r, _, _ in runs[1:])
     spi = statistics.median(secs for _, _, secs in runs[1:])
+    out = dict(seconds_per_step=sps, iter_per_s=1.0 / sps, seconds_per_image=spi,
+               seconds_per_step_runs=[r.seconds_per_step for r, _, _ in runs],
+               seconds_per_image_runs=[secs for _, _, secs in runs],
+               wall_s_generations=wall, launches=launches)
+    if not plain:
+        return out
     # the same generation with attention forced to the plain path.  On these
     # N(0, 0.02) weights q.k is near zero and attention nearly uniform, so
     # this shows the plain path runs end to end more than it tests the
-    # kernel: phases 4 and 6, on variance-preserving weights, are the
-    # in-model checks
-    plain, plain_launched, plain_secs = generate(3, attention="plain")
-    if any(plain_launched.values()):
-        fail(f"{path}: attention_implementation='plain' still launched {plain_launched}")
-    rel = float(abs(runs[3][0].latents - plain.latents).max()
-                / max(abs(plain.latents).max(), 1e-12))
+    # kernel: phases 4, 6 and 8, on variance-preserving weights, are the
+    # in-model checks.  The GroupNorm kernel stays on.
+    res, plain_launched, plain_secs = generate(timed, attention="plain")
+    want = {name: 0 if name in ATTENTION_KERNELS else n
+            for name, n in spec["per_generation"].items()}
+    if plain_launched != want:
+        fail(f"{path}: attention_implementation='plain' launched {plain_launched}, "
+             f"want {want}")
+    rel = float(abs(runs[timed][0].latents - res.latents).max()
+                / max(abs(res.latents).max(), 1e-12))
     if not rel <= GEN_MAX_REL_ERR:
         fail(f"{path}: flash vs plain latents differ by {rel} (rel) > {GEN_MAX_REL_ERR}")
-    return dict(seconds_per_step=sps, iter_per_s=1.0 / sps, seconds_per_image=spi,
-                seconds_per_step_runs=[r.seconds_per_step for r, _, _ in runs],
-                seconds_per_image_runs=[secs for _, _, secs in runs],
-                seconds_per_step_plain=plain.seconds_per_step,
-                seconds_per_image_plain=plain_secs,
-                wall_s_4_generations=wall, launches=launches,
-                flash_vs_plain_latents_rel_err=rel)
+    return dict(out, seconds_per_step_plain=res.seconds_per_step,
+                seconds_per_image_plain=plain_secs, flash_vs_plain_latents_rel_err=rel)
 
 
-# -- phases 4 and 6 ------------------------------------------------------------------
+# -- phases 4, 6 and 8 ------------------------------------------------------------------
 
 def check_model_flash_vs_plain(label, model, inputs, counter, want_launches):
     """One forward with the attention dispatch on the kernel, one forced to
@@ -374,11 +626,7 @@ def check_model_flash_vs_plain(label, model, inputs, counter, want_launches):
     if launched != {"auto": want_launches, "plain": 0}:
         fail(f"{label} forward launched the kernel {launched['auto']} / {launched['plain']} "
              f"times (auto / plain), want {want_launches} / 0")
-    ref, got = outs["plain"], outs["auto"]
-    max_abs = (got - ref).abs().max().item()
-    mse = ((got - ref) ** 2).mean().item()
-    peak = ref.abs().max().item()
-    psnr = 10 * math.log10(peak ** 2 / mse) if mse > 0 else math.inf
+    max_abs, psnr, peak = psnr_db(outs["auto"], outs["plain"])
     log(f"{label} flash vs plain: max abs {max_abs:.4g}, PSNR {psnr:.2f} dB "
         f"(min {MODEL_MIN_PSNR_DB}), output peak {peak:.4g}, {want_launches} launches")
     if not (math.isfinite(max_abs) and psnr >= MODEL_MIN_PSNR_DB):
@@ -414,31 +662,97 @@ def check_mmdit_flash_vs_plain(counter):
     return check_model_flash_vs_plain("mmdit", mmdit, inputs, counter, cfg.depth)
 
 
+def psnr_db(got, ref):
+    """-> (max abs, PSNR in dB against the reference's peak, the peak)."""
+    max_abs = (got - ref).abs().max().item()
+    mse = ((got - ref) ** 2).mean().item()
+    peak = ref.abs().max().item()
+    return max_abs, (10 * math.log10(peak ** 2 / mse) if mse > 0 else math.inf), peak
+
+
+def sdxl_unet_and_inputs(gen):
+    """A full-width SDXL base UNet on the fused GroupNorm, variance-preserving
+    bf16 weights, and the inputs of one CFG-batch call at 1024x1024."""
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(dataclasses.replace(UNetConfig.sdxl(),
+                                                        fused_groupnorm=True))
+    unet = materialize(unet, gen, torch.bfloat16, std=None)
+    added = {"text_embeds": torch.randn(2, 1280, generator=gen, device="cuda"),
+             "time_ids": torch.tensor([[1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0]] * 2,
+                                      device="cuda")}
+    inputs = (torch.randn(2, 4, 128, 128, generator=gen, device="cuda"),
+              torch.tensor(500.0, device="cuda"),
+              torch.randn(2, 77, 2048, generator=gen, device="cuda"), added)
+    return unet, inputs
+
+
+def check_sdxl_gn_vs_plain(unet, inputs, counter, want_launches):
+    """The fused UNet against a second one on ``nn.GroupNorm`` + SiLU that
+    holds the same state dict: PSNR and the GroupNorm kernel's launches."""
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel
+
+    with torch.device("meta"):
+        plain = UNet2DConditionModel(dataclasses.replace(unet.config, fused_groupnorm=False))
+    plain = plain.to_empty(device="cuda").to(torch.bfloat16)
+    plain.load_state_dict(unet.state_dict(), strict=True)
+    outs, launched = {}, {}
+    with torch.inference_mode():
+        for name, model in (("fused", unet), ("nn.GroupNorm", plain)):
+            before = counter.launches
+            outs[name] = model(*inputs)
+            torch.cuda.synchronize()
+            launched[name] = counter.launches - before
+    del plain
+    if launched != {"fused": want_launches, "nn.GroupNorm": 0}:
+        fail(f"sdxl unet launched the GroupNorm kernel {launched['fused']} / "
+             f"{launched['nn.GroupNorm']} times (fused / nn.GroupNorm), want {want_launches} / 0")
+    max_abs, psnr, peak = psnr_db(outs["fused"], outs["nn.GroupNorm"])
+    log(f"sdxl unet fused GroupNorm+SiLU vs nn.GroupNorm: max abs {max_abs:.4g}, PSNR "
+        f"{psnr:.2f} dB (min {MODEL_MIN_PSNR_DB}), output peak {peak:.4g}, "
+        f"{want_launches} launches")
+    if not (math.isfinite(max_abs) and psnr >= MODEL_MIN_PSNR_DB):
+        fail(f"sdxl unet fused vs nn.GroupNorm PSNR {psnr} dB < {MODEL_MIN_PSNR_DB}")
+    return dict(max_abs=max_abs, psnr_db=psnr, peak=peak, launches=want_launches)
+
+
+def check_sdxl_unet(counters):
+    """Phase 8: the GroupNorm kernel and the flash kernel inside one
+    full-width SDXL base UNet call."""
+    unet, inputs = sdxl_unet_and_inputs(torch.Generator(device="cuda").manual_seed(8))
+    gn = check_sdxl_gn_vs_plain(unet, inputs, counters["group_norm_silu"], 34)
+    flash = check_model_flash_vs_plain("sdxl unet", unet, inputs,
+                                       counters["flash_attention"], 70)
+    return {"group_norm_silu": gn, "flash_attention": flash}
+
+
 def per_generation(rows, path):
     """Times of one generation's launches on ``path``: sum over its shapes
     of per-launch time x launches at that shape."""
-    rows = [r for r in rows if r["path"] == path and r["launches_per_generation"]]
-    out = {key: sum(r[key] * r["launches_per_generation"] for r in rows)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    out["launches"] = sum(r["launches_per_generation"] for r in rows)
+    counted = [(r, r["launches_per_generation"].get(path, 0)) for r in rows]
+    counted = [(r, n) for r, n in counted if n]
+    out = {key: sum(r[key] * n for r, n in counted)
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+    out["launches"] = sum(n for _, n in counted)
     return out
 
 
-def kernel_entry(name, replaces, rows, main_launches, paths):
+def kernel_entry(name, source, replaces, rows, main_launches):
     """The kernel's line: launches from the main paths' runs, and the times
     of its launches in one generation of each path it runs on."""
+    paths = [p for p in main_launches if PATHS[p]["per_generation"][name]]
     per_gen = {p: per_generation(rows, p) for p in paths}
     # what bounds the shape that takes the largest share of the bound
-    heavy = max((r for r in rows if r["path"] in paths),
-                key=lambda r: r["bound_ms"] * r["launches_per_generation"])
-    entry = dict(name=name, route="cuda",
-                 source="ml_stable_diffusion_torch/csrc/flash_attention.cu",
-                 replaces=replaces, launches=sum(main_launches[p][name] for p in paths),
+    heavy = max(rows, key=lambda r: r["bound_ms"] * sum(r["launches_per_generation"].values()))
+    entry = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 launches=sum(main_launches[p][name] for p in paths),
                  max_abs_err=max(r["max_abs_err"] for r in rows))
     for key in ("ms", "plain_ms", "bound_ms"):
         entry[key] = sum(g[key] for g in per_gen.values())
     entry["bound_by"] = heavy["bound_by"]
     entry["library_ms"] = sum(g["library_ms"] for g in per_gen.values())
+    entry["device_ms"] = sum(g["device_ms"] for g in per_gen.values())
     entry["launches_by_path"] = {p: main_launches[p][name] for p in paths}
     entry["per_generation"] = per_gen
     entry["shapes"] = rows
@@ -447,7 +761,8 @@ def kernel_entry(name, replaces, rows, main_launches, paths):
 
 #: kernel name fragments -> group; the first match wins (cuDNN's implicit-GEMM
 #: convolutions carry "gemm" in their names too)
-_KERNEL_GROUPS = (("flash kernel", ("flash_mma", "flash_fma")),
+_KERNEL_GROUPS = (("groupnorm kernel", ("gn_silu",)),
+                  ("flash kernel", ("flash_mma", "flash_fma")),
                   ("convolution", ("conv", "fprop", "dgrad", "implicit")),
                   ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
                   ("softmax", ("softmax",)))
@@ -490,9 +805,8 @@ def profile_generation(path):
     from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 
     spec = PATHS[path]
-    build = build_sd21_pipeline if path == "sd21" else build_sd3_pipeline
     with tempfile.TemporaryDirectory() as tokdir:
-        pipe = build(Path(tokdir))
+        pipe = PROFILE_BUILDERS[path](Path(tokdir))
 
     def generate(i):
         return pipe.generate_images(PipelineConfiguration(
@@ -535,7 +849,7 @@ def profile_generation(path):
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--profile" and sys.argv[2] in PATHS:
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile" and sys.argv[2] in PROFILE_BUILDERS:
         if not torch.cuda.is_available():
             print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
             return 1
@@ -546,7 +860,8 @@ def main():
         profile_generation(sys.argv[2])
         return 0
     if len(sys.argv) > 1:
-        print(f"usage: {sys.argv[0]} [--profile {'|'.join(PATHS)}]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--profile {'|'.join(PROFILE_BUILDERS)}]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -555,11 +870,13 @@ def main():
         flash_attention_cuda,
         flash_attention_multi_q_cuda,
     )
+    from ml_stable_diffusion_torch.ops.groupnorm import group_norm_silu_cuda
     from ml_stable_diffusion_torch.utils import cuda_build
     from ml_stable_diffusion_torch.utils.numerics import apply_numerics, numerics_settings
 
     counters = {"flash_attention": flash_attention_cuda,
-                "flash_attention_multi_q": flash_attention_multi_q_cuda}
+                "flash_attention_multi_q": flash_attention_multi_q_cuda,
+                "group_norm_silu": group_norm_silu_cuda}
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -579,17 +896,23 @@ def main():
     rows = check_kernels()
 
     main_paths, model_checks = {}, {}
+
+    def report(path, res):
+        plain = ("" if "seconds_per_step_plain" not in res else
+                 f"; plain attention {res['seconds_per_step_plain'] * 1e3:.2f} ms/step; flash "
+                 f"vs plain latents rel err {res['flash_vs_plain_latents_rel_err']:.3g}")
+        log(f"main path {path}: {PATHS[path]['label']}: "
+            f"{res['seconds_per_step'] * 1e3:.2f} ms/step, {res['iter_per_s']:.2f} iter/s, "
+            f"{res['seconds_per_image']:.3f} s/image ({card}){plain}; "
+            f"launches {res['launches']}")
+
     for path, build, check in (("sd21", build_sd21_pipeline, check_unet_flash_vs_plain),
                                ("sd3", build_sd3_pipeline, check_mmdit_flash_vs_plain)):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tokdir:
             pipe = build(Path(tokdir))
-            res = main_paths[path] = run_main_path(pipe, path, counters)
-        log(f"main path {path}: {PATHS[path]['label']}: "
-            f"{res['seconds_per_step'] * 1e3:.2f} ms/step, {res['iter_per_s']:.2f} iter/s, "
-            f"{res['seconds_per_image']:.3f} s/image ({card}); plain attention "
-            f"{res['seconds_per_step_plain'] * 1e3:.2f} ms/step; flash vs plain latents rel "
-            f"err {res['flash_vs_plain_latents_rel_err']:.3g}; launches {res['launches']}")
+        main_paths[path] = run_main_path(pipe, path, counters)
+        report(path, main_paths[path])
         del pipe
         torch.cuda.empty_cache()
         counter = counters["flash_attention" if path == "sd21" else "flash_attention_multi_q"]
@@ -597,15 +920,37 @@ def main():
         torch.cuda.empty_cache()
         log(f"phases of {path}: {time.perf_counter() - t0:.1f} s")
 
+    # phase 7: SDXL base, then base + refiner over the same modules
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tokdir:
+        pipe = build_sdxl_pipeline(Path(tokdir))
+    main_paths["sdxl"] = run_main_path(pipe, "sdxl", counters)
+    report("sdxl", main_paths["sdxl"])
+    pipe = sdxl_with_refiner(pipe)
+    main_paths["sdxl_refiner"] = run_main_path(pipe, "sdxl_refiner", counters, timed=1,
+                                               plain=False)
+    report("sdxl_refiner", main_paths["sdxl_refiner"])
+    del pipe
+    torch.cuda.empty_cache()
+    # phase 8
+    model_checks["sdxl"] = check_sdxl_unet(counters)
+    torch.cuda.empty_cache()
+    log(f"phases of sdxl: {time.perf_counter() - t0:.1f} s")
+
     launches = {p: r["launches"] for p, r in main_paths.items()}
     kernels = [
-        kernel_entry("flash_attention", "ml_stable_diffusion_tpu/ops/flash_attention.py:151",
-                     rows["flash_attention"], launches, ("sd21", "sd3")),
+        kernel_entry("flash_attention", "ml_stable_diffusion_torch/csrc/flash_attention.cu",
+                     "ml_stable_diffusion_tpu/ops/flash_attention.py:151",
+                     rows["flash_attention"], launches),
         kernel_entry("flash_attention_multi_q",
+                     "ml_stable_diffusion_torch/csrc/flash_attention.cu",
                      "ml_stable_diffusion_tpu/ops/flash_attention.py:281",
-                     rows["flash_attention_multi_q"], launches, ("sd3",)),
+                     rows["flash_attention_multi_q"], launches),
+        kernel_entry("group_norm_silu", "ml_stable_diffusion_torch/csrc/groupnorm_silu.cu",
+                     "ml_stable_diffusion_tpu/ops/groupnorm.py:64",
+                     rows["group_norm_silu"], launches),
     ]
-    log(json.dumps({"main_paths": main_paths, "flash_vs_plain_in_model": model_checks,
+    log(json.dumps({"main_paths": main_paths, "in_model_checks": model_checks,
                     "numerics": numerics_settings()}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,0 +1,299 @@
+// GroupNorm(+SiLU) forward for Hopper (sm_90a), bound to Python through ctypes.
+//
+// Replaces the Pallas TPU kernel ml_stable_diffusion_tpu/ops/groupnorm.py
+// (_gn_silu_kernel, launched by _gn_silu_pallas).  Same function, over the
+// port's NCHW layout:
+//   per (image b, group g): mean = E[x], var = E[x^2] - mean^2 (f32 sums, no
+//   clamp, as the TPU kernel), y = (x - mean) * rsqrt(var + eps) * gamma_c +
+//   beta_c, optionally y * sigmoid(y), stored in x's dtype.
+// x and y are float32 or bfloat16; gamma and beta float32 or bfloat16 (one
+// dtype for both), widened to f32 as the TPU kernel's gamma_ref[:].astype(f32).
+// The TPU kernel reduced channels to groups through a {0,1} selector matmul
+// over an NHWC image held in VMEM; in NCHW one group of one image is a single
+// contiguous run of (C/G)*H*W elements, so the selector becomes index
+// arithmetic: the channel of group-local element e is e / (H*W).
+//
+// What bounds it on the H100.  About 10 operations per element against 2 to 4
+// bytes read and as many written: it is bound by bytes.  At SDXL's shapes a
+// group is 20,480 to 491,520 elements (up to 983 KB in bf16), more than the
+// 227 KB of shared memory of one SM, and one block per (b, g) would fill only
+// B*G = 64 of the 132 SMs.
+//
+// What the design does about it.
+//  * Several blocks per group: a thread-block cluster of kCluster = 8 blocks
+//    owns one (b, g) and each block one eighth of its run, so a SDXL call
+//    spreads over 512 blocks.  Each block sums its slice, writes its two
+//    partial sums to its shared memory, and after a cluster barrier every
+//    block reads the 8 partials through distributed shared memory, in rank
+//    order, so that all blocks of a group compute bitwise the same mean and
+//    rstd.  A second cluster barrier keeps each block alive until the others
+//    have read it.  One launch, no scratch buffer, no atomics.
+//  * Two passes over the slice: the sums, then the normalisation.  The second
+//    read follows the first within the block and is mostly served by the
+//    50 MB L2; it is marked last-use (__ldcs) and y is stored streaming
+//    (__stcs), so neither displaces the x that other blocks have yet to read
+//    again.
+//  * 16-byte vector loads and stores along the run (8 bf16 or 4 f32 a
+//    thread).  A group need not start on a 16-byte boundary (C/G*H*W odd,
+//    e.g. 3 channels of 7x9): the scalars before the first and after the last
+//    whole vector go to rank 0.  The wrapper clones an x whose base is not
+//    16-byte aligned; y is freshly allocated.
+//  * The channel of a vector's first element takes one 32-bit division; the
+//    rest of the vector steps through it, so a vector that crosses a channel
+//    boundary (ragged H*W) picks up the next gamma/beta.
+//
+// The C entry returns cudaGetLastError() after the launch; the Python wrapper
+// raises when it is not 0.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kCluster = 8;  // blocks per (image, group); the portable cluster size
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 16 bytes of T, widened to f32 and back.  kLast: the last read of this data
+// (evict first); stores always stream.
+template <typename T>
+struct Pack;
+
+template <>
+struct Pack<float> {
+  static constexpr int kN = 4;
+  template <bool kLast>
+  __device__ __forceinline__ static void load(const float* p, float (&v)[kN]) {
+    const float4 q = kLast ? __ldcs(reinterpret_cast<const float4*>(p))
+                           : *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&v)[kN]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  template <bool kLast>
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&v)[kN]) {
+    const uint4 q = kLast ? __ldcs(reinterpret_cast<const uint4*>(p))
+                          : *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h;
+      *reinterpret_cast<uint32_t*>(&h) = w[i];
+      const float2 f = __bfloat1622float2(h);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&v)[kN]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+  }
+};
+
+template <bool kSilu>
+__device__ __forceinline__ float normalize(float v, float mean, float rstd, float ga, float be) {
+  float t = (v - mean) * rstd;
+  t = t * ga + be;
+  if (kSilu) t = t / (1.0f + __expf(-t));
+  return t;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One cluster of kCluster blocks per (image, group): blockIdx.x / kCluster is
+// the flat (b, g) index, the block's rank in the cluster its slice.
+template <typename T, typename P, bool kSilu>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+    gn_silu_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
+                   const P* __restrict__ beta, T* __restrict__ y, int C, int G, int hw,
+                   float eps) {
+  constexpr int V = Pack<T>::kN;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = static_cast<int>(threadIdx.x);
+  const long long bg = blockIdx.x / kCluster;
+  const int g = static_cast<int>(bg % G);
+  const int cpg = C / G;
+  const int n = cpg * hw;  // elements of the group (checked < 2^31 by the entry)
+  const long long base = bg * n;
+  // whole 16-byte vectors [a0, a0 + nv * V) of the run; head scalars before
+  // them, tail scalars after, both taken by rank 0
+  const long long a0 = min(base + n, (base + V - 1) / V * V);
+  const int nv = static_cast<int>((base + n - a0) / V);
+  const long long t0 = a0 + static_cast<long long>(nv) * V;
+  const int head = static_cast<int>(a0 - base);
+  const int tail = static_cast<int>(base + n - t0);
+  const int v_lo = static_cast<int>(static_cast<long long>(nv) * rank / kCluster);
+  const int v_hi = static_cast<int>(static_cast<long long>(nv) * (rank + 1) / kCluster);
+  const T* xa = x + a0;
+  T* ya = y + a0;
+  // this thread's scalar, if any: a head element (tid < head) or a tail one
+  long long scalar = -1;
+  if (rank == 0) {
+    if (tid < head) scalar = base + tid;
+    else if (tid >= V && tid < V + tail) scalar = t0 + (tid - V);
+  }
+
+  // pass 1: the slice's sum and sum of squares in f32
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll 4
+  for (int v = v_lo + tid; v < v_hi; v += kThreads) {
+    float f[V];
+    Pack<T>::template load<false>(xa + static_cast<long long>(v) * V, f);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      s1 += f[j];
+      s2 += f[j] * f[j];
+    }
+  }
+  if (scalar >= 0) {
+    const float f = to_f32(x[scalar]);
+    s1 += f;
+    s2 += f * f;
+  }
+
+  __shared__ float red[2][kWarps];
+  __shared__ float2 part;  // this block's sums, read by every block of the cluster
+  __shared__ float stats[2];
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if ((tid & 31) == 0) {
+    red[0][tid >> 5] = s1;
+    red[1][tid >> 5] = s2;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float a = 0.0f, b = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[0][w];
+      b += red[1][w];
+    }
+    part = make_float2(a, b);
+  }
+  cluster.sync();  // every block's partial sums are in its shared memory
+  if (tid == 0) {
+    float a = 0.0f, b = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      const float2 p = *cluster.map_shared_rank(&part, r);
+      a += p.x;
+      b += p.y;
+    }
+    const float mean = a / static_cast<float>(n);
+    const float var = b / static_cast<float>(n) - mean * mean;
+    stats[0] = mean;
+    stats[1] = rsqrtf(var + eps);
+  }
+  cluster.sync();  // no block exits while another still reads it; stats are visible
+  const float mean = stats[0], rstd = stats[1];
+  const P* gam = gamma + static_cast<long long>(g) * cpg;
+  const P* bet = beta + static_cast<long long>(g) * cpg;
+
+  // pass 2: normalise, scale and shift, SiLU
+  const int e_a0 = head;  // group-local index of xa[0]
+#pragma unroll 4
+  for (int v = v_lo + tid; v < v_hi; v += kThreads) {
+    float f[V];
+    Pack<T>::template load<true>(xa + static_cast<long long>(v) * V, f);
+    const int e = e_a0 + v * V;
+    int c = e / hw;
+    int p = e - c * hw;
+    float ga = to_f32(gam[c]), be = to_f32(bet[c]);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (p == hw) {  // the vector crosses into the next channel
+        p = 0;
+        ++c;
+        ga = to_f32(gam[c]);
+        be = to_f32(bet[c]);
+      }
+      f[j] = normalize<kSilu>(f[j], mean, rstd, ga, be);
+      ++p;
+    }
+    Pack<T>::store(ya + static_cast<long long>(v) * V, f);
+  }
+  if (scalar >= 0) {
+    const int c = static_cast<int>((scalar - base) / hw);
+    y[scalar] = from_f32<T>(
+        normalize<kSilu>(to_f32(x[scalar]), mean, rstd, to_f32(gam[c]), to_f32(bet[c])));
+  }
+}
+
+template <typename T, typename P>
+cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y, int B, int C,
+                   int G, int hw, float eps, bool silu, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(static_cast<long long>(B) * G * kCluster));
+  const T* xt = static_cast<const T*>(x);
+  const P* gt = static_cast<const P*>(gamma);
+  const P* bt = static_cast<const P*>(beta);
+  T* yt = static_cast<T*>(y);
+  if (silu)
+    gn_silu_kernel<T, P, true><<<grid, kThreads, 0, stream>>>(xt, gt, bt, yt, C, G, hw, eps);
+  else
+    gn_silu_kernel<T, P, false><<<grid, kThreads, 0, stream>>>(xt, gt, bt, yt, C, G, hw, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, y: contiguous (B, C, H, W), 16-byte aligned; gamma, beta: (C,).
+// x_dtype / p_dtype: 0 float32, 1 bfloat16.  hw = H * W.
+extern "C" int group_norm_silu_fwd(const void* x, const void* gamma, const void* beta, void* y,
+                                   int B, int C, int G, int x_dtype, int p_dtype, long long hw,
+                                   float eps, int apply_silu, void* stream) {
+  if (B <= 0 || G <= 0 || C <= 0 || C % G != 0 || hw <= 0 ||
+      static_cast<long long>(C / G) * hw > INT_MAX ||
+      static_cast<long long>(B) * G * kCluster > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int h = static_cast<int>(hw);
+  const bool silu = apply_silu != 0;
+  cudaError_t err;
+  if (x_dtype == 1 && p_dtype == 1)
+    err = launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, B, C, G, h, eps, silu, s);
+  else if (x_dtype == 1 && p_dtype == 0)
+    err = launch<__nv_bfloat16, float>(x, gamma, beta, y, B, C, G, h, eps, silu, s);
+  else if (x_dtype == 0 && p_dtype == 1)
+    err = launch<float, __nv_bfloat16>(x, gamma, beta, y, B, C, G, h, eps, silu, s);
+  else if (x_dtype == 0 && p_dtype == 0)
+    err = launch<float, float>(x, gamma, beta, y, B, C, G, h, eps, silu, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}

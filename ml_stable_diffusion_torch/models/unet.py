@@ -1,4 +1,4 @@
-"""UNet2DConditionModel, SD 1.x/2.x family (port of
+"""UNet2DConditionModel, SD 1.x/2.x and SDXL base/refiner (port of
 ml_stable_diffusion_tpu/models/unet.py).
 
 NCHW activations and OIHW convolutions inside; parameter names are the
@@ -14,9 +14,19 @@ diffusers checkpoint keys (``down_blocks.0.attentions.0.transformer_blocks.0
   parity upsamplers compute the same function, and its ``_Conv1x1`` is an
   ordinary 1x1 conv.
 
-SDXL added conditioning, ControlNet residuals, IP-Adapter tokens, DeepCache
-and the serving-time variants raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+- SDXL's added conditioning (``addition_embed_type="text_time"``): the
+  sinusoid of every time id, concatenated after the pooled text embedding in
+  float32, through ``add_embedding`` and added to the timestep embedding;
+- the resnet GroupNorm+SiLU goes through ``ops/groupnorm.py``:
+  ``fused_groupnorm`` runs the CUDA kernel (its plain version on the CPU),
+  ``lowmem_groupnorm`` the low-memory formulation.  ``norm1``/``norm2``
+  stay ``nn.GroupNorm`` parameter holders either way, so the state-dict keys
+  do not depend on the flag.  The transformer GroupNorm and
+  ``conv_norm_out`` stay plain, as in the JAX package.
+
+ControlNet residuals, IP-Adapter tokens, DeepCache, the LCM guidance
+embedding and fused qkv raise ``NotImplementedError`` naming the ROADMAP.md
+item that ports them.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from torch import nn
 
 from ..ops.activations import gelu_erf, quick_gelu
 from ..ops.attention import dot_product_attention
+from ..ops.groupnorm import group_norm_silu, group_norm_silu_lowmem
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,25 +65,59 @@ class UNetConfig:
     norm_eps: float = 1e-5
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
-    #: None (SD) or "text_time" (SDXL micro-conditioning; not ported yet)
+    #: None (SD) or "text_time" (SDXL micro-conditioning)
     addition_embed_type: str | None = None
     addition_time_embed_dim: int = 256
+    #: SDXL: 2816 = 1280 pooled + 6*256 time ids; refiner: 2560 (5 ids)
     projection_class_embeddings_input_dim: int = 2816
     #: LCM guidance-embedding input width (not ported yet)
     time_cond_proj_dim: int | None = None
-    #: serving-time variants of the JAX package (not ported yet, except the
-    #: upsampler rewrites, which compute the same function as NN-2x + conv)
+    #: single fused qkv matmul (not ported yet)
     fuse_qkv: bool = False
+    #: resnet GroupNorm+SiLU on the CUDA kernel (ops/groupnorm.py)
     fused_groupnorm: bool = False
+    #: resnet GroupNorm+SiLU with statistics reduced from the compute dtype
     lowmem_groupnorm: bool = False
     #: quick_gelu in place of the exact erf GELU in the GEGLU feed-forwards
     fast_gelu: bool = False
+    #: the JAX package's upsampler rewrites compute the same function as
+    #: NN-2x + conv, which is what the port runs for either value
     parity_upsample: bool = False
     fused_upsample: bool = True
 
     @classmethod
     def sd21(cls) -> "UNetConfig":
         return cls()
+
+    @classmethod
+    def sdxl(cls) -> "UNetConfig":
+        return cls(
+            block_out_channels=(320, 640, 1280),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                              "CrossAttnDownBlock2D"),
+            up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                            "UpBlock2D"),
+            transformer_layers_per_block=(1, 2, 10),
+            num_attention_heads=(5, 10, 20),
+            cross_attention_dim=2048,
+            addition_embed_type="text_time",
+            projection_class_embeddings_input_dim=2816,
+        )
+
+    @classmethod
+    def sdxl_refiner(cls) -> "UNetConfig":
+        return cls(
+            block_out_channels=(384, 768, 1536, 1536),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                              "CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D",
+                            "CrossAttnUpBlock2D", "UpBlock2D"),
+            transformer_layers_per_block=(1, 4, 4, 1),
+            num_attention_heads=(6, 12, 24, 24),
+            cross_attention_dim=1280,
+            addition_embed_type="text_time",
+            projection_class_embeddings_input_dim=2560,
+        )
 
     @property
     def time_embed_dim(self) -> int:
@@ -108,11 +153,15 @@ class TimestepEmbedding(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    """GN -> SiLU -> conv, + time-embedding add, GN -> SiLU -> conv, + skip."""
+    """GN -> SiLU -> conv, + time-embedding add, GN -> SiLU -> conv, + skip.
+
+    ``gn``: "plain" (``nn.GroupNorm`` then SiLU), "fused" (``group_norm_silu``,
+    the CUDA kernel on the card) or "lowmem" (``group_norm_silu_lowmem``)."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
-                 groups: int = 32, eps: float = 1e-5):
+                 groups: int = 32, eps: float = 1e-5, gn: str = "plain"):
         super().__init__()
+        self.gn = gn
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, out_channels)
@@ -123,10 +172,19 @@ class ResnetBlock2D(nn.Module):
         else:
             self.conv_shortcut = None
 
+    def _gn_silu(self, x, norm: nn.GroupNorm):
+        if self.gn == "fused":
+            return group_norm_silu(x, norm.weight, norm.bias, norm.num_groups,
+                                   norm.eps).to(norm.weight.dtype)
+        if self.gn == "lowmem":
+            return group_norm_silu_lowmem(x.to(norm.weight.dtype), norm.weight, norm.bias,
+                                          norm.num_groups, norm.eps)
+        return F.silu(norm(x))
+
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self._gn_silu(x, self.norm1))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self._gn_silu(h, self.norm2))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -216,7 +274,10 @@ class SpatialTransformer(nn.Module):
         for block in self.transformer_blocks:
             h = block(h, context)
         h = self.proj_out(h)
-        return h.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
+        # x first: the sum takes x's contiguous NCHW layout, which the
+        # GroupNorm kernel of the next resnet needs (the permuted h first
+        # would make it channels-last)
+        return x + h.reshape(B, H, W, C).permute(0, 3, 1, 2)
 
 
 class Downsample2D(nn.Module):
@@ -255,16 +316,12 @@ class _Block(nn.Module):
 
 
 def _check_supported(cfg: UNetConfig):
+    if cfg.addition_embed_type not in (None, "text_time"):
+        raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
     unported = {
-        "addition_embed_type": (cfg.addition_embed_type is not None,
-                                "SDXL added conditioning: ROADMAP Queue 1 item 13"),
         "time_cond_proj_dim": (cfg.time_cond_proj_dim is not None,
                                "LCM guidance embedding: ROADMAP Queue 1 item 11"),
         "fuse_qkv": (cfg.fuse_qkv, "fused qkv serving params: ROADMAP Queue 1 item 17"),
-        "fused_groupnorm": (cfg.fused_groupnorm,
-                            "the fused GroupNorm+SiLU kernel: ROADMAP Queue 2 item 2"),
-        "lowmem_groupnorm": (cfg.lowmem_groupnorm,
-                             "low-memory GroupNorm: ROADMAP Queue 2 item 2"),
     }
     for name, (is_set, what) in unported.items():
         if is_set:
@@ -272,9 +329,11 @@ def _check_supported(cfg: UNetConfig):
 
 
 class UNet2DConditionModel(nn.Module):
-    """Denoiser for SD 1.x/2.x.  ``forward(sample (B, C, H, W), timesteps
-    (B,) or scalar, encoder_hidden_states (B, S, C_ctx))`` -> float32
-    (B, C_out, H, W); computes in the dtype of its parameters."""
+    """Denoiser for SD 1.x/2.x and SDXL.  ``forward(sample (B, C, H, W),
+    timesteps (B,) or scalar, encoder_hidden_states (B, S, C_ctx),
+    added_cond)`` -> float32 (B, C_out, H, W); computes in the dtype of its
+    parameters.  ``added_cond`` (SDXL): ``{"text_embeds": (B, pooled),
+    "time_ids": (B, 5 or 6)}``."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -283,6 +342,11 @@ class UNet2DConditionModel(nn.Module):
         ch = cfg.block_out_channels
         G, eps, temb = cfg.norm_num_groups, cfg.norm_eps, cfg.time_embed_dim
         L = cfg.layers_per_block
+        gn = ("fused" if cfg.fused_groupnorm
+              else "lowmem" if cfg.lowmem_groupnorm else "plain")
+
+        def resnet(c_in, c_out):
+            return ResnetBlock2D(c_in, c_out, temb, G, eps, gn)
 
         def transformer(c, bi):
             return SpatialTransformer(c, cfg.num_attention_heads[bi],
@@ -291,6 +355,9 @@ class UNet2DConditionModel(nn.Module):
                                       fast_gelu=cfg.fast_gelu)
 
         self.time_embedding = TimestepEmbedding(ch[0], temb)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
 
         skip_ch = [ch[0]]
@@ -301,7 +368,7 @@ class UNet2DConditionModel(nn.Module):
             cross = btype == "CrossAttnDownBlock2D"
             resnets, attns = [], []
             for li in range(L):
-                resnets.append(ResnetBlock2D(c_in if li == 0 else out, out, temb, G, eps))
+                resnets.append(resnet(c_in if li == 0 else out, out))
                 if cross:
                     attns.append(transformer(out, bi))
                 skip_ch.append(out)
@@ -315,7 +382,7 @@ class UNet2DConditionModel(nn.Module):
 
         mid = ch[-1]
         self.mid_block = _Block(
-            [ResnetBlock2D(mid, mid, temb, G, eps), ResnetBlock2D(mid, mid, temb, G, eps)],
+            [resnet(mid, mid), resnet(mid, mid)],
             [transformer(mid, len(ch) - 1)])
 
         up = []
@@ -327,7 +394,7 @@ class UNet2DConditionModel(nn.Module):
             down_bi = len(ch) - 1 - bi  # heads indexed by mirrored down block
             resnets, attns = [], []
             for li in range(L + 1):
-                resnets.append(ResnetBlock2D(h_ch + skip_ch.pop(), out, temb, G, eps))
+                resnets.append(resnet(h_ch + skip_ch.pop(), out))
                 h_ch = out
                 if cross:
                     attns.append(transformer(out, down_bi))
@@ -339,7 +406,7 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = nn.GroupNorm(G, ch[0], eps=eps)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, encoder_hidden_states,
+    def forward(self, sample, timesteps, encoder_hidden_states, added_cond=None,
                 down_block_residuals=None, mid_block_residual=None,
                 ip_context=None, deep_feature=None, return_deep_feature=False):
         if down_block_residuals is not None or mid_block_residual is not None:
@@ -356,6 +423,15 @@ class UNet2DConditionModel(nn.Module):
         t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
                                        cfg.flip_sin_to_cos, cfg.freq_shift)
         emb = self.time_embedding(t_emb.to(dtype))
+        if cfg.addition_embed_type == "text_time":
+            if added_cond is None:
+                raise ValueError("an SDXL UNet needs added_cond")
+            time_ids = added_cond["time_ids"].reshape(-1)
+            id_emb = get_timestep_embedding(time_ids, cfg.addition_time_embed_dim,
+                                            cfg.flip_sin_to_cos, cfg.freq_shift)
+            id_emb = id_emb.reshape(sample.shape[0], -1)
+            add = torch.cat([added_cond["text_embeds"].float(), id_emb], dim=-1)
+            emb = emb + self.add_embedding(add.to(dtype))
         context = encoder_hidden_states.to(dtype)
 
         h = self.conv_in(sample.to(dtype))
@@ -377,7 +453,7 @@ class UNet2DConditionModel(nn.Module):
 
         for block in self.up_blocks:
             for li, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, residuals.pop()], dim=1), emb)
+                h = resnet(torch.cat([h, residuals.pop().to(h.dtype)], dim=1), emb)
                 if hasattr(block, "attentions"):
                     h = block.attentions[li](h, context)
             if hasattr(block, "upsamplers"):

@@ -49,9 +49,13 @@ class GenerationResult:
     seconds_per_step: float
 
 
-#: configuration fields that no ported code reads, with the ROADMAP item
-#: that brings them: a value other than the default raises rather than
-#: being ignored
+_SDXL_ONLY = ("SDXL micro-conditioning, which only the SDXL pipeline reads "
+              "(pipelines/sdxl.py), in another pipeline")
+
+#: configuration fields of features not ported yet, with the ROADMAP item
+#: that brings them, or of another family (``read_fields`` of the pipeline
+#: that reads them): a value other than the default raises rather than being
+#: ignored
 _UNPORTED_FIELDS = {
     "starting_image": "img2img: ROADMAP Queue 1 item 11",
     "strength": "img2img strength: ROADMAP Queue 1 item 11",
@@ -61,12 +65,13 @@ _UNPORTED_FIELDS = {
     "deepcache_interval": "DeepCache: ROADMAP Queue 1 item 12",
     "unet_batch_one": "serial batch-1 CFG: ROADMAP Queue 1 item 12",
     "use_denoised_intermediates": "denoised previews (progress callbacks): ROADMAP Queue 1 item 12",
-    "refiner_start": "the SDXL refiner: ROADMAP Queue 1 item 13",
-    "original_size": "SDXL micro-conditioning: ROADMAP Queue 1 item 13",
-    "crops_coords_top_left": "SDXL micro-conditioning: ROADMAP Queue 1 item 13",
-    "target_size": "SDXL micro-conditioning: ROADMAP Queue 1 item 13",
-    "aesthetic_score": "SDXL micro-conditioning: ROADMAP Queue 1 item 13",
-    "negative_aesthetic_score": "SDXL micro-conditioning: ROADMAP Queue 1 item 13",
+    "refiner_start": "the SDXL refiner, which only the SDXL pipeline reads "
+                     "(pipelines/sdxl.py), in another pipeline",
+    "original_size": _SDXL_ONLY,
+    "crops_coords_top_left": _SDXL_ONLY,
+    "target_size": _SDXL_ONLY,
+    "aesthetic_score": _SDXL_ONLY,
+    "negative_aesthetic_score": _SDXL_ONLY,
     "timestep_shift": ("the rectified-flow shift, which only the DiscreteFlow scheduler "
                        "reads (SD3: pipelines/sd3.py), with another scheduler"),
     "ip_adapter_image": "IP-Adapter: ROADMAP Queue 1 item 15",
@@ -75,10 +80,12 @@ _UNPORTED_FIELDS = {
 }
 
 
-def _unported(cfg: PipelineConfiguration, scheduler: str):
+def _unported(cfg: PipelineConfiguration, scheduler: str, read_fields=frozenset()):
+    """Raise for a field of an unported feature set away from its default;
+    ``read_fields`` are the ones the calling pipeline reads itself."""
     defaults = PipelineConfiguration()
     for name, what in _UNPORTED_FIELDS.items():
-        if name == "timestep_shift" and scheduler == "DiscreteFlow":
+        if name in read_fields or (name == "timestep_shift" and scheduler == "DiscreteFlow"):
             continue
         value, default = getattr(cfg, name), getattr(defaults, name)
         if isinstance(default, tuple):
@@ -102,6 +109,8 @@ class StableDiffusionPipeline:
     default_latent_shift = 0.0
     latent_channels = 4
     vae_downscale = 8
+    #: configuration fields of ``_UNPORTED_FIELDS`` that this family reads
+    read_fields: frozenset = frozenset()
 
     def __init__(self, *, tokenizer, text_encoder, unet, vae_decoder,
                  vae_encoder=None, safety_checker=None, controlnets=(),
@@ -117,7 +126,8 @@ class StableDiffusionPipeline:
         apply_numerics()
         self.device = torch.device(device)
         self.tokenizer = tokenizer
-        self.text_encoder = text_encoder.to(self.device).eval()
+        self.text_encoder = (None if text_encoder is None
+                             else text_encoder.to(self.device).eval())
         self.unet = unet.to(self.device).eval()
         self.vae_decoder = vae_decoder.to(self.device).eval()
         self.scheduler_config = scheduler_config or SchedulerConfig()
@@ -158,19 +168,25 @@ class StableDiffusionPipeline:
             raise ValueError("negative_prompt list length must match prompt")
         return neg, pos
 
-    def _tokenize(self, cfg: PipelineConfiguration) -> dict:
-        """-> {"ids": (2N or 2, 77) int32}, negatives first."""
-        neg, pos = self._prompt_lists(cfg)
+    @staticmethod
+    def _token_rows(tokenizer, texts) -> np.ndarray:
+        """(len(texts), 77) int32 ids; prompt weights and prompts longer
+        than one window raise."""
         rows = []
-        for text in neg + pos:
+        for text in texts:
             if _WEIGHT_SYNTAX & set(text):
                 raise NotImplementedError(
                     f"prompt weight syntax in {text!r}: ROADMAP Queue 1 item 12")
-            if len(self.tokenizer.encode(text)) > TEXT_LEN - 2:
+            if len(tokenizer.encode(text)) > TEXT_LEN - 2:
                 raise NotImplementedError(
                     "prompts longer than one 77-token window: ROADMAP Queue 1 item 12")
-            rows.append(self.tokenizer.tokenize(text, TEXT_LEN)[0])
-        return {"ids": np.stack(rows)}
+            rows.append(tokenizer.tokenize(text, TEXT_LEN)[0])
+        return np.stack(rows)
+
+    def _tokenize(self, cfg: PipelineConfiguration) -> dict:
+        """-> {"ids": (2N or 2, 77) int32}, negatives first."""
+        neg, pos = self._prompt_lists(cfg)
+        return {"ids": self._token_rows(self.tokenizer, neg + pos)}
 
     def _ids(self, token_inputs: dict, key: str) -> torch.Tensor:
         return torch.from_numpy(token_inputs[key]).long().to(self.device)
@@ -190,14 +206,22 @@ class StableDiffusionPipeline:
         half = t.shape[0] // 2
         return t[:half], t[half:]
 
-    def _phase_conditioning(self, text: dict, N: int):
-        """-> (ctx_neg, ctx_pos, added_neg, added_pos): the text conditioning
-        split into its negative and positive halves; ``added`` holds what
-        the denoiser takes beside the context (None here)."""
+    # -- denoiser phases (SDXL adds the refiner's) -------------------------------
+
+    def _denoise_phases(self, cfg: PipelineConfiguration, num_steps: int):
+        """-> [(start, end, phase)]: the step ranges and the denoiser of each
+        ("unet"; SDXL's refiner is "refiner").  One phase here."""
+        return [(0, num_steps, "unet")]
+
+    def _phase_conditioning(self, cfg: PipelineConfiguration, text: dict, N: int,
+                            phase: str):
+        """-> (ctx_neg, ctx_pos, added_neg, added_pos) of ``phase``: the text
+        conditioning split into its negative and positive halves; ``added``
+        holds what the denoiser takes beside the context (None here)."""
         ctx_neg, ctx_pos = self._split_neg_pos(text["context"], N)
         return ctx_neg, ctx_pos, None, None
 
-    def _call_unet(self, latents, t, context, added_cond):
+    def _call_unet(self, phase: str, latents, t, context, added_cond):
         return self.unet(latents, t, context)
 
     # -- latents ---------------------------------------------------------------
@@ -215,27 +239,30 @@ class StableDiffusionPipeline:
         src = make_random_source(cfg.rng, cfg.seed)
         return nchw_to_nhwc(src.normal((N, C, h, w))).astype(np.float32)
 
-    def _denoise(self, latents, text, N, plan, scheduler, guidance_on, g):
-        """The denoise loop on NCHW float32 latents."""
-        ctx_neg, ctx_pos, added_neg, added_pos = self._phase_conditioning(text, N)
-        ctx2 = added2 = None
-        if guidance_on:
-            ctx2 = torch.cat([ctx_neg, ctx_pos])
-            if added_pos is not None:
-                added2 = {key: torch.cat([added_neg[key], added_pos[key]])
-                          for key in added_pos}
+    def _denoise(self, cfg, latents, text, N, plan, scheduler, guidance_on, g):
+        """The denoise loop on NCHW float32 latents: the phases in turn over
+        one scheduler state, as the JAX package's consecutive scans."""
         timesteps = torch.from_numpy(plan.timesteps).to(self.device)
         state = scheduler.initial_state(plan, latents)
-        for i in range(plan.num_steps):
-            t = timesteps[i]
-            lat_in = scheduler.scale_model_input(plan, state, latents, i)
+        for start, end, phase in self._denoise_phases(cfg, plan.num_steps):
+            ctx_neg, ctx_pos, added_neg, added_pos = self._phase_conditioning(
+                cfg, text, N, phase)
+            ctx2 = added2 = None
             if guidance_on:
-                out = self._call_unet(torch.cat([lat_in, lat_in]), t, ctx2, added2)
-                out_neg, out_pos = out.chunk(2)
-                noise_pred = out_neg + g * (out_pos - out_neg)
-            else:
-                noise_pred = self._call_unet(lat_in, t, ctx_pos, added_pos)
-            state, latents = scheduler.step(plan, state, noise_pred, i, latents)
+                ctx2 = torch.cat([ctx_neg, ctx_pos])
+                if added_pos is not None:
+                    added2 = {key: torch.cat([added_neg[key], added_pos[key]])
+                              for key in added_pos}
+            for i in range(start, end):
+                t = timesteps[i]
+                lat_in = scheduler.scale_model_input(plan, state, latents, i)
+                if guidance_on:
+                    out = self._call_unet(phase, torch.cat([lat_in, lat_in]), t, ctx2, added2)
+                    out_neg, out_pos = out.chunk(2)
+                    noise_pred = out_neg + g * (out_pos - out_neg)
+                else:
+                    noise_pred = self._call_unet(phase, lat_in, t, ctx_pos, added_pos)
+                state, latents = scheduler.step(plan, state, noise_pred, i, latents)
         return latents
 
     # -- decode ----------------------------------------------------------------
@@ -259,7 +286,7 @@ class StableDiffusionPipeline:
     def generate_images(self, cfg: PipelineConfiguration, progress_handler=None,
                         image_hw: tuple[int, int] = (512, 512)) -> GenerationResult:
         cfg.validate()
-        _unported(cfg, self._scheduler_name(cfg))
+        _unported(cfg, self._scheduler_name(cfg), self.read_fields)
         if progress_handler is not None:
             raise NotImplementedError("progress callbacks: ROADMAP Queue 1 item 12")
         N = cfg.image_count
@@ -277,7 +304,7 @@ class StableDiffusionPipeline:
             text = self._encode_text(token_inputs)
             latents = torch.from_numpy(noise).to(self.device).permute(0, 3, 1, 2)
             latents = latents.contiguous() * plan.init_noise_sigma
-            latents = self._denoise(latents, text, N, plan, scheduler,
+            latents = self._denoise(cfg, latents, text, N, plan, scheduler,
                                     guidance_on, float(cfg.guidance_scale))
             # the host fetch waits for the device
             latents = latents.permute(0, 2, 3, 1).cpu().numpy()

@@ -79,10 +79,11 @@ class StableDiffusion3Pipeline(StableDiffusionPipeline):
         return {"context": torch.cat([clip_ctx, t5_zero], dim=1),
                 "pooled": torch.cat([out1["pooled_output"], out2["pooled_output"]], dim=-1)}
 
-    def _phase_conditioning(self, text: dict, N: int):
+    def _phase_conditioning(self, cfg: PipelineConfiguration, text: dict, N: int,
+                            phase: str):
         ctx_neg, ctx_pos = self._split_neg_pos(text["context"], N)
         pooled_neg, pooled_pos = self._split_neg_pos(text["pooled"], N)
         return ctx_neg, ctx_pos, {"pooled": pooled_neg}, {"pooled": pooled_pos}
 
-    def _call_unet(self, latents, t, context, added_cond):
+    def _call_unet(self, phase: str, latents, t, context, added_cond):
         return self.unet(latents, t, context, added_cond["pooled"])

@@ -1,0 +1,118 @@
+"""SDXL txt2img pipeline, base and optional refiner (port of
+ml_stable_diffusion_tpu/pipelines/sdxl.py).
+
+What differs from the SD-2.x pipeline it extends:
+
+- two tokenizers and encoders, CLIP-L (optional) and OpenCLIP bigG.  The
+  context is their penultimate states concatenated (768 + 1280 = 2048); the
+  pooled vector is bigG's projected pooled output;
+- ``force_zeros_for_empty_prompt``: when every negative prompt is "", the
+  negative rows of the context and of the pooled vector are zeroed, not the
+  encoding of "" (the refiner's own context is left as encoded, as in the JAX
+  package);
+- micro-conditioning: the base UNet takes time ids ``[original_size,
+  crops_coords_top_left, target_size]``, both sizes (1024, 1024) unless set,
+  whatever the image size; the refiner takes ``[original_size,
+  crops_coords_top_left, aesthetic_score]`` (``negative_aesthetic_score`` for
+  the negative rows) and attends to bigG's 1280-wide context alone;
+- the base -> refiner handoff: with a refiner, the base UNet runs steps
+  ``[0, cut)`` and the refiner ``[cut, n)`` over one scheduler state, ``cut =
+  min(n, max(0, int(refiner_start * n)))``;
+- latent scale 0.13025.
+
+Prompt weights and prompts longer than one 77-token window raise
+``NotImplementedError`` as in the SD pipeline; so do SDXL ControlNet, the VAE
+encoder and ``reduce_memory`` staging, naming their ROADMAP.md items.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import PipelineConfiguration
+from .sd import StableDiffusionPipeline
+
+
+class StableDiffusionXLPipeline(StableDiffusionPipeline):
+    default_latent_scale = 0.13025
+    read_fields = frozenset({"refiner_start", "original_size", "crops_coords_top_left",
+                             "target_size", "aesthetic_score", "negative_aesthetic_score"})
+
+    def __init__(self, *, tokenizer, tokenizer2, text_encoder=None, text_encoder2, unet,
+                 refiner_unet=None, vae_decoder, vae_encoder=None, safety_checker=None,
+                 controlnets=(), scheduler_config=None, force_zeros_for_empty_prompt=True,
+                 device: str | torch.device = "cuda"):
+        if controlnets:
+            raise NotImplementedError("SDXL ControlNet: ROADMAP Queue 1 item 13")
+        # text_encoder (CLIP-L) is optional: refiner-only setups omit it
+        super().__init__(tokenizer=tokenizer, text_encoder=text_encoder, unet=unet,
+                         vae_decoder=vae_decoder, vae_encoder=vae_encoder,
+                         safety_checker=safety_checker, scheduler_config=scheduler_config,
+                         device=device)
+        self.tokenizer2 = tokenizer2
+        self.text_encoder2 = text_encoder2.to(self.device).eval()
+        self.refiner_unet = (None if refiner_unet is None
+                             else refiner_unet.to(self.device).eval())
+        self.force_zeros_for_empty_prompt = force_zeros_for_empty_prompt
+
+    # -- text ------------------------------------------------------------------
+
+    def _tokenize(self, cfg: PipelineConfiguration) -> dict:
+        neg, pos = self._prompt_lists(cfg)
+        out = {"ids2": self._token_rows(self.tokenizer2, neg + pos)}
+        if self.text_encoder is not None:
+            out["ids"] = self._token_rows(self.tokenizer, neg + pos)
+        out["zero_negative"] = self.force_zeros_for_empty_prompt and all(t == "" for t in neg)
+        return out
+
+    def _encode_text(self, token_inputs: dict) -> dict:
+        out2 = self.text_encoder2(self._ids(token_inputs, "ids2"))
+        ctx2 = out2["penultimate_hidden_state"]
+        pooled = out2["pooled_output"]
+        ctx = ctx2
+        if self.text_encoder is not None:
+            out1 = self.text_encoder(self._ids(token_inputs, "ids"))
+            ctx = torch.cat([out1["penultimate_hidden_state"], ctx2], dim=-1)
+        if token_inputs["zero_negative"]:
+            half = ctx.shape[0] // 2  # the negative rows come first
+            ctx = torch.cat([ctx[:half] * 0.0, ctx[half:]])
+            pooled = torch.cat([pooled[:half] * 0.0, pooled[half:]])
+        return {"context": ctx, "context2": ctx2, "pooled": pooled}
+
+    # -- phases ------------------------------------------------------------------
+
+    def _denoise_phases(self, cfg: PipelineConfiguration, num_steps: int):
+        cut = num_steps
+        if self.refiner_unet is not None:
+            cut = min(num_steps, max(0, int(cfg.refiner_start * num_steps)))
+        phases = []
+        if cut > 0:
+            phases.append((0, cut, "unet"))
+        if cut < num_steps:
+            phases.append((cut, num_steps, "refiner"))
+        return phases
+
+    def _phase_conditioning(self, cfg: PipelineConfiguration, text: dict, N: int,
+                            phase: str):
+        refiner = phase == "refiner"
+        ctx_neg, ctx_pos = self._split_neg_pos(text["context2" if refiner else "context"], N)
+        pooled_neg, pooled_pos = self._split_neg_pos(text["pooled"], N)
+        osz = cfg.original_size or (1024, 1024)
+        tsz = cfg.target_size or (1024, 1024)
+        crop = cfg.crops_coords_top_left
+        if refiner:
+            ids_pos = [osz[0], osz[1], crop[0], crop[1], cfg.aesthetic_score]
+            ids_neg = [osz[0], osz[1], crop[0], crop[1], cfg.negative_aesthetic_score]
+        else:
+            ids_pos = ids_neg = [osz[0], osz[1], crop[0], crop[1], tsz[0], tsz[1]]
+
+        def time_ids(ids):
+            row = torch.tensor([float(v) for v in ids], dtype=torch.float32, device=self.device)
+            return row.expand(N, len(ids))
+
+        return (ctx_neg, ctx_pos, {"text_embeds": pooled_neg, "time_ids": time_ids(ids_neg)},
+                {"text_embeds": pooled_pos, "time_ids": time_ids(ids_pos)})
+
+    def _call_unet(self, phase: str, latents, t, context, added_cond):
+        unet = self.refiner_unet if phase == "refiner" else self.unet
+        return unet(latents, t, context, added_cond)

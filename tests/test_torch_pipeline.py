@@ -100,7 +100,8 @@ def test_import_pulls_in_no_jax():
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'ml_stable_diffusion_tpu')]\n"
         "assert not bad, bad\n"
-        "need = {'models.mmdit', 'pipelines.sd3', 'schedulers.flow', 'ops.flash_attention'}\n"
+        "need = {'models.mmdit', 'pipelines.sd3', 'schedulers.flow', 'ops.flash_attention',\n"
+        "        'pipelines.sdxl', 'ops.groupnorm'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

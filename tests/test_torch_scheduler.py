@@ -73,7 +73,7 @@ def test_dpm2_golden(tmp_path):
     with torch.no_grad():
         context = pipe._encode_text(pipe._tokenize(cfg))
         lat = torch.from_numpy(np.array(noise)).permute(0, 3, 1, 2).contiguous()
-        lat = pipe._denoise(lat * plan.init_noise_sigma, context, 1, plan, sched,
+        lat = pipe._denoise(cfg, lat * plan.init_noise_sigma, context, 1, plan, sched,
                             True, cfg.guidance_scale)
     golden = np.load(GOLDEN)["latents"]
     np.testing.assert_allclose(lat.permute(0, 2, 3, 1).numpy(), golden,
