@@ -41,9 +41,27 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
 8. One full-width SDXL base UNet forward with variance-preserving weights:
    the fused GroupNorm+SiLU kernel against a second UNet on ``nn.GroupNorm``
    with the same state dict, and the flash kernel against plain attention.
+9. The palettized path at full width and depth, as ``bench.py``'s
+   ``bench_palettized6`` runs it: the SD-2.1 UNet and CLIP-H palettized at 6
+   bits on the card (``compress.palettize_tree``), saved with the dense VAE
+   decoder as an artifact bundle (``convert.artifacts.save_module``),
+   loaded by ``convert.load.load_pipeline_from_artifacts`` (install mode),
+   then generated from as phase 3 does, first in install mode, then with the
+   same UNet in program mode.  Checks: on-disk bytes against fp16, installed
+   weights equal bit for bit to the dequantized bf16 in both modes, 301
+   flash launches and none of the fused dequant-matmul per generation,
+   install against program against a pipeline handed the dequantized
+   weights directly (latents), and the peak device memory of each mode.
+10. The fused dequant-matmul's in-model witness (no generation path runs
+   it, as in the JAX package): every palettizable ``nn.Linear`` of one
+   full-width palettized SD-2.1 UNet call, variance-preserving weights, on
+   ``palettized_dense_fused``, against the same UNet serving the
+   dequantized weights (install mode): PSNR and the launch count against
+   the recorded call list.
 
 Every kernel launch counter is set to 0 just before each main path (phases
-3, 5 and both runs of 7) and read just after it.  Prints a
+3, 5, both runs of 7, both modes of 9, and phase 10 for the fused
+dequant-matmul, whose main path it is) and read just after it.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -59,6 +77,7 @@ wall time.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -90,6 +109,8 @@ PROMPTS = ["a photo of an astronaut riding a horse on mars",
            "a cat wearing a tiny hat", "a watercolor bridge at dawn",
            "a robot reading in a library"]
 #: the main paths: what each generation must launch of each kernel entry
+#: (palettized_dense_fused: none, the pipelines serve palettized weights
+#: dequantized; phase 10 is its witness)
 #: (flash_attention: SD-2.1 15 per UNet call, 5 each at 4096, 1024 and 256
 #: tokens, x 20 steps, plus the VAE mid block; SDXL base 70 per UNet call,
 #: 10 at 4096 and 60 at 1024 tokens, and the refiner 41, 20 at 4096, 20 at
@@ -101,25 +122,30 @@ PATHS = {
                  image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5,
                  scheduler="DPMSolverMultistep",
                  per_generation={"flash_attention": 301, "flash_attention_multi_q": 0,
-                                 "group_norm_silu": 0}),
+                                 "group_norm_silu": 0, "palettized_dense_fused": 0}),
     "sd3": dict(label="SD3-medium 1024x1024 (no T5), 20 steps DiscreteFlow, CFG batch 2",
                 image_hw=(1024, 1024), latents=(1, 128, 128, 16), guidance=4.5,
                 scheduler="DiscreteFlow",
                 per_generation={"flash_attention": 1, "flash_attention_multi_q": 480,
-                                "group_norm_silu": 0}),
+                                "group_norm_silu": 0, "palettized_dense_fused": 0}),
     "sdxl": dict(label="SDXL-base 1024x1024, 20 steps DPM++ 2M, CFG batch 2, guidance 5",
                  image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
                  scheduler="DPMSolverMultistep",
                  per_generation={"flash_attention": 1401, "flash_attention_multi_q": 0,
-                                 "group_norm_silu": 680}),
+                                 "group_norm_silu": 680, "palettized_dense_fused": 0}),
     "sdxl_refiner": dict(label="SDXL base + refiner 1024x1024, refiner_start 0.8 "
                                "(16 + 4 steps DPM++ 2M), CFG batch 2, guidance 5",
                          image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
                          scheduler="DPMSolverMultistep", extra=dict(refiner_start=0.8),
                          per_generation={"flash_attention": 1285,
                                          "flash_attention_multi_q": 0,
-                                         "group_norm_silu": 720}),
+                                         "group_norm_silu": 720, "palettized_dense_fused": 0}),
 }
+#: phase 9: the SD-2.1 path on a palettized bundle, in each serving mode
+for _mode in ("install", "program"):
+    PATHS[f"sd21_pal_{_mode}"] = dict(
+        PATHS["sd21"], label=f"SD-2.1-base 512x512 from a 6-bit palettized bundle, {_mode} "
+                             "mode, 20 steps DPM++ 2M, CFG batch 2")
 #: steps of each UNet in one generation of a path: (base, refiner)
 UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4)}
 #: the attention kernel entries (phase 7's plain-attention run launches none)
@@ -139,6 +165,24 @@ GN_REL_RMS = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 #: f32 operations per element of the GroupNorm+SiLU function: sum and square
 #: sum (3), normalise, scale and shift (4), SiLU (exp, add, divide, ~4)
 GN_OPS_PER_ELEMENT = 11
+#: the palettized path's bit width (bench.py bench_palettized6)
+PAL_NBITS = 6
+#: fused dequant-matmul against its plain version: max abs
+#: (tests/test_pallas_kernels.py's; the inputs give outputs of order 1, so
+#: one bf16 rounding step of the largest is 3e-2) and relative RMS.  A k
+#: tile (32 deep) left out moves the output by rel RMS >= sqrt(32/5120) =
+#: 0.079 at the deepest SD-2.1 shape: the witness shows it per shape
+PAL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+PAL_REL_RMS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: depth of one k tile of the kernel (csrc/palettized_matmul.cu kBK)
+PAL_K_TILE = 32
+#: palettizable nn.Linear calls per SD-2.1 UNet call at 512x512, CFG batch 2
+#: (kernel_bounds.linear_calls)
+PAL_CALLS_PER_UNET = 216
+#: the fused op against install mode in one full-width UNet call
+PAL_MIN_PSNR_DB = 40.0
+#: latents of install mode, program mode and dense weights handed directly
+PAL_LATENTS_REL_ERR = 1e-3
 
 
 def log(*args):
@@ -182,40 +226,83 @@ def abs_and_rel_rms(got, ref):
     return diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
 
 
-def device_ms_per_call(fn, calls: int = 10) -> float:
-    """The profiler's device time of ``calls`` calls, per call: at shapes
-    where a CUDA-event loop of back-to-back calls measures the host's issue
-    rate (~0.05 ms and less), this still reads the kernel."""
+def _device_ms_split(fns, calls):
+    """Device ms per call of each ``fns[i]`` (``calls[i]`` calls in turn, each
+    row after a ``torch.cuda._sleep`` marker kernel), or None when the
+    profiler's record lacks a marker or a row's kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+        for fn, n in zip(fns, calls):
+            torch.cuda._sleep(1)
+            for _ in range(n):
+                fn()
+        torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    _, _, names = _device_time(prof)
-    return sum(us for _, us in names.values()) / 1e3 / calls
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
+    if len(marks) != len(fns) + 1 or any(b == a + 1 for a, b in zip(marks, marks[1:])):
+        return None
+    return [sum(e.time_range.elapsed_us() for e in kernels[a + 1:b]) / 1e3 / n
+            for n, a, b in zip(calls, marks, marks[1:])]
+
+
+def add_device_ms(rows, fns_by_key, tries=3):
+    """Set, for each ``key: fns`` of ``fns_by_key``, each row's ``key`` to
+    the profiler's device time of its call ``fns[i]``, per call: the sum of
+    every kernel the call launches.  At shapes where a CUDA-event loop of
+    back-to-back calls measures the host's issue rate (~0.05 ms and less),
+    this still reads the device.  One profiler session per key for all rows
+    (the card's profiler stopped recording after ~50 short sessions), split
+    at marker kernels; a session whose record lost events is run again, and
+    after ``tries`` the rows read None ("not measured")."""
+    calls = [3 if r["bound_ms"] > 1.0 else 10 for r in rows]
+    for key, fns in fns_by_key.items():
+        for attempt in range(1, tries + 1):
+            got = _device_ms_split(fns, calls)
+            if got is not None:
+                break
+            log(f"{key}: the profiler's record lost events (try {attempt} of {tries})")
+        for row, ms in zip(rows, got or [None] * len(rows)):
+            row[key] = ms
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def total(values):
+    """Sum, or None when a term was not measured."""
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
 
 
 def timings(kernel, plain, library, bound_s):
-    """ms per call of the kernel (CUDA events and profiler device time), the
-    plain version and the library call; fewer repetitions past 1 ms of
-    bound."""
+    """ms per call of the kernel (CUDA events), the plain version and the
+    library call; fewer repetitions past 1 ms of bound."""
     slow = bound_s > 1e-3
     return dict(ms=time_ms(kernel, reps=3 if slow else 20),
-                device_ms=device_ms_per_call(kernel, calls=3 if slow else 10),
                 plain_ms=time_ms(plain, reps=1 if slow else 3),
                 library_ms=time_ms(library, reps=3 if slow else 20))
+
+
+def sd21_all(n):
+    """Launches per generation of the SD-2.1 path and its palettized runs."""
+    return {"sd21": n, "sd21_pal_install": n, "sd21_pal_program": n}
 
 
 #: (label, query stream lengths, Sk, B, H, D, dtype, {path: launches per
 #: generation of that path})
 FLASH_SHAPES = [
-    ("unet 64x64", (4096,), 4096, 2, 5, 64, torch.bfloat16, {"sd21": 100}),
-    ("unet 32x32", (1024,), 1024, 2, 10, 64, torch.bfloat16, {"sd21": 100}),
-    ("unet 16x16", (256,), 256, 2, 20, 64, torch.bfloat16, {"sd21": 100}),
-    ("vae mid 512", (4096,), 4096, 1, 1, 512, torch.float32, {"sd21": 1}),
+    ("unet 64x64", (4096,), 4096, 2, 5, 64, torch.bfloat16, sd21_all(100)),
+    ("unet 32x32", (1024,), 1024, 2, 10, 64, torch.bfloat16, sd21_all(100)),
+    ("unet 16x16", (256,), 256, 2, 20, 64, torch.bfloat16, sd21_all(100)),
+    ("vae mid 512", (4096,), 4096, 1, 1, 512, torch.float32, sd21_all(1)),
     ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32,
      {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1}),
     ("sdxl 64x64", (4096,), 4096, 2, 10, 64, torch.bfloat16,
@@ -251,7 +338,7 @@ def check_kernel(kernel, reference, shapes):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
+    rows, calls, libraries = [], [], []
     for label, q_lens, sk, B, H, D, dtype, per_gen in shapes:
         def rand(s):
             return torch.randn((B, s, H, D), generator=gen, device="cuda").to(dtype)
@@ -283,17 +370,26 @@ def check_kernel(kernel, reference, shapes):
                    max_abs_err=err, atol=ATOL[dtype], rel_rms_err=rel,
                    rel_rms_tol=REL_RMS[dtype], dropped_tile_max_abs=cut_err,
                    dropped_tile_rel_rms=cut_rel,
-                   **timings(lambda: kernel(qs, k, v), lambda: reference(qs, k, v),
-                             lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                   **timings(functools.partial(kernel, qs, k, v), lambda: reference(qs, k, v),
+                             functools.partial(F.scaled_dot_product_attention, qt, kt, vt),
                              max(t_bytes, t_ops)),
                    bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         rows.append(row)
+        calls.append(functools.partial(kernel, qs, k, v))
+        libraries.append(functools.partial(F.scaled_dot_product_attention, qt, kt, vt))
+    add_device_ms(rows, {"device_ms": calls, "library_device_ms": libraries})
+    for row in rows:
+        label, q_lens, sk, err, rel = (row[key] for key in ("label", "q_lens", "sk",
+                                                             "max_abs_err", "rel_rms_err"))
+        B, H, D, dtype = row["B"], row["H"], row["D"], getattr(torch, row["dtype"])
+        cut_err, cut_rel = row["dropped_tile_max_abs"], row["dropped_tile_rel_rms"]
         log(f"{label:15s} q {list(q_lens)} k {sk} B{B} H{H} D{D} {row['dtype']:8s} "
             f"err {err:.3g} (atol {ATOL[dtype]}) rel RMS {rel:.3g} (tol {REL_RMS[dtype]}; "
             f"a dropped KV tile: {cut_err:.3g} abs, {cut_rel:.3g} rel) kernel "
-            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f})  plain "
-            f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  bound "
+            f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])})  plain "
+            f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms (device "
+            f"{fmt_ms(row['library_device_ms'])})  bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
 
@@ -342,6 +438,13 @@ def gn_dropped_channel(x, gamma, beta, groups, eps, apply_silu):
     return y * torch.sigmoid(y) if apply_silu else y
 
 
+def _gn_library(x, gamma, beta, groups, eps, silu):
+    import torch.nn.functional as F
+
+    y = F.group_norm(x, groups, gamma, beta, eps)
+    return F.silu(y) if silu else y
+
+
 def check_gn_kernel(shapes, groups=32, eps=1e-5):
     """Each shape: the GroupNorm+SiLU kernel against its plain version, on
     x = a_c * z + b_c with per-channel a_c in [0.5, 2] and b_c in [-2, 2];
@@ -355,7 +458,7 @@ def check_gn_kernel(shapes, groups=32, eps=1e-5):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    rows = []
+    rows, calls, libraries = [], [], []
     for label, (B, C, H, W), dtype, silu, per_gen in shapes:
         a = 0.5 + 1.5 * torch.rand(C, 1, 1, generator=gen, device="cuda")
         b = 4.0 * torch.rand(C, 1, 1, generator=gen, device="cuda") - 2.0
@@ -363,15 +466,12 @@ def check_gn_kernel(shapes, groups=32, eps=1e-5):
         gamma = (1.0 + 0.5 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
         beta = (0.5 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
 
-        def kernel():
-            return group_norm_silu_cuda(x, gamma, beta, groups, eps, silu)
+        kernel = functools.partial(group_norm_silu_cuda, x, gamma, beta, groups, eps, silu)
 
         def plain():
             return group_norm_silu_reference(x, gamma, beta, groups, eps, silu)
 
-        def library():
-            y = F.group_norm(x, groups, gamma, beta, eps)
-            return F.silu(y) if silu else y
+        library = functools.partial(_gn_library, x, gamma, beta, groups, eps, silu)
 
         out = kernel()
         torch.cuda.synchronize()
@@ -400,12 +500,125 @@ def check_gn_kernel(shapes, groups=32, eps=1e-5):
                    bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         rows.append(row)
+        calls.append(kernel)
+        libraries.append(library)
+    add_device_ms(rows, {"device_ms": calls, "library_device_ms": libraries})
+    for row in rows:
+        label, (B, C, H, W), silu, per_gen = (row["label"], row["shape"], row["apply_silu"],
+                                              row["launches_per_generation"])
+        dtype, err, rel = getattr(torch, row["dtype"]), row["max_abs_err"], row["rel_rms_err"]
+        cut_rel = row["dropped_channel_rel_rms"]
         log(f"gn {label:22s} {(B, C, H, W)} {row['dtype']:8s} silu {int(silu)} err {err:.3g} "
             f"(atol {GN_ATOL[dtype]}) rel RMS {rel:.3g} (tol {GN_REL_RMS[dtype]}; without "
             f"the last channel: {cut_rel:.3g} rel) kernel {row['ms']:.4f} ms (device "
-            f"{row['device_ms']:.4f})  plain {row['plain_ms']:.4f} ms  group_norm+silu "
-            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"{fmt_ms(row['device_ms'])})  plain {row['plain_ms']:.4f} ms  group_norm+silu "
+            f"{row['library_ms']:.4f} ms (device {fmt_ms(row['library_device_ms'])})  bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
             f"  launches {per_gen}")
+    return rows
+
+
+def pal_shapes():
+    """-> (the recorded {(M, K, N): calls per UNet call} of every
+    palettizable nn.Linear of the SD-2.1 UNet at 512x512, CFG batch 2, and
+    the phase-2 rows: (label, M, K, N, nbits, dtype, calls per UNet call)
+    for each recorded shape at 6 bits, an nbits sweep, f32 and ragged
+    cases)."""
+    from kernel_bounds import linear_calls
+    from ml_stable_diffusion_torch.models.unet import UNetConfig
+
+    calls = linear_calls(UNetConfig.sd21(), (64, 64), 1024)
+    if sum(calls.values()) != PAL_CALLS_PER_UNET:
+        fail(f"the SD-2.1 UNet makes {sum(calls.values())} palettizable Linear calls, "
+             f"want {PAL_CALLS_PER_UNET}")
+    rows = [(f"sd21 {M}x{K}x{N}", M, K, N, PAL_NBITS, torch.bfloat16, n)
+            for (M, K, N), n in sorted(calls.items(), key=lambda kv: (-kv[0][0], kv[0][1:]))]
+    rows += [(f"{b}-bit 8192x320x2560", 8192, 320, 2560, b, torch.bfloat16, 0)
+             for b in (1, 2, 4, 8)]
+    rows += [("f32 2x1280x1280", 2, 1280, 1280, PAL_NBITS, torch.float32, 0),
+             ("f32 154x1024x320", 154, 1024, 320, PAL_NBITS, torch.float32, 0),
+             ("ragged bf16", 77, 300, 130, PAL_NBITS, torch.bfloat16, 0),
+             ("ragged f32", 3, 7, 5, PAL_NBITS, torch.float32, 0)]
+    return calls, rows
+
+
+def _gather_matmul(x, idx, lut, shape):
+    """What program mode's entry costs for one weight, then the product."""
+    return torch.matmul(x, lut[idx.long()].reshape(shape).to(x.dtype))
+
+
+def check_pal_kernel(shapes):
+    """Each shape: the fused dequant-matmul kernel against its plain version
+    on x ~ N(0, 1), uniform indices and a N(0, 1/K) LUT; what leaving out the
+    last k tile would show; times of the kernel, the plain version,
+    ``torch.matmul`` on the dense bf16 weight that install mode serves
+    (``library_ms``) and the ``lut[idx]`` gather + matmul that program
+    mode's entry costs."""
+    from ml_stable_diffusion_torch.ops.palettized import (
+        palettized_dense_fused_cuda,
+        palettized_dense_fused_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows, calls, libraries, gathers = [], [], [], []
+    for label, M, K, N, nbits, dtype, per_unet in shapes:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        idx = torch.randint(0, 2 ** nbits, (K * N,), generator=gen, device="cuda",
+                            dtype=torch.int32).to(torch.uint8)
+        lut = torch.randn(2 ** nbits, generator=gen, device="cuda") / math.sqrt(K)
+        dense = lut[idx.long()].reshape(K, N).to(dtype)
+
+        kernel = functools.partial(palettized_dense_fused_cuda, x, idx, lut, (K, N))
+
+        def plain():
+            return palettized_dense_fused_reference(x, idx, lut, (K, N))
+
+        library = functools.partial(torch.matmul, x, dense)
+        gather_matmul = functools.partial(_gather_matmul, x, idx, lut, (K, N))
+
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain().float()
+        err, rel = abs_and_rel_rms(out, ref)
+        if not (math.isfinite(err) and err <= PAL_ATOL[dtype] and rel <= PAL_REL_RMS[dtype]):
+            fail(f"palettized {label}: kernel disagrees with its plain version at "
+                 f"({M}x{K})@({K}x{N}) {nbits}-bit {dtype}: max abs err {err} (atol "
+                 f"{PAL_ATOL[dtype]}), rel RMS err {rel} (tol {PAL_REL_RMS[dtype]})")
+        kept = max(K - PAL_K_TILE, 0)
+        cut = (x[:, :kept].float() @ dense[:kept].float()).to(dtype)
+        cut_err, cut_rel = abs_and_rel_rms(cut, ref)
+        if cut_rel <= PAL_REL_RMS[dtype]:
+            fail(f"palettized {label}: the check cannot tell a dropped k tile: rel RMS "
+                 f"{cut_rel} <= {PAL_REL_RMS[dtype]}")
+        # x, the indices, the LUT and y once
+        nbytes = (M * K + M * N) * x.element_size() + K * N + 4 * 2 ** nbits
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * M * K * N / PEAK_FLOPS[dtype]
+        bound_s = max(t_bytes, t_ops)
+        row = dict(label=label, M=M, K=K, N=N, nbits=nbits, dtype=str(dtype).split(".")[-1],
+                   calls_per_unet=per_unet, max_abs_err=err, atol=PAL_ATOL[dtype],
+                   rel_rms_err=rel, rel_rms_tol=PAL_REL_RMS[dtype],
+                   dropped_k_tile_max_abs=cut_err, dropped_k_tile_rel_rms=cut_rel,
+                   **timings(kernel, plain, library, bound_s),
+                   gather_matmul_ms=time_ms(gather_matmul, reps=3 if bound_s > 1e-3 else 20),
+                   library="torch.matmul on the dense weight",
+                   bound_ms=1e3 * bound_s, bound_by="operations" if t_ops >= t_bytes else "bytes")
+        rows.append(row)
+        calls.append(kernel)
+        libraries.append(library)
+        gathers.append(gather_matmul)
+    add_device_ms(rows, {"device_ms": calls, "library_device_ms": libraries,
+                         "gather_matmul_device_ms": gathers})
+    for row in rows:
+        label, nbits, per_unet = row["label"], row["nbits"], row["calls_per_unet"]
+        dtype, err, rel = getattr(torch, row["dtype"]), row["max_abs_err"], row["rel_rms_err"]
+        cut_rel = row["dropped_k_tile_rel_rms"]
+        log(f"pal {label:22s} {nbits}-bit {row['dtype']:8s} err {err:.3g} (atol "
+            f"{PAL_ATOL[dtype]}) rel RMS {rel:.3g} (tol {PAL_REL_RMS[dtype]}; a dropped k tile: "
+            f"{cut_rel:.3g} rel) kernel {row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])})  "
+            f"plain {row['plain_ms']:.4f} ms  matmul {row['library_ms']:.4f} ms (device "
+            f"{fmt_ms(row['library_device_ms'])})  gather+matmul {row['gather_matmul_ms']:.4f} ms "
+            f"(device {fmt_ms(row['gather_matmul_device_ms'])})  bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})  calls per UNet call {per_unet}")
     return rows
 
 
@@ -417,6 +630,7 @@ def check_kernels():
         flash_attention_reference,
     )
 
+    pal_calls, pal_rows = pal_shapes()
     rows = {
         "flash_attention": check_kernel(
             lambda qs, k, v: [flash_attention_cuda(qs[0], k, v)],
@@ -427,7 +641,8 @@ def check_kernels():
     }
     for name, kernel_rows in rows.items():
         check_shape_launches(name, kernel_rows)
-    return rows
+    rows["palettized_dense_fused"] = check_pal_kernel(pal_rows)
+    return rows, pal_calls
 
 
 # -- phases 3 and 5 -------------------------------------------------------------
@@ -459,21 +674,28 @@ def materialize(module, gen, dtype=None, std=0.02):
     return init_random_(module, gen, std=std)
 
 
-def build_sd21_pipeline(tokdir: Path):
+def sd21_modules(seed: int):
+    """CLIP-H (f32), the SD-2.1 UNet (bf16) and the VAE decoder (f32) on the
+    card, speed weights from ``seed``."""
     from ml_stable_diffusion_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
     from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
     from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
-    from ml_stable_diffusion_torch.pipelines import StableDiffusionPipeline
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.device("meta"):
         te = CLIPTextEncoder(CLIPTextConfig.sd2())
         unet = UNet2DConditionModel(UNetConfig.sd21())
         vae = VAEDecoder(VAEConfig.sd())
-    return StableDiffusionPipeline(
-        tokenizer=letters_tokenizer(tokdir), text_encoder=materialize(te, gen),
-        unet=materialize(unet, gen, torch.bfloat16), vae_decoder=materialize(vae, gen),
-        device="cuda")
+    return (materialize(te, gen), materialize(unet, gen, torch.bfloat16),
+            materialize(vae, gen))
+
+
+def build_sd21_pipeline(tokdir: Path):
+    from ml_stable_diffusion_torch.pipelines import StableDiffusionPipeline
+
+    te, unet, vae = sd21_modules(0)
+    return StableDiffusionPipeline(tokenizer=letters_tokenizer(tokdir), text_encoder=te,
+                                   unet=unet, vae_decoder=vae, device="cuda")
 
 
 def build_sd3_pipeline(tokdir: Path):
@@ -727,13 +949,294 @@ def check_sdxl_unet(counters):
     return {"group_norm_silu": gn, "flash_attention": flash}
 
 
+# -- phases 9 and 10 ----------------------------------------------------------------
+
+def fixed_latents(pipe):
+    """Latents of one SD-2.1 generation with a fixed prompt and seed."""
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+
+    spec = PATHS["sd21"]
+    return pipe.generate_images(PipelineConfiguration(
+        prompt=PROMPTS[0], step_count=STEPS, guidance_scale=spec["guidance"], seed=2024,
+        scheduler=spec["scheduler"], rng="numpy", disable_safety=True),
+        image_hw=spec["image_hw"]).latents
+
+
+def check_installed(module, tree, label):
+    """Every palettized weight of ``module`` equals its tree entry's
+    ``dequantize().to(bf16)`` bit for bit."""
+    from ml_stable_diffusion_torch.compress.palettize import PalettizedTensor
+
+    n = 0
+    for key, v in tree.items():
+        if isinstance(v, PalettizedTensor):
+            want = v.to("cuda").dequantize().to(torch.bfloat16)
+            if not torch.equal(module.get_parameter(key), want):
+                fail(f"{label}: {key} is not dequantize().to(bf16) bit for bit")
+            n += 1
+    log(f"{label}: {n} palettized weights equal dequantize().to(bf16) bit for bit")
+    return n
+
+
+def latents_agreement(got, ref, what):
+    """Relative max-abs difference of two latents; a nonzero one is
+    printed, one above PAL_LATENTS_REL_ERR fails."""
+    import numpy as np
+
+    diff = float(np.abs(got - ref).max())
+    rel = diff / max(float(np.abs(ref).max()), 1e-12)
+    if diff:
+        log(f"{what}: latents differ, max abs {diff:.4g}, rel {rel:.4g} (tol "
+            f"{PAL_LATENTS_REL_ERR}): the two ran different kernels or summation orders "
+            "on the same bf16 weights")
+    else:
+        log(f"{what}: latents identical")
+    if not rel <= PAL_LATENTS_REL_ERR:
+        fail(f"{what}: latents rel err {rel} > {PAL_LATENTS_REL_ERR}")
+    return rel
+
+
+def run_palettized_path(counters):
+    """Phase 9: palettize, save, load, serve in install then program mode."""
+    from ml_stable_diffusion_torch.compress.palettize import PalettizedTensor, palettize_tree
+    from ml_stable_diffusion_torch.convert.artifacts import load_module, save_module
+    from ml_stable_diffusion_torch.convert.load import load_pipeline_from_artifacts
+    from ml_stable_diffusion_torch.models.clip import CLIPTextEncoder
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel
+    from ml_stable_diffusion_torch.pipelines import StableDiffusionPipeline
+
+    out = {}
+    te, unet, vae = sd21_modules(10)
+    numel = {name: sum(p.numel() for p in m.parameters())
+             for name, m in (("Unet", unet), ("TextEncoder", te), ("VAEDecoder", vae))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unet_tree, unet_stats = palettize_tree(unet, PAL_NBITS)
+    te_tree, te_stats = palettize_tree(te, PAL_NBITS)
+    torch.cuda.synchronize()
+    out["palettize_s"] = time.perf_counter() - t0
+    out["stats"] = {"Unet": unet_stats, "TextEncoder": te_stats}
+    log(f"palettized the UNet and CLIP-H at {PAL_NBITS} bits on the card in "
+        f"{out['palettize_s']:.2f} s: {unet_stats} / {te_stats}")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        save_module(root, unet_tree, unet.config, "Unet")
+        save_module(root, te_tree, te.config, "TextEncoder")
+        save_module(root, vae.state_dict(), vae.config, "VAEDecoder")
+        letters_tokenizer(root)
+        (root / "bundle.json").write_text(json.dumps(
+            {"family": "StableDiffusionPipeline", "scheduler": None}))
+        out["save_s"] = time.perf_counter() - t0
+        disk = {n: (root / f"{n}.safetensors").stat().st_size for n in numel}
+        fp16 = {n: 2 * k for n, k in numel.items()}
+        # bench_palettized6's accounting: the VAE at fp16-equivalent dense
+        # bytes (its file here holds float32)
+        out["disk_bytes"], out["fp16_bytes"] = disk, fp16
+        out["payload_shrink_disk"] = fp16["Unet"] / disk["Unet"]
+        out["bundle_shrink_disk"] = sum(fp16.values()) / (
+            disk["Unet"] + disk["TextEncoder"] + fp16["VAEDecoder"])
+        out["payload_shrink_stats"] = unet_stats["orig_bytes"] / unet_stats["new_bytes"]
+        out["bundle_shrink_stats"] = (
+            (unet_stats["orig_bytes"] + te_stats["orig_bytes"] + fp16["VAEDecoder"])
+            / (unet_stats["new_bytes"] + te_stats["new_bytes"] + fp16["VAEDecoder"]))
+        log(f"bundle saved in {out['save_s']:.2f} s: on disk {disk} bytes against fp16 {fp16}; "
+            f"UNet payload shrink {out['payload_shrink_disk']:.3f}x on disk "
+            f"({out['payload_shrink_stats']:.3f}x by palettize_tree's stats), bundle "
+            f"{out['bundle_shrink_disk']:.3f}x ({out['bundle_shrink_stats']:.3f}x)")
+        if not out["payload_shrink_disk"] > 16 / PAL_NBITS * 0.95:
+            fail(f"the palettized UNet artifact shrinks {out['payload_shrink_disk']:.3f}x, "
+                 f"want about {16 / PAL_NBITS:.2f}x")
+        # the trees stay on the host for the checks; the card holds only the
+        # pipeline from here on, so the memory figures read the serving modes
+        unet_tree = {k: v.to("cpu") for k, v in unet_tree.items()}
+        te_tree = {k: v.to("cpu") for k, v in te_tree.items()}
+        unet_config, te_config = unet.config, te.config
+        del te, unet, vae
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        pipe = load_pipeline_from_artifacts(root, compute_dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        log(f"load_pipeline_from_artifacts: {out['load_s']:.2f} s (install mode)")
+
+        out["installed_bitwise"] = {"install": check_installed(pipe.unet, unet_tree,
+                                                               "install mode")}
+        latents = {}
+        for mode in ("install", "program"):
+            path = f"sd21_pal_{mode}"
+            if mode == "program":
+                t0 = time.perf_counter()
+                program_tree, _ = load_module(root, "Unet", dequantize=False, device="cuda")
+                pipe.install_palettized("unet", program_tree, dtype=torch.bfloat16,
+                                        mode="program")
+                del program_tree
+                torch.cuda.synchronize()
+                out["program_install_s"] = time.perf_counter() - t0
+                pipe._materialize_palettized()
+                out["installed_bitwise"][mode] = check_installed(pipe.unet, unet_tree,
+                                                                  "program mode")
+                pipe._release_palettized()
+                # what program mode adds to each generation: the gather at
+                # entry and the release at its end
+                out["program_gather_ms"] = time_ms(
+                    lambda: (pipe._materialize_palettized(), pipe._release_palettized()),
+                    reps=1, windows=3)
+                log(f"program mode: installed in {out['program_install_s']:.2f} s; the gather "
+                    f"of {out['installed_bitwise'][mode]} weights at each generation's entry "
+                    f"takes {out['program_gather_ms']:.2f} ms")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            at_rest = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = run_main_path(pipe, path, counters, plain=False)
+            res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            res["memory_allocated_at_rest"] = at_rest
+            latents[mode] = fixed_latents(pipe)
+            out[mode] = res
+            log(f"{path}: peak device memory {res['max_memory_allocated'] / 2**30:.3f} GiB "
+                f"({at_rest / 2**30:.3f} GiB at rest)")
+
+    # a pipeline handed the same dequantized weights directly
+    with torch.device("meta"):
+        unet_d = UNet2DConditionModel(unet_config)
+        te_d = CLIPTextEncoder(te_config)
+    unet_d = unet_d.to_empty(device="cuda").to(torch.bfloat16)
+    te_d = te_d.to_empty(device="cuda")
+    with torch.no_grad():
+        for module, tree in ((unet_d, unet_tree), (te_d, te_tree)):
+            module.load_state_dict({k: v.dequantize() if isinstance(v, PalettizedTensor) else v
+                                    for k, v in tree.items()}, strict=True)
+    dense = StableDiffusionPipeline(tokenizer=pipe.tokenizer, text_encoder=te_d, unet=unet_d,
+                                    vae_decoder=pipe.vae_decoder, device="cuda")
+    latents["dense"] = fixed_latents(dense)
+    out["latents_rel_err"] = {
+        "install_vs_program": latents_agreement(latents["install"], latents["program"],
+                                                "install vs program mode"),
+        "install_vs_dense": latents_agreement(latents["install"], latents["dense"],
+                                              "install mode vs dequantized weights handed directly"),
+        "program_vs_dense": latents_agreement(latents["program"], latents["dense"],
+                                              "program mode vs dequantized weights handed directly"),
+    }
+    del pipe, dense, unet_d, te_d
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fused_linear(x, idx, lut, shape, bias):
+    """A bf16 Linear on the fused op with its bias in float32: the op adds
+    it after the product and promotes the result to float32, as JAX does;
+    the module gets it back in its own dtype."""
+    from ml_stable_diffusion_torch.ops.palettized import palettized_dense_fused
+
+    y = palettized_dense_fused(x, idx, lut, shape, bias=bias)
+    if bias is not None and y.dtype != torch.float32:
+        fail(f"fused op: {x.dtype} x with a {bias.dtype} bias gave {y.dtype}, want float32")
+    return y.to(x.dtype)
+
+
+def check_palettized_witness(counters, calls):
+    """Phase 10: one full-width palettized SD-2.1 UNet call with every
+    palettizable nn.Linear on the fused op, against the same UNet holding
+    the dequantized weights (install mode).  The variance-preserving init
+    leaves biases at zero, so every Linear bias is drawn N(0, 0.02): the
+    fused calls then carry a float32 bias and its promotion."""
+    from torch import nn
+
+    from ml_stable_diffusion_torch.compress.palettize import PalettizedTensor, palettize_tree
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(UNetConfig.sd21())
+    unet = materialize(unet, gen, torch.bfloat16, std=None)
+    with torch.no_grad():
+        for m in unet.modules():
+            if isinstance(m, nn.Linear) and m.bias is not None:
+                m.bias.normal_(0.0, 0.02, generator=gen)
+    tree, _ = palettize_tree(unet, PAL_NBITS)
+    with torch.no_grad():
+        unet.load_state_dict({k: v.dequantize() if isinstance(v, PalettizedTensor) else v
+                              for k, v in tree.items()}, strict=True)
+    inputs = (torch.randn(2, 4, 64, 64, generator=gen, device="cuda"),
+              torch.tensor(500.0, device="cuda"),
+              torch.randn(2, 77, 1024, generator=gen, device="cuda"))
+    with torch.inference_mode():
+        ref = unet(*inputs)
+        install_ms = time_ms(lambda: unet(*inputs), reps=3)
+    # the fused op takes the Dense (K, N) index layout; nn.Linear holds (N, K)
+    with_bias = 0
+    for name, m in unet.named_modules():
+        pt = tree.get(f"{name}.weight")
+        if isinstance(m, nn.Linear) and isinstance(pt, PalettizedTensor):
+            with_bias += int(m.bias is not None)
+            N, K = pt.shape
+            idx_kn = pt.indices.reshape(N, K).t().contiguous().reshape(-1)
+            m.forward = functools.partial(_fused_linear, idx=idx_kn, lut=pt.lut, shape=(K, N),
+                                          bias=None if m.bias is None else m.bias.float())
+    reset_counters(counters)
+    with torch.inference_mode():
+        got = unet(*inputs)
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = sum(calls.values())
+    if launches["palettized_dense_fused"] != want:
+        fail(f"the palettized UNet call launched the fused op {launches['palettized_dense_fused']} "
+             f"times, want the {want} recorded palettizable Linear calls")
+    with torch.inference_mode():
+        fused_ms = time_ms(lambda: unet(*inputs), reps=3)
+    max_abs, psnr, peak = psnr_db(got, ref)
+    log(f"palettized unet, every palettizable Linear on the fused op vs install mode: max abs "
+        f"{max_abs:.4g}, PSNR {psnr:.2f} dB (min {PAL_MIN_PSNR_DB}), output peak {peak:.4g}, "
+        f"launches {launches}, {with_bias} of the modules with a float32 bias; UNet call "
+        f"{fused_ms:.3f} ms fused vs {install_ms:.3f} ms install")
+    if not (math.isfinite(max_abs) and psnr >= PAL_MIN_PSNR_DB):
+        fail(f"palettized unet fused vs install PSNR {psnr} dB < {PAL_MIN_PSNR_DB}")
+    del unet
+    torch.cuda.empty_cache()
+    return dict(max_abs=max_abs, psnr_db=psnr, peak=peak, launches=launches,
+                modules_with_bias=with_bias,
+                unet_call_ms_fused=fused_ms, unet_call_ms_install=install_ms)
+
+
+def pal_kernel_entry(rows, witness, main_launches):
+    """The fused dequant-matmul's line: launches from its main path (phase
+    10, one UNet call), and the times of that call's launches: sum over the
+    recorded shapes of per-launch time x calls.  ``launches_by_path`` reads
+    the counters of the palettized generations (phase 9) too."""
+    counted = [r for r in rows if r["calls_per_unet"]]
+    per_unet = {key: total(None if r[key] is None else r[key] * r["calls_per_unet"]
+                           for r in counted)
+                for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                            "library_device_ms", "gather_matmul_ms", "gather_matmul_device_ms")}
+    heavy = max(counted, key=lambda r: r["bound_ms"] * r["calls_per_unet"])
+    launches = witness["launches"]["palettized_dense_fused"]
+    return dict(name="palettized_dense_fused", route="cuda",
+                source="ml_stable_diffusion_torch/csrc/palettized_matmul.cu",
+                replaces="ml_stable_diffusion_tpu/ops/palettized.py:102",
+                launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=per_unet["ms"], plain_ms=per_unet["plain_ms"], bound_ms=per_unet["bound_ms"],
+                bound_by=heavy["bound_by"], library_ms=per_unet["library_ms"],
+                device_ms=per_unet["device_ms"], library_device_ms=per_unet["library_device_ms"],
+                gather_matmul_ms=per_unet["gather_matmul_ms"],
+                gather_matmul_device_ms=per_unet["gather_matmul_device_ms"],
+                launches_by_path={**{p: main_launches[p]["palettized_dense_fused"]
+                                     for p in ("sd21_pal_install", "sd21_pal_program")},
+                                  "phase 10 witness": launches},
+                per_unet_call=dict(per_unet, launches=launches),
+                shapes=rows)
+
+
 def per_generation(rows, path):
     """Times of one generation's launches on ``path``: sum over its shapes
     of per-launch time x launches at that shape."""
     counted = [(r, r["launches_per_generation"].get(path, 0)) for r in rows]
     counted = [(r, n) for r, n in counted if n]
-    out = {key: sum(r[key] * n for r, n in counted)
-           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+    out = {key: total(None if r[key] is None else r[key] * n for r, n in counted)
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                       "library_device_ms")}
     out["launches"] = sum(n for _, n in counted)
     return out
 
@@ -752,7 +1255,8 @@ def kernel_entry(name, source, replaces, rows, main_launches):
         entry[key] = sum(g[key] for g in per_gen.values())
     entry["bound_by"] = heavy["bound_by"]
     entry["library_ms"] = sum(g["library_ms"] for g in per_gen.values())
-    entry["device_ms"] = sum(g["device_ms"] for g in per_gen.values())
+    entry["device_ms"] = total(g["device_ms"] for g in per_gen.values())
+    entry["library_device_ms"] = total(g["library_device_ms"] for g in per_gen.values())
     entry["launches_by_path"] = {p: main_launches[p][name] for p in paths}
     entry["per_generation"] = per_gen
     entry["shapes"] = rows
@@ -871,12 +1375,14 @@ def main():
         flash_attention_multi_q_cuda,
     )
     from ml_stable_diffusion_torch.ops.groupnorm import group_norm_silu_cuda
+    from ml_stable_diffusion_torch.ops.palettized import palettized_dense_fused_cuda
     from ml_stable_diffusion_torch.utils import cuda_build
     from ml_stable_diffusion_torch.utils.numerics import apply_numerics, numerics_settings
 
     counters = {"flash_attention": flash_attention_cuda,
                 "flash_attention_multi_q": flash_attention_multi_q_cuda,
-                "group_norm_silu": group_norm_silu_cuda}
+                "group_norm_silu": group_norm_silu_cuda,
+                "palettized_dense_fused": palettized_dense_fused_cuda}
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -893,7 +1399,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
 
-    rows = check_kernels()
+    rows, pal_calls = check_kernels()
 
     main_paths, model_checks = {}, {}
 
@@ -937,6 +1443,15 @@ def main():
     torch.cuda.empty_cache()
     log(f"phases of sdxl: {time.perf_counter() - t0:.1f} s")
 
+    # phases 9 and 10: the palettized path and the fused op's witness
+    t0 = time.perf_counter()
+    palettized = run_palettized_path(counters)
+    for mode in ("install", "program"):
+        main_paths[f"sd21_pal_{mode}"] = palettized.pop(mode)
+        report(f"sd21_pal_{mode}", main_paths[f"sd21_pal_{mode}"])
+    model_checks["palettized"] = check_palettized_witness(counters, pal_calls)
+    log(f"phases of the palettized path: {time.perf_counter() - t0:.1f} s")
+
     launches = {p: r["launches"] for p, r in main_paths.items()}
     kernels = [
         kernel_entry("flash_attention", "ml_stable_diffusion_torch/csrc/flash_attention.cu",
@@ -949,9 +1464,10 @@ def main():
         kernel_entry("group_norm_silu", "ml_stable_diffusion_torch/csrc/groupnorm_silu.cu",
                      "ml_stable_diffusion_tpu/ops/groupnorm.py:64",
                      rows["group_norm_silu"], launches),
+        pal_kernel_entry(rows["palettized_dense_fused"], model_checks["palettized"], launches),
     ]
     log(json.dumps({"main_paths": main_paths, "in_model_checks": model_checks,
-                    "numerics": numerics_settings()}))
+                    "palettized_path": palettized, "numerics": numerics_settings()}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

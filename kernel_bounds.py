@@ -17,9 +17,15 @@ peak for their type (H100 SXM data sheet, as chip_smoke.py).
   512x512 figure of earlier records: only the calls whose image fits the TPU
   kernel's 4 MB per-image budget (``_qualifies``), the subset the Pallas
   kernel would have taken.
-- The palettized dequant-matmul (``ops/palettized.py:_dequant_matmul``):
-  y = x @ lut[idx] with bf16 x and y and one uint8 index per weight, at two
-  SD-2.1 GEGLU projections.
+- The palettized dequant-matmul (``ops/palettized.py:_dequant_matmul``,
+  ported as ``csrc/palettized_matmul.cu``): y = x @ lut[idx] with bf16 x and
+  y, one uint8 index a weight and a float32 LUT of 2**nbits entries, at
+  every call of a palettizable ``nn.Linear`` (at least
+  ``PALETTIZE_MIN_SIZE`` weights) of the SD-2.1 UNet at 512x512 (64x64
+  latents), CFG batch 2, recorded from the port's UNet, per (M, K, N); x, the
+  indices, the LUT and y once; 2*M*K*N operations.  No generation path runs
+  the fused op (the pipelines serve palettized weights dequantized), so
+  this is the work of one UNet call served through it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+#: the palettized path's bit width (bench.py bench_palettized6)
+PALETTIZED_NBITS = 6
 #: the Pallas GroupNorm kernel's per-image budget (ops/groupnorm.py)
 GN_IMAGE_BYTES = 4 * 1024 * 1024
 #: SDXL steps of each UNet per generation: base alone, and base + refiner at
@@ -101,21 +109,72 @@ def groupnorm_sdxl():
     return out
 
 
-def palettized_bound(M, K, N):
-    nbytes = M * K * 2 + K * N + M * N * 2
+def linear_calls(cfg, latent_hw, context_dim, min_size=None) -> collections.Counter:
+    """(M, K, N) -> calls of the palettizable ``nn.Linear``s (weights of at
+    least ``min_size`` elements, compress/palettize.py's rule) in one UNet
+    call at CFG batch 2, bf16; M is every row the layer multiplies."""
+    from torch import nn
+
+    from ml_stable_diffusion_torch.compress.palettize import PALETTIZE_MIN_SIZE, eligible_weights
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel
+
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(cfg).to(torch.bfloat16)
+    keys = set(eligible_weights(unet, PALETTIZE_MIN_SIZE if min_size is None else min_size))
+    calls = []
+    for name, m in unet.named_modules():
+        if isinstance(m, nn.Linear) and f"{name}.weight" in keys:
+            m.register_forward_hook(lambda mod, inp, out: calls.append(
+                (inp[0].numel() // mod.in_features, mod.in_features, mod.out_features)))
+    with torch.device("meta"):
+        unet(torch.empty(2, 4, *latent_hw), torch.tensor(500.0), torch.empty(2, 77, context_dim))
+    return collections.Counter(calls)
+
+
+def palettized_bound(M, K, N, nbits=PALETTIZED_NBITS):
+    nbytes = M * K * 2 + K * N + 4 * 2 ** nbits + M * N * 2
     flops = 2 * M * K * N
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
     return dict(M=M, K=K, N=N, bytes=nbytes, flops=flops, bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def palettized_weights(cfg):
+    """Palettizable weights of the UNet by module type: tensors and elements."""
+    from torch import nn
+
+    from ml_stable_diffusion_torch.compress.palettize import eligible_weights
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel
+
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(cfg)
+    keys = set(eligible_weights(unet))
+    out = {}
+    for kind, cls in (("linear", nn.Linear), ("conv", nn.Conv2d)):
+        ws = [m.weight for name, m in unet.named_modules()
+              if isinstance(m, cls) and f"{name}.weight" in keys]
+        out[kind] = dict(tensors=len(ws), elements=sum(w.numel() for w in ws))
+    return out
+
+
+def palettized_sd21():
+    from ml_stable_diffusion_torch.models.unet import UNetConfig
+
+    calls = linear_calls(UNetConfig.sd21(), (64, 64), 1024)
+    shapes = [dict(palettized_bound(*s), calls_per_unet=n)
+              for s, n in sorted(calls.items(), key=lambda kv: (-kv[0][0], kv[0][1], kv[0][2]))]
+    return dict(nbits=PALETTIZED_NBITS, weights=palettized_weights(UNetConfig.sd21()),
+                calls_per_unet=sum(calls.values()),
+                bytes_per_unet=sum(r["bytes"] * r["calls_per_unet"] for r in shapes),
+                bound_ms_per_unet=sum(r["bound_ms"] * r["calls_per_unet"] for r in shapes),
+                shapes=shapes)
+
+
 def main():
     print(json.dumps({
         "groupnorm_silu": {"sdxl": groupnorm_sdxl(),
                            "sd21_tpu_subset": groupnorm_sd21_tpu_subset()},
-        # the 64x64 and 16x16 GEGLU input projections at CFG batch 2
-        "dequant_matmul": [palettized_bound(2 * 4096, 320, 2560),
-                           palettized_bound(2 * 256, 1280, 10240)],
+        "dequant_matmul": {"sd21": palettized_sd21()},
     }))
 
 

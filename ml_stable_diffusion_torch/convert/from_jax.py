@@ -1,13 +1,19 @@
 """JAX package parameter trees -> this package's state dicts.
 
 The input is a Flax parameter tree as nested dicts of numpy arrays (the
-caller runs ``np.asarray`` over the leaves; this module imports no JAX).
-The output is a diffusers/transformers-keyed state dict of torch tensors that
+caller runs ``np.asarray`` over the leaves; this module imports no JAX) or of
+torch tensors (``convert/artifacts.load_module``).  The output is a
+diffusers/transformers-keyed state dict of torch tensors that
 ``load_state_dict(strict=True)`` accepts for ``UNet2DConditionModel``,
 ``VAEDecoder``, ``CLIPTextEncoder`` and ``MMDiT``.
 
 Layouts: a conv kernel goes HWIO -> OIHW, a dense kernel is transposed,
 a norm ``scale`` becomes ``weight``, an embedding table stays as it is.
+
+A palettized kernel (a ``PalettizedTensor`` leaf of either package: uint8
+indices, a LUT, a shape and a bit width) stays palettized: its indices are
+permuted as the kernel would be, its shape swapped, its LUT kept, and it
+comes out as the port's ``compress.palettize.PalettizedTensor``.
 """
 
 from __future__ import annotations
@@ -18,23 +24,41 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from ..compress.palettize import PalettizedTensor, to_torch_layout
+
+
+def _is_palettized(value) -> bool:
+    return all(hasattr(value, a) for a in ("indices", "lut", "shape", "nbits"))
+
+
+def _as_torch(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.from_numpy(np.array(value))  # a writable copy
+
 
 def _leaves(tree, prefix=()):
     for key, value in tree.items():
         if isinstance(value, Mapping):
             yield from _leaves(value, prefix + (key,))
+        elif _is_palettized(value):
+            yield prefix + (key,), PalettizedTensor(
+                _as_torch(value.indices).reshape(-1).to(torch.uint8),
+                _as_torch(value.lut).float(), tuple(value.shape), int(value.nbits))
         else:
-            yield prefix + (key,), np.asarray(value)
+            yield prefix + (key,), _as_torch(value)
 
 
-def _tensor(leaf: str, value: np.ndarray) -> tuple[str, torch.Tensor]:
-    """(torch leaf name, a copy in torch layout)."""
+def _tensor(leaf: str, value):
+    """(torch leaf name, the tensor or palettized tensor in torch layout)."""
     if leaf == "kernel":
-        value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
         leaf = "weight"
+        if isinstance(value, PalettizedTensor):
+            return leaf, to_torch_layout(value)
+        value = value.permute(3, 2, 0, 1) if value.ndim == 4 else value.t()
     elif leaf in ("scale", "embedding"):
         leaf = "weight"
-    return leaf, torch.tensor(np.ascontiguousarray(value))
+    return leaf, value if isinstance(value, PalettizedTensor) else value.contiguous()
 
 
 # flax module path -> diffusers module path, applied in order
@@ -144,8 +168,7 @@ def mmdit_state_dict(params) -> dict[str, torch.Tensor]:
         head = path[0]
         if head == "pos_embed":
             M1, M2, D = value.shape
-            sd["pos_embed.pos_embed"] = torch.tensor(
-                np.ascontiguousarray(value.reshape(1, M1 * M2, D)))
+            sd["pos_embed.pos_embed"] = value.reshape(1, M1 * M2, D).contiguous()
             continue
         leaf, tensor = _tensor(path[-1], value)
         m = re.fullmatch(r"blocks_(\d+)", head)

@@ -17,6 +17,12 @@ the denoise loop, ended by fetching the latents to the host, divided by the
 step count.  Images come back as one (N, H, W, 3) uint8 array
 (``utils.image.to_pil`` converts).  Features not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
+
+Palettized weights (``install_palettized``) are served as the JAX package
+serves them: dequantized once on the host (``mode="install"``), or kept on
+the card as uint8 indices and float32 LUTs and gathered into the module's
+parameters at the start of each ``generate_images`` call, inside its timed
+window, and freed at its end (``mode="program"``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from ..compress.palettize import PalettizedTensor
 from ..ops.attention import set_attention_implementation
 from ..schedulers import SCHEDULER_MAP
 from ..schedulers.base import Scheduler, SchedulerConfig, TimestepSpacing
@@ -132,6 +139,80 @@ class StableDiffusionPipeline:
         self.vae_decoder = vae_decoder.to(self.device).eval()
         self.scheduler_config = scheduler_config or SchedulerConfig()
         self.text_embedding_key = text_embedding_key
+        #: program mode: module key -> ({parameter key: PalettizedTensor on
+        #: the device}, install dtype)
+        self.palettized_side: dict[str, tuple[dict[str, PalettizedTensor], torch.dtype]] = {}
+
+    # -- compressed serving ------------------------------------------------------
+
+    #: install_palettized's module keys -> the pipeline attribute that holds
+    #: the module (the JAX package's _PALETTIZED_ATTRS, for the port's modules)
+    _PALETTIZED_ATTRS = {
+        "unet": "unet",
+        "refiner": "refiner_unet",
+        "text_encoder": "text_encoder",
+        "text_encoder2": "text_encoder2",
+    }
+
+    def install_palettized(self, module_key: str, tree: dict, dtype=None, mode: str = "install"):
+        """Serve ``module_key`` ('unet', 'refiner', ...) from ``tree``, its
+        state dict with ``PalettizedTensor`` entries (compress/palettize.py).
+
+        ``mode="install"``: dequantize once on the host, round every entry
+        through ``dtype`` (default: the denoiser's dtype) and load the result
+        into the module, which keeps its own compute dtype: a float32 CLIP
+        installed at bf16 holds bf16-rounded values.
+        ``mode="program"``: keep the uint8 indices and float32 LUTs on the
+        device; ``generate_images`` gathers them into the module's
+        parameters (through ``dtype``) at the start of each call and frees
+        them at its end, so dense copies of those weights do not stay on the
+        device between generations.  The rest of the state dict is loaded
+        now."""
+        attr = self._PALETTIZED_ATTRS[module_key]
+        module = getattr(self, attr)
+        dtype = dtype if dtype is not None else next(self.unet.parameters()).dtype
+        if module_key in self.palettized_side:
+            # a module served in program mode before: its parameters get
+            # their shapes back before they are loaded anew
+            self._materialize_palettized()
+            del self.palettized_side[module_key]
+            self._release_palettized()
+        with torch.no_grad():
+            if mode == "install":
+                module.load_state_dict(
+                    {k: (v.dequantize() if isinstance(v, PalettizedTensor) else v).to(dtype)
+                     for k, v in tree.items()}, strict=True)
+            elif mode == "program":
+                pal = {k: v for k, v in tree.items() if isinstance(v, PalettizedTensor)}
+                missing, unexpected = module.load_state_dict(
+                    {k: v for k, v in tree.items() if k not in pal}, strict=False)
+                if unexpected or set(missing) != set(pal):
+                    raise KeyError(f"{module_key}: the tree does not match the module: missing "
+                                   f"{sorted(set(missing) - set(pal))}, unexpected {unexpected}")
+                dev = next(module.parameters()).device
+                self.palettized_side[module_key] = (
+                    {k: v.to(dev) for k, v in pal.items()}, dtype)
+                self._release_palettized()
+            else:
+                raise ValueError(f"unknown mode {mode!r}")
+
+    @torch.no_grad()
+    def _materialize_palettized(self):
+        """Program mode: gather each LUT into its parameter, rounded through
+        the install dtype, held in the parameter's dtype."""
+        for mk, (pal, dtype) in self.palettized_side.items():
+            module = getattr(self, self._PALETTIZED_ATTRS[mk])
+            for key, pt in pal.items():
+                p = module.get_parameter(key)
+                p.data = pt.dequantize().to(dtype).to(p.dtype)
+
+    def _release_palettized(self):
+        """Program mode: free the dense copies (empty parameters)."""
+        for mk, (pal, _) in self.palettized_side.items():
+            module = getattr(self, self._PALETTIZED_ATTRS[mk])
+            for key in pal:
+                p = module.get_parameter(key)
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
 
     # -- scheduler -------------------------------------------------------------
 
@@ -300,14 +381,18 @@ class StableDiffusionPipeline:
         noise = self._initial_noise(cfg, N, h, w)
 
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            text = self._encode_text(token_inputs)
-            latents = torch.from_numpy(noise).to(self.device).permute(0, 3, 1, 2)
-            latents = latents.contiguous() * plan.init_noise_sigma
-            latents = self._denoise(cfg, latents, text, N, plan, scheduler,
-                                    guidance_on, float(cfg.guidance_scale))
-            # the host fetch waits for the device
-            latents = latents.permute(0, 2, 3, 1).cpu().numpy()
+        self._materialize_palettized()
+        try:
+            with torch.inference_mode():
+                text = self._encode_text(token_inputs)
+                latents = torch.from_numpy(noise).to(self.device).permute(0, 3, 1, 2)
+                latents = latents.contiguous() * plan.init_noise_sigma
+                latents = self._denoise(cfg, latents, text, N, plan, scheduler,
+                                        guidance_on, float(cfg.guidance_scale))
+                # the host fetch waits for the device
+                latents = latents.permute(0, 2, 3, 1).cpu().numpy()
+        finally:
+            self._release_palettized()
         dt = (time.perf_counter() - t0) / plan.num_steps
 
         images = self.decode_latents(latents, cfg)

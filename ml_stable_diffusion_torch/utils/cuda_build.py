@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the
-root of the checkout, under a file name keyed on the source's hash, and
+root of the checkout, under a file name keyed on the hash of the source and
+of the shared ``csrc/*.cuh`` headers, and
 loaded with ``ctypes``.  A later process finds the library already built; a
 changed source builds anew.  Nothing here runs at import time.
 """
@@ -42,7 +43,11 @@ def _nvcc() -> str:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source exists."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    # the key covers the shared headers too: a changed helper rebuilds
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out

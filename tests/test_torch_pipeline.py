@@ -98,10 +98,12 @@ def test_import_pulls_in_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'ml_stable_diffusion_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'ml_stable_diffusion_tpu')]\n"
         "assert not bad, bad\n"
         "need = {'models.mmdit', 'pipelines.sd3', 'schedulers.flow', 'ops.flash_attention',\n"
-        "        'pipelines.sdxl', 'ops.groupnorm'}\n"
+        "        'pipelines.sdxl', 'ops.groupnorm', 'ops.palettized', 'compress.palettize',\n"
+        "        'compress.mixed_bit', 'convert.artifacts', 'convert.native_io',\n"
+        "        'convert.load', 'convert.report'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -13,6 +13,9 @@
   uint8 images within 1, as for the SD-2.1 and SD3 pipelines.
 - force_zeros_for_empty_prompt, the time ids of both phases, the phase
   split, and the fields and parts that still raise.
+- The SDXL branch of ``load_pipeline_from_artifacts``: a JAX-written bundle
+  with both UNets palettized (8 bits) generates the JAX loader's latents
+  (atol 1e-3, as above).
 """
 
 import dataclasses
@@ -289,3 +292,40 @@ def test_unported_parts_raise(pair):
 
 def test_sdxl_pipeline_constants_are_the_jax_ones():
     assert StableDiffusionXLPipeline.default_latent_scale == JaxSDXL.default_latent_scale
+
+
+def test_load_pipeline_from_jax_sdxl_bundle(pair, tmp_path):
+    import json
+
+    from ml_stable_diffusion_tpu.compress.palettize import palettize_tree
+    from ml_stable_diffusion_tpu.convert.artifacts import save_module
+    from ml_stable_diffusion_tpu.convert.load import (
+        load_pipeline_from_artifacts as jax_load_pipeline_from_artifacts,
+    )
+
+    from ml_stable_diffusion_torch.convert.load import load_pipeline_from_artifacts
+
+    jax_pipe, _ = pair
+    tiny_tokenizer(tmp_path)
+    (tmp_path / "tokenizer_2").mkdir()
+    tiny_tokenizer(tmp_path / "tokenizer_2")
+    # both loaders pad the second tokenizer with "!", as SDXL's CLIP-G does
+    vocab = json.loads((tmp_path / "tokenizer_2" / "vocab.json").read_text())
+    vocab["!"] = len(vocab)
+    (tmp_path / "tokenizer_2" / "vocab.json").write_text(json.dumps(vocab))
+    for name, model, params in (
+            ("TextEncoder", jax_pipe.text_encoder, jax_pipe.text_encoder_params),
+            ("TextEncoder2", jax_pipe.text_encoder2, jax_pipe.text_encoder2_params),
+            ("Unet", jax_pipe.unet, palettize_tree(jax_pipe.unet_params, 8, min_size=128)[0]),
+            ("RefinerUnet", jax_pipe.refiner_unet,
+             palettize_tree(jax_pipe.refiner_unet_params, 8, min_size=128)[0]),
+            ("VAEDecoder", jax_pipe.vae_decoder, jax_pipe.vae_decoder_params)):
+        save_module(tmp_path, params, model.config, name=name)
+    (tmp_path / "bundle.json").write_text(json.dumps({"family": "StableDiffusionXLPipeline"}))
+    kw = _kw(refiner_start=0.6)
+    want = jax_load_pipeline_from_artifacts(tmp_path, compute_dtype=jnp.float32)
+    want = want.generate_images(JaxConfig(**kw), image_hw=HW).latents
+    pipe = load_pipeline_from_artifacts(tmp_path, compute_dtype=torch.float32, device="cpu")
+    assert isinstance(pipe, StableDiffusionXLPipeline) and pipe.refiner_unet is not None
+    got = pipe.generate_images(PipelineConfiguration(**kw), image_hw=HW).latents
+    np.testing.assert_allclose(got, want, atol=1e-3)
