@@ -7,12 +7,17 @@ Needs one CUDA card; without one, or without the repository around it, it
 exits non-zero and prints no result.  Phases, each fatal on failure:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, the TF32 settings; build every kernel from csrc/.
+   versions, the TF32 settings; build every kernel from csrc/, print ptxas's
+   register use and any wgmma it had to serialise, and count the HGMMA
+   (wgmma) instructions in the SASS of the flash and dequant-matmul
+   libraries (``cuobjdump -sass``; 0 fails the run).
 2. Every kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it plus ragged ones, with timings of the kernel (CUDA
    events and the profiler's device time per launch), the plain version and
-   one PyTorch library call computing the same function.  The GroupNorm+SiLU
-   shapes are recorded from the SDXL base and refiner UNets themselves.
+   one PyTorch library call computing the same function; beside each row
+   the flash tile instantiation or the dequant-matmul's launch plan.  The
+   GroupNorm+SiLU shapes are recorded from the SDXL base and refiner UNets
+   themselves.
 3. The main path at full width: SD-2.1-base 512x512 txt2img, 20 steps of
    DPM-Solver++(2M), CFG batch 2, guidance 7.5, through
    ``StableDiffusionPipeline.generate_images`` with random weights from a
@@ -56,8 +61,8 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    it, as in the JAX package): every palettizable ``nn.Linear`` of one
    full-width palettized SD-2.1 UNet call, variance-preserving weights, on
    ``palettized_dense_fused``, against the same UNet serving the
-   dequantized weights (install mode): PSNR and the launch count against
-   the recorded call list.
+   dequantized weights (install mode): PSNR beside its prediction, and the
+   launch count against the recorded call list.
 
 Every kernel launch counter is set to 0 just before each main path (phases
 3, 5, both runs of 7, both modes of 9, and phase 10 for the fused
@@ -80,6 +85,7 @@ import dataclasses
 import functools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -102,7 +108,8 @@ ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: (which moves it by ~1e-1); f32 leaves room for the FMA kernel's own
 #: summation order over 4096 keys
 REL_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-#: kv rows per tile of both kernel bodies (csrc/flash_attention.cu)
+#: keys the dropped-tile witness leaves out: 64, half of the bf16 kernel's
+#: 128-row kv tile and the FMA kernel's whole tile (csrc/flash_attention.cu)
 KV_TILE = 64
 STEPS = 20
 PROMPTS = ["a photo of an astronaut riding a horse on mars",
@@ -165,22 +172,30 @@ GN_REL_RMS = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 #: f32 operations per element of the GroupNorm+SiLU function: sum and square
 #: sum (3), normalise, scale and shift (4), SiLU (exp, add, divide, ~4)
 GN_OPS_PER_ELEMENT = 11
+#: libraries whose bf16 kernels run on wgmma (phase 1 counts its HGMMA
+#: instructions in the SASS)
+WGMMA_LIBS = ("libflash_attention", "libpalettized_matmul")
 #: the palettized path's bit width (bench.py bench_palettized6)
 PAL_NBITS = 6
 #: fused dequant-matmul against its plain version: max abs
 #: (tests/test_pallas_kernels.py's; the inputs give outputs of order 1, so
 #: one bf16 rounding step of the largest is 3e-2) and relative RMS.  A k
-#: tile (32 deep) left out moves the output by rel RMS >= sqrt(32/5120) =
-#: 0.079 at the deepest SD-2.1 shape: the witness shows it per shape
+#: tile (64 deep) left out moves the output by rel RMS >= sqrt(64/5120) =
+#: 0.11 at the deepest SD-2.1 shape: the witness shows it per shape
 PAL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 PAL_REL_RMS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-#: depth of one k tile of the kernel (csrc/palettized_matmul.cu kBK)
-PAL_K_TILE = 32
+#: depth of one k tile of the bf16 kernel (csrc/palettized_matmul.cu kBK;
+#: ops/palettized.py K_TILE)
+PAL_K_TILE = 64
 #: palettizable nn.Linear calls per SD-2.1 UNet call at 512x512, CFG batch 2
 #: (kernel_bounds.linear_calls)
 PAL_CALLS_PER_UNET = 216
 #: the fused op against install mode in one full-width UNet call
 PAL_MIN_PSNR_DB = 40.0
+#: its PSNR as predicted before the split-K kernel's first full run (PERF.md
+#: §6): the bias's double rounding dominates, as at the unsplit kernel's
+#: 48.15 dB
+PAL_PREDICTED_PSNR_DB = (46.0, 49.0)
 #: latents of install mode, program mode and dense weights handed directly
 PAL_LATENTS_REL_ERR = 1e-3
 
@@ -198,6 +213,20 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def hgmma_counts(libs):
+    """-> {library file: wgmma (HGMMA) instructions in its SASS} by
+    ``cuobjdump -sass``, or None when the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    counts = {}
+    for lib in libs:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        counts[lib.name] = sum("HGMMA" in line for line in sass.splitlines())
+    return counts
 
 
 def time_ms(fn, reps: int, windows: int = 5) -> float:
@@ -337,6 +366,8 @@ def check_kernel(kernel, reference, shapes):
     the kernel, the plain version and SDPA on the concatenated queries."""
     import torch.nn.functional as F
 
+    from ml_stable_diffusion_torch.ops.flash_attention import query_tile_rows
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, calls, libraries = [], [], []
     for label, q_lens, sk, B, H, D, dtype, per_gen in shapes:
@@ -365,8 +396,11 @@ def check_kernel(kernel, reference, shapes):
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         qt = torch.cat(qs, dim=1).transpose(1, 2)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        # the bf16 D = 64 kernel's instantiation: query rows a block
+        tile = (f"wgmma {query_tile_rows(q_lens, B, H)}-row" if dtype == torch.bfloat16 and D == 64
+                else "fma")
         row = dict(label=label, q_lens=list(q_lens), sk=sk, B=B, H=H, D=D,
-                   dtype=str(dtype).split(".")[-1], launches_per_generation=per_gen,
+                   dtype=str(dtype).split(".")[-1], tile=tile, launches_per_generation=per_gen,
                    max_abs_err=err, atol=ATOL[dtype], rel_rms_err=rel,
                    rel_rms_tol=REL_RMS[dtype], dropped_tile_max_abs=cut_err,
                    dropped_tile_rel_rms=cut_rel,
@@ -385,6 +419,7 @@ def check_kernel(kernel, reference, shapes):
         B, H, D, dtype = row["B"], row["H"], row["D"], getattr(torch, row["dtype"])
         cut_err, cut_rel = row["dropped_tile_max_abs"], row["dropped_tile_rel_rms"]
         log(f"{label:15s} q {list(q_lens)} k {sk} B{B} H{H} D{D} {row['dtype']:8s} "
+            f"[{row['tile']}] "
             f"err {err:.3g} (atol {ATOL[dtype]}) rel RMS {rel:.3g} (tol {REL_RMS[dtype]}; "
             f"a dropped KV tile: {cut_err:.3g} abs, {cut_rel:.3g} rel) kernel "
             f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])})  plain "
@@ -555,6 +590,7 @@ def check_pal_kernel(shapes):
     (``library_ms``) and the ``lut[idx]`` gather + matmul that program
     mode's entry costs."""
     from ml_stable_diffusion_torch.ops.palettized import (
+        launch_plan,
         palettized_dense_fused_cuda,
         palettized_dense_fused_reference,
     )
@@ -594,7 +630,12 @@ def check_pal_kernel(shapes):
         nbytes = (M * K + M * N) * x.element_size() + K * N + 4 * 2 ** nbits
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * M * K * N / PEAK_FLOPS[dtype]
         bound_s = max(t_bytes, t_ops)
+        # the bf16 kernel's launch plan (the f32 FMA kernel has none)
+        plan = launch_plan(M, K, N) if dtype == torch.bfloat16 else None
         row = dict(label=label, M=M, K=K, N=N, nbits=nbits, dtype=str(dtype).split(".")[-1],
+                   plan=None if plan is None else dict(
+                       bm=plan.bm, bn=plan.bn, splits=plan.splits,
+                       tiles_per_split=plan.tiles_per_split, blocks=plan.blocks),
                    calls_per_unet=per_unet, max_abs_err=err, atol=PAL_ATOL[dtype],
                    rel_rms_err=rel, rel_rms_tol=PAL_REL_RMS[dtype],
                    dropped_k_tile_max_abs=cut_err, dropped_k_tile_rel_rms=cut_rel,
@@ -612,7 +653,10 @@ def check_pal_kernel(shapes):
         label, nbits, per_unet = row["label"], row["nbits"], row["calls_per_unet"]
         dtype, err, rel = getattr(torch, row["dtype"]), row["max_abs_err"], row["rel_rms_err"]
         cut_rel = row["dropped_k_tile_rel_rms"]
-        log(f"pal {label:22s} {nbits}-bit {row['dtype']:8s} err {err:.3g} (atol "
+        plan = row["plan"]
+        plan_s = ("fma" if plan is None else f"bm {plan['bm']} bn {plan['bn']} splits "
+                  f"{plan['splits']}x{plan['tiles_per_split']} tiles, {plan['blocks']} blocks")
+        log(f"pal {label:22s} {nbits}-bit {row['dtype']:8s} [{plan_s}] err {err:.3g} (atol "
             f"{PAL_ATOL[dtype]}) rel RMS {rel:.3g} (tol {PAL_REL_RMS[dtype]}; a dropped k tile: "
             f"{cut_rel:.3g} rel) kernel {row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])})  "
             f"plain {row['plain_ms']:.4f} ms  matmul {row['library_ms']:.4f} ms (device "
@@ -1187,16 +1231,18 @@ def check_palettized_witness(counters, calls):
     with torch.inference_mode():
         fused_ms = time_ms(lambda: unet(*inputs), reps=3)
     max_abs, psnr, peak = psnr_db(got, ref)
+    lo, hi = PAL_PREDICTED_PSNR_DB
     log(f"palettized unet, every palettizable Linear on the fused op vs install mode: max abs "
-        f"{max_abs:.4g}, PSNR {psnr:.2f} dB (min {PAL_MIN_PSNR_DB}), output peak {peak:.4g}, "
+        f"{max_abs:.4g}, PSNR {psnr:.2f} dB (min {PAL_MIN_PSNR_DB}; predicted {lo:g}-{hi:g}, "
+        f"{'inside' if lo <= psnr <= hi else 'outside'} it), output peak {peak:.4g}, "
         f"launches {launches}, {with_bias} of the modules with a float32 bias; UNet call "
         f"{fused_ms:.3f} ms fused vs {install_ms:.3f} ms install")
     if not (math.isfinite(max_abs) and psnr >= PAL_MIN_PSNR_DB):
         fail(f"palettized unet fused vs install PSNR {psnr} dB < {PAL_MIN_PSNR_DB}")
     del unet
     torch.cuda.empty_cache()
-    return dict(max_abs=max_abs, psnr_db=psnr, peak=peak, launches=launches,
-                modules_with_bias=with_bias,
+    return dict(max_abs=max_abs, psnr_db=psnr, predicted_psnr_db=list(PAL_PREDICTED_PSNR_DB),
+                peak=peak, launches=launches, modules_with_bias=with_bias,
                 unet_call_ms_fused=fused_ms, unet_call_ms_install=install_ms)
 
 
@@ -1266,7 +1312,7 @@ def kernel_entry(name, source, replaces, rows, main_launches):
 #: kernel name fragments -> group; the first match wins (cuDNN's implicit-GEMM
 #: convolutions carry "gemm" in their names too)
 _KERNEL_GROUPS = (("groupnorm kernel", ("gn_silu",)),
-                  ("flash kernel", ("flash_mma", "flash_fma")),
+                  ("flash kernel", ("flash_wgmma", "flash_fma")),
                   ("convolution", ("conv", "fprop", "dgrad", "implicit")),
                   ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
                   ("softmax", ("softmax",)))
@@ -1396,8 +1442,16 @@ def main():
     for name, (secs, report) in cuda_build.build_reports.items():
         log(f"nvcc {name}.cu: {secs:.2f} s")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            # register use, spills, and wgmma that ptxas had to serialise
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 log("  " + line.strip())
+    # the two wgmma kernels' libraries must hold wgmma instructions
+    hgmma = hgmma_counts(libs)
+    log(f"HGMMA instructions in the SASS (cuobjdump): "
+        f"{'cuobjdump not found' if hgmma is None else hgmma}")
+    for lib in libs:
+        if hgmma is not None and lib.stem.split("-")[0] in WGMMA_LIBS and not hgmma[lib.name]:
+            fail(f"{lib.name} holds no HGMMA instruction: its kernel does not run on wgmma")
 
     rows, pal_calls = check_kernels()
 
@@ -1467,7 +1521,8 @@ def main():
         pal_kernel_entry(rows["palettized_dense_fused"], model_checks["palettized"], launches),
     ]
     log(json.dumps({"main_paths": main_paths, "in_model_checks": model_checks,
-                    "palettized_path": palettized, "numerics": numerics_settings()}))
+                    "palettized_path": palettized, "numerics": numerics_settings(),
+                    "hgmma_instructions": hgmma}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

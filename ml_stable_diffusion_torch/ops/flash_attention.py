@@ -10,9 +10,11 @@ header says what bounds it on the card and what its design does about that.
 In short: one thread block per (batch*head, query tile) loops over KV tiles
 with an online base-2 softmax in f32; q, k and v are read in place from the
 (B, S, H, D) layout; ragged edges are masked in the kernel.  bf16 at D = 64
-(the UNet and the MMDiT) runs on the tensor cores through ``mma.sync``; f32,
-and D = 512 (the VAE's single head), run on the FMA units.  One launch covers
-every query stream: the grid counts the query tiles of all streams.
+(the UNet and the MMDiT) runs on ``wgmma``, a producer warp feeding k/v
+tiles by TMA to two consumer warpgroups (128 query rows a block, or 64 where
+128-row tiles would leave SMs idle: ``query_tile_rows``); f32, and D = 512
+(the VAE's single head), run on the FMA units.  One launch covers every
+query stream: the grid counts the query tiles of all streams.
 
 For each of the two functions there are three entry points:
 
@@ -44,6 +46,8 @@ SUPPORTED_HEAD_DIMS = (64, 512)
 #: query streams one multi-stream launch takes (kMaxStreams in the source)
 MAX_STREAMS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: streaming multiprocessors of the H100 SXM (kSms in the source)
+SMS = 132
 
 _fns: dict = {}
 
@@ -57,6 +61,14 @@ def flash_attention_multi_q_reference(qs, k, v):
     """Plain PyTorch version of the multi-stream function: the streams
     concatenated along the sequence, attended over k/v, and split."""
     return _plain_joint_attention(qs, k, v)
+
+
+def query_tile_rows(q_lens, B: int, H: int) -> int:
+    """Query rows a block of the bf16 D = 64 kernel takes for these streams:
+    128, unless 128-row tiles give fewer than ``SMS`` blocks, then 64 (the
+    rule of ``launch_wgmma`` in the source)."""
+    tiles = sum(-(-n // 128) for n in q_lens)
+    return 64 if tiles * B * H < SMS else 128
 
 
 def _kernel(name: str):

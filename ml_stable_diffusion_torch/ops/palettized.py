@@ -15,7 +15,9 @@ A palettized weight is a flat uint8 index per element and a float32 LUT of
   (launched by ``_dequant_matmul``, wrapped by ``palettized_dense_fused``).
   Its kernel is hand-written CUDA, ``csrc/palettized_matmul.cu``, built for
   ``sm_90a`` on first use (utils/cuda_build.py) and called through ctypes;
-  the source's header says what bounds it and how it is laid out.  Entry
+  the source's header says what bounds it and how it is laid out.  Its
+  bf16 launch plan (tile sizes and the K split) is ``launch_plan``, a pure
+  function of (M, K, N) here, passed to the C entry.  Entry
   points, all with the JAX contract: ``x (..., K)``, flat unpacked uint8
   ``indices`` of the (K, N) Dense layout, ``lut (2**nbits,)``,
   ``shape=(K, N)``, an optional ``bias`` added after the product, the
@@ -25,7 +27,8 @@ A palettized weight is a flat uint8 index per element and a float32 LUT of
   - ``palettized_dense_fused_reference``: the plain PyTorch version,
     ``(x.float() @ lut[idx].to(x.dtype).float()).to(x.dtype)`` (the LUT
     value is rounded to x's dtype before the product, as the TPU kernel's
-    ``w.astype(x_ref.dtype)``);
+    ``w.astype(x_ref.dtype)``; an index at or past the LUT's length reads 0,
+    as the TPU kernel's select-sum and the CUDA kernel give it);
   - ``palettized_dense_fused_cuda``: the kernel wrapper.  It launches the
     kernel on CUDA tensors or raises, and counts its launches in
     ``.launches``;
@@ -39,6 +42,7 @@ serve palettized weights dequantized (``install_palettized``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -49,6 +53,12 @@ from ..utils import cuda_build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: LUT entries the kernel holds in shared memory (8-bit indices)
 MAX_LUT = 256
+#: streaming multiprocessors of the H100 SXM: the grid the launch plan fills
+SMS = 132
+#: depth of one k tile of the bf16 kernel (csrc/palettized_matmul.cu kBK)
+K_TILE = 64
+#: rows of x a bf16 block may take (the wgmma N of the swapped product)
+TILE_M = (32, 64, 128, 256)
 
 _fns: dict = {}
 
@@ -144,16 +154,66 @@ def palettized_dense_fused_reference(x, indices, lut, shape, bias=None):
     """Plain PyTorch version of the fused op's function."""
     _check(x, indices, lut, shape)
     K, N = shape
-    w = lut.float()[indices.reshape(-1).long()].reshape(K, N).to(x.dtype).float()
+    # entries past the LUT read 0: gather from the LUT padded to 256 entries
+    lut256 = torch.zeros(MAX_LUT, dtype=torch.float32, device=lut.device)
+    lut256[:lut.numel()] = lut.float()
+    w = lut256[indices.reshape(-1).long()].reshape(K, N).to(x.dtype).float()
     y = (x.reshape(-1, K).float() @ w).to(x.dtype)
     return _finish(y, x.shape[:-1], N, bias)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the bf16 kernel covers y (M, N): blocks of ``bm`` rows of x by
+    ``bn`` columns of W, K cut into ``splits`` ranges of ``tiles_per_split``
+    ``K_TILE``-deep tiles (the last range may be shorter)."""
+
+    bm: int
+    bn: int
+    splits: int
+    tiles_per_split: int
+    grid: tuple  # (n tiles, m tiles, splits)
+
+    @property
+    def blocks(self) -> int:
+        return math.prod(self.grid)
+
+    def workspace_floats(self, M: int, N: int) -> int:
+        """f32 partial sums the split-K pass needs (0 without a split)."""
+        return self.splits * M * N if self.splits > 1 else 0
+
+
+def launch_plan(M: int, K: int, N: int) -> LaunchPlan:
+    """The bf16 kernel's plan for x (M, K) @ W (K, N).  The block takes the
+    smallest row tile that covers M (at most 256) and 128 columns of W; while
+    the grid holds fewer than ``SMS`` blocks it takes narrower tiles (rows
+    down to 64, then 64 columns), then splits K, each split at least one
+    tile deep, until the grid reaches ``SMS`` blocks or K runs out of
+    tiles."""
+    bm = next((t for t in TILE_M if t >= M), TILE_M[-1])
+    bn = 128
+
+    def tiles():
+        return -(-N // bn) * -(-M // bm)
+
+    while tiles() < SMS and bm > 64:
+        bm //= 2
+    if tiles() < SMS:
+        bn = 64
+    k_tiles = -(-K // K_TILE)
+    tiles_per_split = k_tiles
+    if tiles() < SMS:
+        need = -(-SMS // tiles())
+        tiles_per_split = max(1, k_tiles // need)
+    splits = -(-k_tiles // tiles_per_split)
+    return LaunchPlan(bm, bn, splits, tiles_per_split, (-(-N // bn), -(-M // bm), splits))
 
 
 def _kernel():
     fn = _fns.get("fwd")
     if fn is None:
         fn = cuda_build.load("palettized_matmul").palettized_matmul_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns["fwd"] = fn
     return fn
@@ -181,10 +241,15 @@ def palettized_dense_fused_cuda(x, indices, lut, shape, bias=None):
     idx = indices.reshape(-1).contiguous()
     lut32 = lut.to(torch.float32).contiguous()
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    plan = launch_plan(M, K, N)
+    ws_floats = plan.workspace_floats(M, N) if x.dtype == torch.bfloat16 else 0
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device) if ws_floats else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel()(x2.data_ptr(), idx.data_ptr(), lut32.data_ptr(), y.data_ptr(), M, K, N,
-                       lut32.numel(), _DTYPE_CODES[x.dtype], stream)
+        rc = _kernel()(x2.data_ptr(), idx.data_ptr(), lut32.data_ptr(), y.data_ptr(),
+                       None if ws is None else ws.data_ptr(), M, K, N, lut32.numel(),
+                       _DTYPE_CODES[x.dtype], plan.bm, plan.bn, plan.splits,
+                       plan.tiles_per_split, stream)
     if rc != 0:
         raise RuntimeError(f"palettized matmul kernel launch failed with CUDA error {rc} at "
                            f"x {tuple(x2.shape)} {x.dtype}, shape {(K, N)}")

@@ -53,6 +53,8 @@ def cuda_device():
     ((1, 300, 1, 512), torch.float32),
     ((1, 300, 1, 512), torch.bfloat16),
     ((2, 77, 3, 64), torch.bfloat16),
+    ((2, 154, 24, 64), torch.bfloat16),   # 154 keys: under one 128-row k/v tile and a half
+    ((2, 1000, 4, 64), torch.bfloat16),   # 128-row q tiles; keys not a multiple of 128
 ])
 def test_flash_kernel_matches_plain(shape, dtype, cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -67,11 +69,14 @@ def test_flash_kernel_matches_plain(shape, dtype, cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_kernel_reads_strided_views(cuda_device):
-    """q, k, v as head slices of one (B, S, 3, H, D) projection: the kernel
-    reads them through strides."""
+@pytest.mark.parametrize("pad", [0, 8])
+def test_flash_kernel_reads_strided_views(pad, cuda_device):
+    """q, k, v as head slices of one (B, S, 3, H, D + pad) projection: the
+    kernel reads them through strides (pad 8: a head stride of 144 bytes,
+    16-byte aligned but not a whole 128-byte row)."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    qkv = torch.randn(2, 300, 3, 4, 64, generator=g, device=cuda_device).to(torch.bfloat16)
+    qkv = torch.randn(2, 300, 3, 4, 64 + pad, generator=g,
+                      device=cuda_device).to(torch.bfloat16)[..., :64]
     q, k, v = qkv.unbind(2)
     assert_matches_plain(flash_attention_cuda(q, k, v), q, k, v)
 
@@ -93,6 +98,9 @@ def test_flash_kernel_rejects_unsupported(cuda_device):
     ((384, 77), 461, 3, torch.bfloat16),
     ((300,), 300, 2, torch.bfloat16),         # one stream
     ((5, 70, 64, 1), 140, 2, torch.float32),  # four streams, tiny ones among them
+    ((5, 70, 64, 130), 200, 2, torch.bfloat16),  # four streams; keys not a multiple of 128
+    ((154,), 4250, 24, torch.bfloat16),       # the context stream alone: 64-row tiles
+    ((4096, 154), 154, 2, torch.bfloat16),    # 154 keys
 ])
 def test_multi_q_kernel_matches_plain(q_lens, sk, heads, dtype, cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(2)

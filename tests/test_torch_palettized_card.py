@@ -21,8 +21,8 @@ from ml_stable_diffusion_torch.ops.palettized import (
 #: 5e-2 bf16, 1e-4 f32): the two differ by f32 summation order, then by one
 #: bf16 rounding of outputs of order 1
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-#: relative RMS tolerance, ||got - ref|| / ||ref||: a dropped 32-deep k tile
-#: moves the output by >= 0.079 at K = 5120 (chip_smoke.py holds the same)
+#: relative RMS tolerance, ||got - ref|| / ||ref||: a dropped 64-deep k tile
+#: moves the output by >= 0.11 at K = 5120 (chip_smoke.py holds the same)
 REL_RMS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -78,6 +78,19 @@ def test_kernel_matches_plain_sd21(M, K, N, nbits, cuda_device):
     (77, 300, 130, torch.bfloat16),    # ragged M, K (not a multiple of 8) and N
     (130, 72, 200, torch.bfloat16),    # ragged M and N, K in whole vectors
     (3, 7, 5, torch.float32),
+    # split-K remainders (K = 320: 5 tiles of 64; 1024: 16; 5120: 80) at the
+    # M of the time embedding, the cross-attention keys and the 16x16 level;
+    # N = 320 is not a multiple of the 128-column tile
+    (2, 320, 320, torch.bfloat16),
+    (2, 1024, 320, torch.bfloat16),
+    (2, 5120, 320, torch.bfloat16),
+    (154, 320, 320, torch.bfloat16),
+    (154, 1024, 320, torch.bfloat16),
+    (154, 5120, 320, torch.bfloat16),
+    (512, 320, 320, torch.bfloat16),
+    (512, 1024, 320, torch.bfloat16),
+    (512, 5120, 320, torch.bfloat16),
+    (154, 1024, 200, torch.bfloat16),  # N not a multiple of 16: the loads without TMA
 ])
 def test_kernel_ragged_and_f32(M, K, N, dtype, cuda_device):
     x, idx, lut = _inputs(M, K, N, 6, dtype, cuda_device, seed=K)
@@ -87,6 +100,21 @@ def test_kernel_ragged_and_f32(M, K, N, dtype, cuda_device):
     ref = palettized_dense_fused_reference(x.reshape(1, M, K), idx, lut, (K, N), bias=bias)
     assert got.shape == (1, M, N) and got.dtype == torch.float32  # promoted by the f32 bias
     _check(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (2, 1280, 1280),    # split 10 ways, reduced in split order
+    (8192, 320, 320),   # no split
+])
+def test_kernel_is_deterministic(M, K, N, cuda_device):
+    """Two runs of one input give the same bits: split-K partial sums are
+    added in a fixed order, with no atomics."""
+    x, idx, lut = _inputs(M, K, N, 6, torch.bfloat16, cuda_device, seed=M)
+    first = palettized_dense_fused_cuda(x, idx, lut, (K, N))
+    second = palettized_dense_fused_cuda(x, idx, lut, (K, N))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
