@@ -95,9 +95,12 @@ from pathlib import Path
 
 import torch
 
-#: H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 FMA units,
-#: HBM3 bandwidth
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: H100 SXM data-sheet peaks (dense) and HBM3 bandwidth.  bf16: the tensor
+#: cores.  f32: the least time of f32-exact products is the 3xTF32 rate, three
+#: TF32 tensor-core products (lo·hi, hi·lo, hi·hi) for each, 495 / 3 TFLOP/s,
+#: above the FMA units' 67: a kernel on the FMA units can reach at most 41 %
+#: of this bound
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
 #: max-abs tolerance of a kernel against its plain version
 #: (tests/test_pallas_kernels.py's)
@@ -105,11 +108,13 @@ ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: relative RMS tolerance, ||got - ref|| / ||ref||, held as well: with
 #: unit-normal q, k, v over 4096 keys the output is itself ~2e-2, of the
 #: order of the bf16 ATOL, so ATOL alone would pass a dropped KV tile
-#: (which moves it by ~1e-1); f32 leaves room for the FMA kernel's own
-#: summation order over 4096 keys
+#: (which moves it by ~1e-1); f32 leaves room for the kernels' own
+#: summation order over 4096 keys (the 3xTF32 kernel's tensor-core
+#: accumulation: ~1.6e-5)
 REL_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: keys the dropped-tile witness leaves out: 64, half of the bf16 kernel's
-#: 128-row kv tile and the FMA kernel's whole tile (csrc/flash_attention.cu)
+#: 128-row kv tile and the whole tile of the FMA and 3xTF32 kernels
+#: (csrc/flash_attention.cu)
 KV_TILE = 64
 STEPS = 20
 PROMPTS = ["a photo of an astronaut riding a horse on mars",
@@ -124,28 +129,34 @@ PROMPTS = ["a photo of an astronaut riding a horse on mars",
 #: 1024 and 1 at 256, plus the VAE mid block; flash_attention_multi_q: one
 #: joint attention per MMDiT block, 24 x 20 steps; group_norm_silu: one per
 #: resnet GroupNorm+SiLU, 34 per SDXL base UNet call and 44 per refiner call)
+#: the VAE mid block's f32 D = 512 head, once per generation on every path:
+#: one of the flash_attention launches, on the 3xTF32 kernel and its pre-pass
+VAE_ATTENTION = {"flash_attention_wide_f32": 1, "flash_split_tf32": 1}
 PATHS = {
     "sd21": dict(label="SD-2.1-base 512x512, 20 steps DPM++ 2M, CFG batch 2",
                  image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5,
                  scheduler="DPMSolverMultistep",
                  per_generation={"flash_attention": 301, "flash_attention_multi_q": 0,
-                                 "group_norm_silu": 0, "palettized_dense_fused": 0}),
+                                 **VAE_ATTENTION, "group_norm_silu": 0,
+                                 "palettized_dense_fused": 0}),
     "sd3": dict(label="SD3-medium 1024x1024 (no T5), 20 steps DiscreteFlow, CFG batch 2",
                 image_hw=(1024, 1024), latents=(1, 128, 128, 16), guidance=4.5,
                 scheduler="DiscreteFlow",
                 per_generation={"flash_attention": 1, "flash_attention_multi_q": 480,
-                                "group_norm_silu": 0, "palettized_dense_fused": 0}),
+                                **VAE_ATTENTION, "group_norm_silu": 0,
+                                "palettized_dense_fused": 0}),
     "sdxl": dict(label="SDXL-base 1024x1024, 20 steps DPM++ 2M, CFG batch 2, guidance 5",
                  image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
                  scheduler="DPMSolverMultistep",
                  per_generation={"flash_attention": 1401, "flash_attention_multi_q": 0,
-                                 "group_norm_silu": 680, "palettized_dense_fused": 0}),
+                                 **VAE_ATTENTION, "group_norm_silu": 680,
+                                 "palettized_dense_fused": 0}),
     "sdxl_refiner": dict(label="SDXL base + refiner 1024x1024, refiner_start 0.8 "
                                "(16 + 4 steps DPM++ 2M), CFG batch 2, guidance 5",
                          image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
                          scheduler="DPMSolverMultistep", extra=dict(refiner_start=0.8),
                          per_generation={"flash_attention": 1285,
-                                         "flash_attention_multi_q": 0,
+                                         "flash_attention_multi_q": 0, **VAE_ATTENTION,
                                          "group_norm_silu": 720, "palettized_dense_fused": 0}),
 }
 #: phase 9: the SD-2.1 path on a palettized bundle, in each serving mode
@@ -156,7 +167,7 @@ for _mode in ("install", "program"):
 #: steps of each UNet in one generation of a path: (base, refiner)
 UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4)}
 #: the attention kernel entries (phase 7's plain-attention run launches none)
-ATTENTION_KERNELS = ("flash_attention", "flash_attention_multi_q")
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_multi_q", *VAE_ATTENTION)
 #: bf16-level agreement of a full denoiser call, flash kernel vs plain attention
 MODEL_MIN_PSNR_DB = 30.0
 #: relative max-abs agreement of 20-step latents, flash vs plain generation
@@ -341,12 +352,14 @@ FLASH_SHAPES = [
     ("refiner 64x64", (4096,), 4096, 2, 12, 64, torch.bfloat16, {"sdxl_refiner": 20 * 4}),
     ("refiner 32x32", (1024,), 1024, 2, 24, 64, torch.bfloat16, {"sdxl_refiner": 20 * 4}),
     ("refiner 16x16", (256,), 256, 2, 24, 64, torch.bfloat16, {"sdxl_refiner": 1 * 4}),
+    ("vae ragged 512", (330,), 330, 1, 1, 512, torch.float32, {}),
     ("ragged f32", (330,), 330, 2, 3, 64, torch.float32, {}),
     ("ragged bf16", (330,), 330, 2, 3, 64, torch.bfloat16, {}),
 ]
 MULTI_Q_SHAPES = [
     ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16, {"sd3": 480}),
     ("ragged f32", (384, 77), 461, 2, 3, 64, torch.float32, {}),
+    ("ragged f32 512", (384, 77), 461, 1, 3, 512, torch.float32, {}),
     ("ragged bf16", (384, 77), 461, 2, 3, 64, torch.bfloat16, {}),
 ]
 
@@ -366,7 +379,7 @@ def check_kernel(kernel, reference, shapes):
     the kernel, the plain version and SDPA on the concatenated queries."""
     import torch.nn.functional as F
 
-    from ml_stable_diffusion_torch.ops.flash_attention import query_tile_rows
+    from ml_stable_diffusion_torch.ops.flash_attention import query_tile_rows, wide_f32_plan
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, calls, libraries = [], [], []
@@ -396,9 +409,14 @@ def check_kernel(kernel, reference, shapes):
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         qt = torch.cat(qs, dim=1).transpose(1, 2)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        # the bf16 D = 64 kernel's instantiation: query rows a block
-        tile = (f"wgmma {query_tile_rows(q_lens, B, H)}-row" if dtype == torch.bfloat16 and D == 64
-                else "fma")
+        # the kernel and its instantiation: query rows a block, kv splits
+        if dtype == torch.bfloat16 and D == 64:
+            tile = f"wgmma {query_tile_rows(q_lens, B, H)}-row"
+        elif dtype == torch.float32 and D == 512:
+            splits = wide_f32_plan(q_lens, sk, B, H).splits
+            tile = f"wgmma 3xtf32 64-row, {splits} kv split(s)"
+        else:
+            tile = "fma"
         row = dict(label=label, q_lens=list(q_lens), sk=sk, B=B, H=H, D=D,
                    dtype=str(dtype).split(".")[-1], tile=tile, launches_per_generation=per_gen,
                    max_abs_err=err, atol=ATOL[dtype], rel_rms_err=rel,
@@ -429,6 +447,61 @@ def check_kernel(kernel, reference, shapes):
     return rows
 
 
+def check_split_prepass(shapes):
+    """The 3xTF32 kernel's pre-pass (``flash_split_tf32_cuda``) at every f32
+    D = 512 shape of ``shapes``: its planes against the plain split bit for
+    bit (the same rounding: tolerance 0), and its time beside the plain
+    version's and its bound (q, k and v read once, the six planes written
+    once).  No PyTorch call computes the split."""
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        flash_split_tf32_cuda,
+        flash_split_tf32_reference,
+        wide_f32_plan,
+        wide_f32_planes,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, calls = [], []
+    for label, q_lens, sk, B, H, D, dtype, per_gen in shapes:
+        if (dtype, D) != (torch.float32, 512):
+            continue
+        qs = [torch.randn((B, n, H, D), generator=gen, device="cuda") for n in q_lens]
+        k, v = (torch.randn((B, sk, H, D), generator=gen, device="cuda") for _ in range(2))
+        plan = wide_f32_plan(q_lens, sk, B, H)
+        ws = torch.full((plan.workspace_bytes // 4,), math.nan, device="cuda")
+        kernel = functools.partial(flash_split_tf32_cuda, qs, k, v, plan, ws)
+
+        def plain():
+            return flash_split_tf32_reference(qs, k, v, plan)
+
+        kernel()
+        torch.cuda.synchronize()
+        err = max((got - want).abs().max().item()
+                  for got, want in zip(wide_f32_planes(ws, plan, B, H), plain()))
+        if not err == 0.0:
+            fail(f"flash_split_tf32 {label}: the pre-pass's planes differ from the plain "
+                 f"split by {err} (want 0)")
+        planes = 2 * B * H * D * (plan.rows + 2 * plan.keys)
+        nbytes = 4 * (sum(q.numel() for q in qs) + k.numel() + v.numel() + planes)
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        slow = t_bytes > 1e-3
+        rows.append(dict(label=label, q_lens=list(q_lens), sk=sk, B=B, H=H, D=D,
+                         dtype="float32", splits=plan.splits,
+                         launches_per_generation=per_gen, max_abs_err=err, atol=0.0,
+                         ms=time_ms(kernel, reps=3 if slow else 20),
+                         plain_ms=time_ms(plain, reps=1 if slow else 3), library_ms=None,
+                         library_device_ms=None, bound_ms=1e3 * t_bytes, bound_by="bytes"))
+        calls.append(kernel)
+    add_device_ms(rows, {"device_ms": calls})
+    for row in rows:
+        log(f"split {row['label']:15s} q {row['q_lens']} k {row['sk']} B{row['B']} H{row['H']} "
+            f"D{row['D']} [{row['splits']} kv split(s)] planes equal to the plain split "
+            f"(max abs err {row['max_abs_err']:.3g}) kernel {row['ms']:.4f} ms (device "
+            f"{fmt_ms(row['device_ms'])})  plain {row['plain_ms']:.4f} ms  bound "
+            f"{row['bound_ms']:.4f} ms (bytes)")
+    return rows
+
+
 def gn_shapes():
     """(label, (B, C, H, W), dtype, apply_silu, {path: launches per
     generation}) for every resnet GroupNorm+SiLU shape of the SDXL base and
@@ -452,9 +525,11 @@ def gn_shapes():
         who = "+".join(w for w, c in (("base", base), ("refiner", refiner)) if c[shape])
         rows.append((f"{who} {shape[1]}@{shape[2]}x{shape[3]}", shape, torch.bfloat16, True,
                      per_gen))
+    # ragged runs; the last, 3.9 MB a group in f32, takes the streaming plan
     rows += [("ragged f32", (2, 96, 7, 9), torch.float32, True, {}),
              ("ragged bf16", (2, 96, 7, 9), torch.bfloat16, True, {}),
-             ("ragged bf16 no silu", (2, 96, 7, 9), torch.bfloat16, False, {})]
+             ("ragged bf16 no silu", (2, 96, 7, 9), torch.bfloat16, False, {}),
+             ("ragged f32 streaming", (1, 64, 701, 701), torch.float32, True, {})]
     return rows
 
 
@@ -490,6 +565,7 @@ def check_gn_kernel(shapes, groups=32, eps=1e-5):
     from ml_stable_diffusion_torch.ops.groupnorm import (
         group_norm_silu_cuda,
         group_norm_silu_reference,
+        launch_plan,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -525,8 +601,11 @@ def check_gn_kernel(shapes, groups=32, eps=1e-5):
         nbytes = 2 * x.numel() * x.element_size() + 2 * C * gamma.element_size()
         t_bytes = nbytes / PEAK_BYTES_PER_S
         t_ops = GN_OPS_PER_ELEMENT * x.numel() / PEAK_FLOPS[torch.float32]
+        plan = launch_plan(B, C, groups, H * W, dtype)
         row = dict(label=label, shape=[B, C, H, W], groups=groups,
                    dtype=str(dtype).split(".")[-1], apply_silu=silu,
+                   plan=dict(cluster=plan.cluster, resident=plan.resident,
+                             slice_bytes=plan.slice_bytes, blocks=plan.blocks, waves=plan.waves),
                    launches_per_generation=per_gen, max_abs_err=err, atol=GN_ATOL[dtype],
                    rel_rms_err=rel, rel_rms_tol=GN_REL_RMS[dtype],
                    dropped_channel_max_abs=cut_err, dropped_channel_rel_rms=cut_rel,
@@ -542,8 +621,12 @@ def check_gn_kernel(shapes, groups=32, eps=1e-5):
         label, (B, C, H, W), silu, per_gen = (row["label"], row["shape"], row["apply_silu"],
                                               row["launches_per_generation"])
         dtype, err, rel = getattr(torch, row["dtype"]), row["max_abs_err"], row["rel_rms_err"]
-        cut_rel = row["dropped_channel_rel_rms"]
-        log(f"gn {label:22s} {(B, C, H, W)} {row['dtype']:8s} silu {int(silu)} err {err:.3g} "
+        cut_rel, plan = row["dropped_channel_rel_rms"], row["plan"]
+        plan_s = (f"cluster {plan['cluster']}, "
+                  + (f"{plan['slice_bytes']} B slice in smem" if plan["resident"] else "streaming")
+                  + f", {plan['blocks']} blocks, {plan['waves']} wave(s)")
+        log(f"gn {label:22s} {(B, C, H, W)} {row['dtype']:8s} silu {int(silu)} [{plan_s}] "
+            f"err {err:.3g} "
             f"(atol {GN_ATOL[dtype]}) rel RMS {rel:.3g} (tol {GN_REL_RMS[dtype]}; without "
             f"the last channel: {cut_rel:.3g} rel) kernel {row['ms']:.4f} ms (device "
             f"{fmt_ms(row['device_ms'])})  plain {row['plain_ms']:.4f} ms  group_norm+silu "
@@ -683,6 +766,10 @@ def check_kernels():
             flash_attention_multi_q_cuda, flash_attention_multi_q_reference, MULTI_Q_SHAPES),
         "group_norm_silu": check_gn_kernel(gn_shapes()),
     }
+    rows["flash_split_tf32"] = check_split_prepass(FLASH_SHAPES + MULTI_Q_SHAPES)
+    # the f32 D = 512 rows of flash_attention: the 3xTF32 kernel's
+    rows["flash_attention_wide_f32"] = [r for r in rows["flash_attention"]
+                                        if (r["dtype"], r["D"]) == ("float32", 512)]
     for name, kernel_rows in rows.items():
         check_shape_launches(name, kernel_rows)
     rows["palettized_dense_fused"] = check_pal_kernel(pal_rows)
@@ -1300,7 +1387,7 @@ def kernel_entry(name, source, replaces, rows, main_launches):
     for key in ("ms", "plain_ms", "bound_ms"):
         entry[key] = sum(g[key] for g in per_gen.values())
     entry["bound_by"] = heavy["bound_by"]
-    entry["library_ms"] = sum(g["library_ms"] for g in per_gen.values())
+    entry["library_ms"] = total(g["library_ms"] for g in per_gen.values())
     entry["device_ms"] = total(g["device_ms"] for g in per_gen.values())
     entry["library_device_ms"] = total(g["library_device_ms"] for g in per_gen.values())
     entry["launches_by_path"] = {p: main_launches[p][name] for p in paths}
@@ -1312,7 +1399,7 @@ def kernel_entry(name, source, replaces, rows, main_launches):
 #: kernel name fragments -> group; the first match wins (cuDNN's implicit-GEMM
 #: convolutions carry "gemm" in their names too)
 _KERNEL_GROUPS = (("groupnorm kernel", ("gn_silu",)),
-                  ("flash kernel", ("flash_wgmma", "flash_fma")),
+                  ("flash kernel", ("flash_wgmma", "flash_fma", "flash_split", "flash_combine")),
                   ("convolution", ("conv", "fprop", "dgrad", "implicit")),
                   ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
                   ("softmax", ("softmax",)))
@@ -1419,6 +1506,8 @@ def main():
     from ml_stable_diffusion_torch.ops.flash_attention import (
         flash_attention_cuda,
         flash_attention_multi_q_cuda,
+        flash_attention_wide_f32_cuda,
+        flash_split_tf32_cuda,
     )
     from ml_stable_diffusion_torch.ops.groupnorm import group_norm_silu_cuda
     from ml_stable_diffusion_torch.ops.palettized import palettized_dense_fused_cuda
@@ -1427,6 +1516,8 @@ def main():
 
     counters = {"flash_attention": flash_attention_cuda,
                 "flash_attention_multi_q": flash_attention_multi_q_cuda,
+                "flash_attention_wide_f32": flash_attention_wide_f32_cuda,
+                "flash_split_tf32": flash_split_tf32_cuda,
                 "group_norm_silu": group_norm_silu_cuda,
                 "palettized_dense_fused": palettized_dense_fused_cuda}
     card = card_line()
@@ -1515,6 +1606,13 @@ def main():
                      "ml_stable_diffusion_torch/csrc/flash_attention.cu",
                      "ml_stable_diffusion_tpu/ops/flash_attention.py:281",
                      rows["flash_attention_multi_q"], launches),
+        kernel_entry("flash_attention_wide_f32",
+                     "ml_stable_diffusion_torch/csrc/flash_attention.cu",
+                     "ml_stable_diffusion_tpu/ops/flash_attention.py:166",
+                     rows["flash_attention_wide_f32"], launches),
+        kernel_entry("flash_split_tf32", "ml_stable_diffusion_torch/csrc/flash_attention.cu",
+                     "ml_stable_diffusion_tpu/ops/flash_attention.py:166",
+                     rows["flash_split_tf32"], launches),
         kernel_entry("group_norm_silu", "ml_stable_diffusion_torch/csrc/groupnorm_silu.cu",
                      "ml_stable_diffusion_tpu/ops/groupnorm.py:64",
                      rows["group_norm_silu"], launches),

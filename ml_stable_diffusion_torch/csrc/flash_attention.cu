@@ -7,8 +7,10 @@
 // base 2 (log2 e folded into the logit scale, ex2), the running max and sum
 // kept in f32, one division at the end.
 //
-// Two C entries share one launch path:
-//  * flash_attention_fwd: one query stream (the UNet and VAE self-attention);
+// Two C entries share one launch path (f32 at D = 512 takes two more,
+// flash_split_tf32_fwd and flash_attention_wide_f32_fwd, over the same
+// stream table; see below):
+//  * flash_attention_fwd: one query stream (the UNet's self-attention);
 //  * flash_attention_multi_q_fwd: up to 4 query streams over ONE shared k/v,
 //    the MMDiT joint attention (SD3-medium 1024^2: 4096 latent rows and 154
 //    context rows over the 4250 concatenated keys).  It is the same as
@@ -28,10 +30,18 @@
 // clock an SM) takes as long as the logit's 256 flops on the tensor cores,
 // so one warpgroup's softmax has to run under another's products, with the
 // bare ex2.approx.  At 256 tokens the whole call moves only a few MB and the
-// grid's size matters more.  The VAE's single head (D = 512, f32) is bound
-// by the FP32 cores: f32 inputs get no tensor-core path here, because TF32
-// would change the f32 result.
-//
+// grid's size matters more.  The VAE's single head (D = 512, f32, 4096 or
+// 16384 tokens, one call an image) is bound by operations too, and must stay
+// f32-exact: single-pass TF32 (10-bit mantissas) would move the output by
+// ~4e-4 rel RMS.  The split-precision form "3xTF32" keeps it at f32's
+// order on the tensor cores: x = hi + lo with hi = tf32(x), lo = tf32(x -
+// hi), a*b ~ a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the a_lo*b_lo term and lo's
+// own rounding are ~2^-22 of a product), f32 accumulation.  Three TF32
+// products at 495 TFLOP/s give 165 TFLOP/s of f32-exact work, against 67 on
+// the FMA units.  At D = 512 an output row is 2 KB of f32, so a 64-row tile
+// of O already fills half the register file, and re-reading the hi and lo
+// tiles of q, k and v (8 bytes an element) from L2 is the next limit.
+
 // What the design does about it.
 //  * One thread block per (batch*head, query tile); a loop over KV tiles
 //    inside the block takes the place of the TPU grid's sequential KV axis.
@@ -61,11 +71,34 @@
 //    concatenation or output split.  TMA needs 16-byte aligned bases and
 //    strides; the wrapper hands over views that have them (ops/
 //    flash_attention.py:_vector_ready).
-//  * Any other supported case (f32, or D = 512): FMA on the CUDA cores,
-//    register-tiled: a warp owns 4 query rows, so its q and P reads are
-//    broadcasts, and each lane keeps 4 x D/32 outputs in registers.  q, one
-//    k|v tile and P live in dynamic shared memory (201 KB at D = 512, so the
-//    launch raises the dynamic shared-memory limit first).
+//  * f32, D = 512 (flash_wgmma_3xtf32, its own C entries):
+//    - a pre-pass (flash_split_tf32) writes hi and lo of q and k, and of v
+//      transposed to (D, keys) (tf32 B operands must be K-major: wgmma's
+//      transpose bits exist for 16-bit types only), into a workspace, each
+//      stream padded to 64 rows and the keys to 64 with zeros: the main
+//      loop does no splitting and no masking of loads;
+//    - a block holds 64 query rows.  Its two warpgroups each own 256 of the
+//      512 output columns (128 f32 accumulators a thread) and compute S over
+//      their 256 columns of q and k; the partial S go through shared memory
+//      and both warpgroups add them (a + b is b + a, so both hold the same
+//      bits) and run the same online softmax; P is split again and written
+//      to shared memory as the A operand of O += P v.  Every product is
+//      wgmma m64n64k8 on tf32, both operands in shared memory, the two small
+//      terms first;
+//    - thread 0 of each warpgroup keeps its ring of hi + lo tile pairs (32
+//      columns of 64 rows: one 128-byte swizzled row each) filled by TMA,
+//      refilling a stage once the products that read it have completed; no
+//      producer warp, so the block has 256 threads and ptxas its
+//      255-register budget (168 for a 384-thread block);
+//    - the keys are split across blocks when the query tiles alone leave
+//      SMs idle, and into ranges of at most 2048 keys in any case (the
+//      tensor cores' f32 accumulation drifts with the chain's length); a
+//      combine pass merges the splits' (max, sum, O) in split order, no
+//      atomics.
+//  * f32 at D = 64 and bf16 at D = 512 (no main path): FMA on the CUDA
+//    cores, register-tiled: a warp owns 4 query rows, so its q and P reads
+//    are broadcasts, and each lane keeps 4 x D/32 outputs in registers.  q,
+//    one k|v tile and P live in dynamic shared memory.
 //
 // The C entry returns cudaGetLastError() after the launch; the Python wrapper
 // raises when it is not 0.
@@ -107,10 +140,11 @@ struct QTile {
   Strides qs, os;
 };
 
-// This block's stream.  Unrolled over the table with constant indices, so the
-// table is read from the parameter bank and never copied to local memory.
-__device__ __forceinline__ QTile find_tile(const QStreams& t, int bq) {
-  const int x = static_cast<int>(blockIdx.x);
+// The stream of query tile x (this block's: blockIdx.x).  Unrolled over the
+// table with constant indices, so the table is read from the parameter bank
+// and never copied to local memory.
+__device__ __forceinline__ QTile find_tile(const QStreams& t, int bq,
+                                           int x = static_cast<int>(blockIdx.x)) {
   int si = 0;
 #pragma unroll
   for (int i = 1; i < kMaxStreams; ++i)
@@ -452,7 +486,7 @@ cudaError_t launch_wgmma(QStreams streams, const void* k, const void* v, int B, 
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernel (f32 inputs, and any dtype at D = 512)
+// FMA kernel (f32 at D = 64, bf16 at D = 512)
 // ---------------------------------------------------------------------------
 
 constexpr int kFmaThreads = 256;
@@ -616,8 +650,602 @@ cudaError_t launch_fma(const QStreams& streams, const void* k, const void* v, in
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32 D = 512 kernel: 3xTF32 on wgmma (the VAE's single head)
+// ---------------------------------------------------------------------------
+
+constexpr int kWideD = 512;
+constexpr int kTfRows = 64;     // query rows a block; kv rows a tile
+constexpr int kTfCols = 32;     // f32 columns of one 128-byte smem row
+constexpr int kTfUnit = kTfRows * kTfCols * 4;  // 8 KB: one 64 x 32 f32 tile
+constexpr int kTfStages = 5;    // hi + lo tile pairs in flight a warpgroup
+constexpr int kTfHalf = kWideD / 2;  // output columns of one warpgroup
+// kv tiles one block accumulates at most (2048 keys): the tensor cores'
+// f32 accumulation drifts with the length of the chain of P v products (one
+// block over 16384 keys missed the f32 tolerance on the H100; 2048 keys
+// hold it), so longer key ranges are split and merged by the combine pass
+// in f32
+constexpr int kTfMaxTilesPerSplit = 32;
+
+// The split operands: hi = tf32(x), lo = tf32(x - hi), each an f32 plane of
+// the workspace (ops/flash_attention.py:wide_f32_plan sizes it).
+//  q: [bh][R][512], the streams' rows padded to 64 each and stacked (R rows);
+//  k: [bh][Skp][512], Skp = Sk padded to 64;
+//  v: [bh][512][Skp], transposed (K-major for the B operand of P v)
+// Rows past a stream's end and keys past Sk are zeros.
+struct TfLayout {
+  int BH, R, Skp, splits, tiles_per_split;
+  long long q_plane, k_plane, v_plane, o_part, ml_part;  // element offsets
+  long long total;                                      // elements of the workspace
+};
+
+// splits > 1: the partial O (unnormalised) of each split at o_part
+// ([split][bh][R][512]) and its running max and sum at ml_part
+// ([split][bh][R][2]); a combine pass merges them
+inline TfLayout tf_layout(int BH, int R, int Sk, int splits) {
+  TfLayout l{};
+  l.BH = BH;
+  l.R = R;
+  l.Skp = (Sk + kTfRows - 1) / kTfRows * kTfRows;
+  const int ntiles = l.Skp / kTfRows;
+  l.splits = splits;
+  l.tiles_per_split = (ntiles + splits - 1) / splits;
+  const long long q = static_cast<long long>(BH) * R * kWideD;
+  const long long kv = static_cast<long long>(BH) * l.Skp * kWideD;
+  l.q_plane = q;
+  l.k_plane = kv;
+  l.v_plane = kv;
+  l.o_part = 2 * q + 4 * kv;
+  l.ml_part = l.o_part + (splits > 1 ? splits * q : 0);
+  l.total = l.ml_part + (splits > 1 ? static_cast<long long>(splits) * BH * R * 2 : 0);
+  return l;
+}
+
+struct SplitParams {
+  QStreams streams;  // tile0 in 64-row tiles
+  const float* k;
+  const float* v;
+  Strides ks, vs;
+  float* ws;
+  TfLayout lay;
+  int H, Sk;
+  int q_blocks, k_blocks;  // block ranges of the q and k rows; v tiles after
+};
+
+constexpr int kSplitThreads = 256;
+
+__device__ __forceinline__ void split_store(float* hi, float* lo, float4 x) {
+  const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+  *reinterpret_cast<float4*>(hi) = h;
+  *reinterpret_cast<float4*>(lo) =
+      make_float4(tf32_rna(x.x - h.x), tf32_rna(x.y - h.y), tf32_rna(x.z - h.z),
+                  tf32_rna(x.w - h.w));
+}
+
+// The pre-pass: q and k split row by row (16 rows a block, 4 rows x 8
+// columns a thread, all loads in flight before the stores), v split and
+// transposed in 64-key x 32-column tiles through shared memory.  Reads each
+// input once and writes each plane once.
+__global__ void __launch_bounds__(kSplitThreads)
+flash_split_tf32(const __grid_constant__ SplitParams p) {
+  const TfLayout& L = p.lay;
+  const int tid = threadIdx.x;
+  int blk = blockIdx.x;
+  if (blk < p.q_blocks + p.k_blocks) {
+    const bool is_q = blk < p.q_blocks;
+    if (!is_q) blk -= p.q_blocks;
+    const int rows = is_q ? L.R : L.Skp;
+    const int c = (tid % 64) * 8;
+    const long long plane = is_q ? L.q_plane : L.k_plane;
+    // 16 rows a block, 4 a thread: all 8 loads in flight before the stores
+    float4 xs[4][2];
+    long long flats[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long flat = static_cast<long long>(blk) * 16 + tid / 64 + 4 * i;
+      flats[i] = flat;
+      const int bh = static_cast<int>(flat / rows), r = static_cast<int>(flat % rows);
+      const int b = bh / p.H, h = bh % p.H;
+      const float* src = nullptr;
+      if (is_q) {
+        const QTile tile = find_tile(p.streams, kTfRows, r / kTfRows);
+        const int row = tile.q0 + r % kTfRows;
+        if (row < tile.sq)
+          src = static_cast<const float*>(tile.q) + b * tile.qs.b + h * tile.qs.h +
+                static_cast<long long>(row) * tile.qs.s;
+      } else if (r < p.Sk) {
+        src = p.k + b * p.ks.b + h * p.ks.h + static_cast<long long>(r) * p.ks.s;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        xs[i][e] = src ? *reinterpret_cast<const float4*>(src + c + 4 * e)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* hi = p.ws + (is_q ? 0 : 2 * L.q_plane) + flats[i] * kWideD + c;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) split_store(hi + 4 * e, hi + plane + 4 * e, xs[i][e]);
+    }
+    return;
+  }
+  // v: tile (bh, 64 keys, 32 columns) -> vt[bh][d][slot]
+  __shared__ float tile[kTfRows][kTfCols + 1];
+  blk -= p.q_blocks + p.k_blocks;
+  constexpr int kColTiles = kWideD / kTfCols;
+  const int ktiles = L.Skp / kTfRows;
+  const int bh = blk / (ktiles * kColTiles);
+  const int kt = (blk / kColTiles) % ktiles, ct = blk % kColTiles;
+  const int b = bh / p.H, h = bh % p.H;
+  const float* vb = p.v + b * p.vs.b + h * p.vs.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = tid / 8 + 32 * i, c = (tid % 8) * 4;
+    const int key = kt * kTfRows + r;
+    const float4 x = key < p.Sk ? *reinterpret_cast<const float4*>(
+                                      vb + static_cast<long long>(key) * p.vs.s + ct * kTfCols + c)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    tile[r][c] = x.x;
+    tile[r][c + 1] = x.y;
+    tile[r][c + 2] = x.z;
+    tile[r][c + 3] = x.w;
+  }
+  __syncthreads();
+  // thread: column d = tid / 8 of the tile, keys 8 grp .. 8 grp + 7
+  const int d = tid / 8, grp = tid % 8;
+  float x[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) x[u] = tile[grp * 8 + u][d];
+  float* hi = p.ws + 2 * L.q_plane + 2 * L.k_plane +
+              (static_cast<long long>(bh) * kWideD + ct * kTfCols + d) * L.Skp + kt * kTfRows +
+              grp * 8;
+  split_store(hi, hi + L.v_plane, make_float4(x[0], x[1], x[2], x[3]));
+  split_store(hi + 4, hi + L.v_plane + 4, make_float4(x[4], x[5], x[6], x[7]));
+}
+
+struct TfParams {
+  CUtensorMap qh, ql, kh, kl, vh, vl;  // 2-D maps of the planes, box (32, 64)
+  QStreams streams;                    // tile0 in 64-row tiles
+  TfLayout lay;
+  float* ws;
+  int H, Sk;
+  float scale_log2;
+};
+
+constexpr int tf_smem_bytes() {
+  // 1024 bytes of slack to align the tiles; two rings of hi + lo tile pairs,
+  // the S exchange (32 f32 a thread of each warpgroup), P (hi + lo, two
+  // 32-key tiles), the ring barriers
+  return 1024 + 2 * kTfStages * 2 * kTfUnit + 2 * 32 * 128 * 4 + 2 * 2 * kTfUnit +
+         2 * kTfStages * 8;
+}
+
+// Units: the hi + lo tile pairs a warpgroup's ring carries, in the order its
+// products take them.  Per kv tile, 24: for S, 8 column chunks of (q, k);
+// then 8 tiles of v^T (4 blocks of 64 columns x 2 halves of 32 keys).
+constexpr int kTfUnitsPerTile = 24;
+
+// One warpgroup's part of the block: W, its half of the output columns, is
+// a constant, so that every operand of its TMA loads is uniform across the
+// warp.  (Operands the compiler cannot prove uniform go through a loop over
+// the warp's distinct values before each TMA instruction; ptxas then
+// serialises every wgmma of the warpgroup around that divergent code.)
+template <int W>
+__device__ __forceinline__ void tf_warpgroup(const TfParams& p, uint8_t* smem) {
+  uint8_t* ring = smem;                                  // [wg][stage][hi | lo]
+  uint8_t* sp = ring + 2 * kTfStages * 2 * kTfUnit;      // P: [key half][hi | lo]
+  float* xbuf = reinterpret_cast<float*>(sp + 2 * 2 * kTfUnit);  // [wg][32][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xbuf + 2 * 32 * 128);  // [wg][stage]
+
+  const TfLayout& L = p.lay;
+  const int tid = threadIdx.x;
+  const int x = blockIdx.x, split = blockIdx.y, bh = blockIdx.z;
+  const int ntiles = L.Skp / kTfRows;
+  const int j0 = split * L.tiles_per_split;
+  const int j1 = min(ntiles, j0 + L.tiles_per_split);
+  constexpr int w = W;
+  const int lt = tid % 128, wi = lt / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  uint8_t* base = ring + w * kTfStages * 2 * kTfUnit;
+  uint64_t* wfull = full + w * kTfStages;
+  const int units = (j1 - j0) * kTfUnitsPerTile;
+
+  // unit uu of this warpgroup's sequence into its stage, by thread 0 of the
+  // warpgroup through predicated instructions (the other threads compute
+  // the same addresses: no divergent branch inside the wgmma pipeline)
+  const int qrow = bh * L.R + x * kTfRows;
+  auto load = [&](int uu) {
+    if (uu >= units) return;  // uniform across the warpgroup
+    const int j = j0 + uu / kTfUnitsPerTile, r = uu % kTfUnitsPerTile;
+    const CUtensorMap *mh, *ml;
+    int c0, c1;
+    if (r < 16) {
+      c0 = w * kTfHalf + (r / 2) * kTfCols;
+      c1 = (r & 1) ? bh * L.Skp + j * kTfRows : qrow;
+      mh = (r & 1) ? &p.kh : &p.qh;
+      ml = (r & 1) ? &p.kl : &p.ql;
+    } else {
+      c0 = j * kTfRows + (r & 1) * kTfCols;
+      c1 = bh * kWideD + w * kTfHalf + ((r - 16) / 2) * 64;
+      mh = &p.vh;
+      ml = &p.vl;
+    }
+    const int s = uu % kTfStages;
+    uint8_t* dst = base + s * 2 * kTfUnit;
+    mbar_arrive_expect_tx_if(lt == 0, &wfull[s], 2 * kTfUnit);
+    tma_load_2d_if(lt == 0, dst, mh, &wfull[s], c0, c1);
+    tma_load_2d_if(lt == 0, dst + kTfUnit, ml, &wfull[s], c0, c1);
+  };
+
+  for (int i = 0; i < kTfStages; ++i) load(i);
+
+  float o[4][32];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[b][i] = 0.f;
+  float sc[32];
+  // rows g and g + 8 of this warp's 16: running max (base-2 units) and sum
+  float m0 = kNegBig, m1 = kNegBig, l0 = 0.f, l1 = 0.f;
+  int u = 0;
+  auto stage = [&](int uu) { return base + (uu % kTfStages) * 2 * kTfUnit; };
+  auto wait_full = [&](int uu) {
+    mbar_wait_bounded(&wfull[uu % kTfStages], (uu / kTfStages) & 1);
+  };
+  // the products that read unit uu have completed: its stage takes unit
+  // uu + kTfStages
+  auto release = [&](int uu) { load(uu + kTfStages); };
+
+  for (int j = j0; j < j1; ++j) {
+    // S over this warpgroup's 256 columns: per 32-column chunk, k8 slices,
+    // the two small terms first.  No non-wgmma access to sc while its
+    // products are in flight (ptxas would serialise every wgmma).
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_operand(sc[i]);
+    for (int c = 0; c < kTfHalf / kTfCols; ++c) {
+      wait_full(u);
+      wait_full(u + 1);
+      const uint64_t dq = desc_sw128(stage(u), 16, 1024);
+      const uint64_t dk = desc_sw128(stage(u + 1), 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kTfCols / 8; ++s) {
+        // +32 bytes a k8 slice, +kTfUnit for the lo tile (descriptor units of 16 bytes)
+        const uint64_t qh = dq + 2 * s, ql = qh + kTfUnit / 16;
+        const uint64_t kh = dk + 2 * s, kl = kh + kTfUnit / 16;
+        wgmma_ss_m64n64k8_tf32(sc, ql, kh, c > 0 || s > 0);
+        wgmma_ss_m64n64k8_tf32(sc, qh, kl, 1);
+        wgmma_ss_m64n64k8_tf32(sc, qh, kh, 1);
+      }
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();
+        release(u - 2);
+        release(u - 1);
+      }
+      u += 2;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_operand(sc[i]);
+    release(u - 2);
+    release(u - 1);
+
+    // S = the two warpgroups' partial sums, the same bits in both (a + b is
+    // b + a), so both run the same softmax.  Barrier 2: the other
+    // warpgroup has read the last exchange and finished its P v (so P may
+    // be written again); barrier 1: this tile's partials are written.
+    named_bar_sync(2, 256);
+    float* mine = xbuf + w * 32 * 128;
+    const float* other = xbuf + (1 - w) * 32 * 128;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mine[i * 128 + lt] = sc[i];
+    named_bar_sync(1, 256);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] += other[i * 128 + lt];
+
+    // online softmax; sc[4n + e]: row g (e < 2) or g + 8, key 8n + 2t + (e & 1)
+    const int kv0 = j * kTfRows;
+    if (kv0 + kTfRows > p.Sk) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (kv0 + n * 8 + t * 2 + e >= p.Sk) sc[4 * n + e] = sc[4 * n + 2 + e] = kNegBig;
+    }
+    float r0 = kNegBig, r1 = kNegBig;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      r0 = fmaxf(r0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+      r1 = fmaxf(r1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+    r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 1));
+    r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 2));
+    r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 1));
+    r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 2));
+    const float mn0 = fmaxf(m0, r0 * p.scale_log2), mn1 = fmaxf(m1, r1 * p.scale_log2);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * n + e] = exp2f(fmaf(sc[4 * n + e], p.scale_log2, e < 2 ? -mn0 : -mn1));
+        if (e < 2) ps0 += sc[4 * n + e];
+        else ps1 += sc[4 * n + e];
+      }
+    }
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+    // this warpgroup's 32 keys of P, split, into the K-major, 128-byte
+    // swizzled A tile of its key half: (row r, key k) at r * 128 +
+    // ((k / 4) ^ (r % 8)) * 16 + (k % 4) * 4
+    uint8_t* ph = sp + w * 2 * kTfUnit;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int nn = 4 * w + n;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = wi * 16 + g + 8 * hr;
+        const float a = sc[4 * nn + 2 * hr], b = sc[4 * nn + 2 * hr + 1];
+        const float ah = tf32_rna(a), bh2 = tf32_rna(b);
+        const int off = r * 128 + (((2 * n + (t >> 1)) ^ (r & 7)) << 4) + (t & 1) * 8;
+        *reinterpret_cast<float2*>(ph + off) = make_float2(ah, bh2);
+        *reinterpret_cast<float2*>(ph + kTfUnit + off) =
+            make_float2(tf32_rna(a - ah), tf32_rna(b - bh2));
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[b][4 * n] *= c0;
+        o[b][4 * n + 1] *= c0;
+        o[b][4 * n + 2] *= c1;
+        o[b][4 * n + 3] *= c1;
+      }
+    fence_proxy_async();  // the P stores, before wgmma reads them
+    named_bar_sync(1, 256);  // both halves of P are written
+
+    // O += P v over this warpgroup's 4 blocks of 64 columns, two 32-key
+    // halves each, P and v^T from shared memory
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_operand(o[b][i]);
+#pragma unroll
+    for (int bl = 0; bl < 4; ++bl) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        wait_full(u);
+        const uint64_t dv = desc_sw128(stage(u), 16, 1024);
+        const uint64_t dp = desc_sw128(sp + hf * 2 * kTfUnit, 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const uint64_t pa = dp + 2 * s, pl = pa + kTfUnit / 16;
+          const uint64_t vh = dv + 2 * s, vl = vh + kTfUnit / 16;
+          wgmma_ss_m64n64k8_tf32(o[bl], pl, vh, 1);
+          wgmma_ss_m64n64k8_tf32(o[bl], pa, vl, 1);
+          wgmma_ss_m64n64k8_tf32(o[bl], pa, vh, 1);
+        }
+        wgmma_commit();
+        if (bl > 0 || hf > 0) {
+          wgmma_wait<1>();
+          release(u - 1);
+        }
+        ++u;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_operand(o[b][i]);
+    release(u - 1);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int b = bh / p.H, h = bh % p.H;
+  const QTile tile = find_tile(p.streams, kTfRows, x);
+  const int row0 = tile.q0 + wi * 16 + g, row1 = row0 + 8;  // this lane's rows
+  if (L.splits == 1) {
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    float* ob = static_cast<float*>(tile.o) + b * tile.os.b + h * tile.os.h;
+#pragma unroll
+    for (int bl = 0; bl < 4; ++bl)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = w * kTfHalf + bl * 64 + n * 8 + t * 2;
+        if (row0 < tile.sq)
+          *reinterpret_cast<float2*>(ob + static_cast<long long>(row0) * tile.os.s + col) =
+              make_float2(o[bl][4 * n] * inv0, o[bl][4 * n + 1] * inv0);
+        if (row1 < tile.sq)
+          *reinterpret_cast<float2*>(ob + static_cast<long long>(row1) * tile.os.s + col) =
+              make_float2(o[bl][4 * n + 2] * inv1, o[bl][4 * n + 3] * inv1);
+      }
+    return;
+  }
+  // this split's partial: O unnormalised, the running max and sum
+  const long long prow = static_cast<long long>(split * L.BH + bh) * L.R + x * kTfRows +
+                         wi * 16 + g;
+  float* op = p.ws + L.o_part + prow * kWideD;
+#pragma unroll
+  for (int bl = 0; bl < 4; ++bl)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = w * kTfHalf + bl * 64 + n * 8 + t * 2;
+      *reinterpret_cast<float2*>(op + col) = make_float2(o[bl][4 * n], o[bl][4 * n + 1]);
+      *reinterpret_cast<float2*>(op + 8 * kWideD + col) =
+          make_float2(o[bl][4 * n + 2], o[bl][4 * n + 3]);
+    }
+  if (w == 0 && t == 0) {
+    float* ml = p.ws + L.ml_part + prow * 2;
+    *reinterpret_cast<float2*>(ml) = make_float2(m0, l0);
+    *reinterpret_cast<float2*>(ml + 16) = make_float2(m1, l1);
+  }
+}
+
+// Two warpgroups of the same 64 query rows, each owning half of the 512
+// output columns (128 f32 accumulators a thread).  No producer warp: the
+// accumulators and the 256-thread block keep ptxas's 255-register budget
+// for the consumers (a 384-thread block caps them at 168, and setmaxnreg
+// does not raise what ptxas allocates).  Thread 0 of each warpgroup loads
+// its ring by TMA, refilling a stage as soon as the products that read it
+// have completed.  Block (query tile, kv split, b * H + h).
+__global__ void __launch_bounds__(256, 1) flash_wgmma_3xtf32(const __grid_constant__ TfParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  // aligned by an offset from the shared array (not through an integer
+  // cast), so that the compiler keeps shared-memory addressing: generic
+  // 64-bit addresses of the exchange and P stores cost ~100 registers
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * kTfStages * 2 * kTfUnit +
+                                               2 * 2 * kTfUnit + 2 * 32 * 128 * 4);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kTfStages; ++i) mbar_init(&full[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128)
+    tf_warpgroup<0>(p, smem);
+  else
+    tf_warpgroup<1>(p, smem);
+}
+
+struct CombineParams {
+  QStreams streams;  // tile0 in 64-row tiles
+  TfLayout lay;
+  const float* ws;
+  int H;
+};
+
+// splits > 1: each output row from its splits' partials, merged in split
+// order (no atomics: the same bits every run).  Block (padded row, b * H + h),
+// 4 columns a thread.
+__global__ void __launch_bounds__(128) flash_combine(const __grid_constant__ CombineParams p) {
+  const TfLayout& L = p.lay;
+  const int rr = blockIdx.x, bh = blockIdx.y;
+  const QTile tile = find_tile(p.streams, kTfRows, rr / kTfRows);
+  const int row = tile.q0 + rr % kTfRows;
+  if (row >= tile.sq) return;
+  const float* ml = p.ws + L.ml_part;
+  float mx = kNegBig;
+  for (int s = 0; s < L.splits; ++s)
+    mx = fmaxf(mx, ml[((static_cast<long long>(s) * L.BH + bh) * L.R + rr) * 2]);
+  float den = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < L.splits; ++s) {
+    const long long prow = (static_cast<long long>(s) * L.BH + bh) * L.R + rr;
+    const float wgt = exp2f(ml[prow * 2] - mx);
+    den += wgt * ml[prow * 2 + 1];
+    const float4 v = *reinterpret_cast<const float4*>(p.ws + L.o_part + prow * kWideD +
+                                                      4 * threadIdx.x);
+    acc.x = fmaf(wgt, v.x, acc.x);
+    acc.y = fmaf(wgt, v.y, acc.y);
+    acc.z = fmaf(wgt, v.z, acc.z);
+    acc.w = fmaf(wgt, v.w, acc.w);
+  }
+  const float inv = 1.f / den;
+  const int b = bh / p.H, h = bh % p.H;
+  float* ob = static_cast<float*>(tile.o) + b * tile.os.b + h * tile.os.h +
+              static_cast<long long>(row) * tile.os.s + 4 * threadIdx.x;
+  *reinterpret_cast<float4*>(ob) = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+}
+
+// a (rows, cols) f32 plane: 2-D tensor map, box (32, 64), 128-byte swizzle
+bool plane_map(CUtensorMap* map, const float* base, long long rows, int cols) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 4};
+  const uint32_t box[2] = {static_cast<uint32_t>(kTfCols), static_cast<uint32_t>(kTfRows)};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The streams' 64-row tile offsets and the workspace layout of a call;
+// false when the splits or the workspace do not fit it
+bool tf_prepare(QStreams& streams, int BH, int Sk, long long ws_bytes, int splits,
+                TfLayout* L) {
+  streams.tile0[0] = 0;
+  for (int i = 0; i < streams.n; ++i)
+    streams.tile0[i + 1] = streams.tile0[i] + (streams.sq[i] + kTfRows - 1) / kTfRows;
+  if (splits < 1) return false;
+  *L = tf_layout(BH, streams.tile0[streams.n] * kTfRows, Sk, splits);
+  const int ntiles = L->Skp / kTfRows;
+  return splits <= ntiles && L->tiles_per_split <= kTfMaxTilesPerSplit &&
+         (ntiles + L->tiles_per_split - 1) / L->tiles_per_split == splits &&
+         ws_bytes >= L->total * 4;
+}
+
+// The pre-pass: q, k and v split into the workspace's planes.
+cudaError_t launch_split(QStreams streams, const float* k, const float* v, int B, int H, int Sk,
+                         Strides ks, Strides vs, float* ws, long long ws_bytes, int splits,
+                         cudaStream_t stream) {
+  SplitParams sp{};
+  if (!tf_prepare(streams, B * H, Sk, ws_bytes, splits, &sp.lay)) return cudaErrorInvalidValue;
+  const TfLayout& L = sp.lay;
+  sp.streams = streams;
+  sp.k = k;
+  sp.v = v;
+  sp.ks = ks;
+  sp.vs = vs;
+  sp.ws = ws;
+  sp.H = H;
+  sp.Sk = Sk;
+  sp.q_blocks = L.BH * L.R / 16;
+  sp.k_blocks = L.BH * L.Skp / 16;
+  const int v_blocks = L.BH * (L.Skp / kTfRows) * (kWideD / kTfCols);
+  flash_split_tf32<<<sp.q_blocks + sp.k_blocks + v_blocks, kSplitThreads, 0, stream>>>(sp);
+  return cudaGetLastError();
+}
+
+// The 3xTF32 kernel over the split planes and, with splits > 1, the combine
+// pass, on one stream.
+cudaError_t launch_wide(QStreams streams, int B, int H, int Sk, float* ws, long long ws_bytes,
+                        int splits, cudaStream_t stream) {
+  TfParams tp{};
+  if (!tf_prepare(streams, B * H, Sk, ws_bytes, splits, &tp.lay)) return cudaErrorInvalidValue;
+  const TfLayout& L = tp.lay;
+  tp.streams = streams;
+  tp.ws = ws;
+  tp.H = H;
+  tp.Sk = Sk;
+  tp.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(kWideD));
+  const long long qrows = static_cast<long long>(L.BH) * L.R;
+  const long long krows = static_cast<long long>(L.BH) * L.Skp;
+  const long long vrows = static_cast<long long>(L.BH) * kWideD;
+  const float* kp = ws + 2 * L.q_plane;
+  const float* vp = kp + 2 * L.k_plane;
+  const bool ok = plane_map(&tp.qh, ws, qrows, kWideD) &&
+                  plane_map(&tp.ql, ws + L.q_plane, qrows, kWideD) &&
+                  plane_map(&tp.kh, kp, krows, kWideD) &&
+                  plane_map(&tp.kl, kp + L.k_plane, krows, kWideD) &&
+                  plane_map(&tp.vh, vp, vrows, L.Skp) &&
+                  plane_map(&tp.vl, vp + L.v_plane, vrows, L.Skp);
+  if (!ok) return cudaErrorNotSupported;
+  constexpr int smem = tf_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_3xtf32,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_wgmma_3xtf32<<<dim3(streams.tile0[streams.n], splits, L.BH), 256, smem, stream>>>(tp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  CombineParams cp{};
+  cp.streams = streams;
+  cp.lay = L;
+  cp.ws = ws;
+  cp.H = H;
+  flash_combine<<<dim3(L.R, L.BH), kWideD / 4, 0, stream>>>(cp);
+  return cudaGetLastError();
+}
+
 // One launch over every stream of the table: the wgmma kernel for bf16 at
 // D = 64, else the FMA kernel for this (dtype, D) with its tile offsets.
+// f32 at D = 512 takes flash_attention_wide_f32_fwd instead.
 int launch(QStreams streams, const void* k, const void* v, int B, int H, int Sk, int D,
            int dtype, Strides ks, Strides vs, cudaStream_t stream) {
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
@@ -632,9 +1260,6 @@ int launch(QStreams streams, const void* k, const void* v, int B, int H, int Sk,
   if (dtype == 0 && D == 64)
     return static_cast<int>(
         launch_fma<float, 64>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
-  if (dtype == 0 && D == 512)
-    return static_cast<int>(
-        launch_fma<float, 512>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -681,4 +1306,56 @@ extern "C" int flash_attention_multi_q_fwd(int n, const void* const* q, void* co
   }
   return launch(streams, k, v, B, H, Sk, D, dtype, Strides{k_sb, k_ss, k_sh},
                 Strides{v_sb, v_ss, v_sh}, static_cast<cudaStream_t>(stream));
+}
+
+// f32, D = 512: n query streams (1..4) over one k/v.  Arguments as
+// flash_attention_multi_q_fwd, plus the workspace (ws_bytes, at least
+// ops/flash_attention.py:wide_f32_plan's) and the kv splits of that plan.
+// Both entries take the same arguments: flash_split_tf32_fwd writes the
+// split planes into the workspace (o is not read), then
+// flash_attention_wide_f32_fwd runs the 3xTF32 kernel and the combine pass
+// over them into o.
+namespace {
+
+QStreams wide_streams(int n, const void* const* q, void* const* o, const int* sq,
+                      const long long* q_strides, const long long* o_strides) {
+  QStreams streams{};
+  streams.n = n;
+  for (int i = 0; i < n; ++i) {
+    streams.q[i] = q[i];
+    streams.o[i] = o[i];
+    streams.sq[i] = sq[i];
+    streams.qs[i] = Strides{q_strides[3 * i], q_strides[3 * i + 1], q_strides[3 * i + 2]};
+    streams.os[i] = Strides{o_strides[3 * i], o_strides[3 * i + 1], o_strides[3 * i + 2]};
+  }
+  return streams;
+}
+
+}  // namespace
+
+extern "C" int flash_split_tf32_fwd(int n, const void* const* q, void* const* o, const int* sq,
+                                    const long long* q_strides, const long long* o_strides,
+                                    const void* k, const void* v, int B, int H, int Sk,
+                                    long long k_sb, long long k_ss, long long k_sh,
+                                    long long v_sb, long long v_ss, long long v_sh, void* ws,
+                                    long long ws_bytes, int splits, void* stream) {
+  if (n < 1 || n > kMaxStreams) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_split(
+      wide_streams(n, q, o, sq, q_strides, o_strides), static_cast<const float*>(k),
+      static_cast<const float*>(v), B, H, Sk, Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh},
+      static_cast<float*>(ws), ws_bytes, splits, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int flash_attention_wide_f32_fwd(int n, const void* const* q, void* const* o,
+                                            const int* sq, const long long* q_strides,
+                                            const long long* o_strides, const void* k,
+                                            const void* v, int B, int H, int Sk,
+                                            long long k_sb, long long k_ss, long long k_sh,
+                                            long long v_sb, long long v_ss, long long v_sh,
+                                            void* ws, long long ws_bytes, int splits,
+                                            void* stream) {
+  if (n < 1 || n > kMaxStreams) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_wide(wide_streams(n, q, o, sq, q_strides, o_strides), B, H, Sk,
+                                      static_cast<float*>(ws), ws_bytes, splits,
+                                      static_cast<cudaStream_t>(stream)));
 }

@@ -14,30 +14,38 @@
 // arithmetic: the channel of group-local element e is e / (H*W).
 //
 // What bounds it on the H100.  About 10 operations per element against 2 to 4
-// bytes read and as many written: it is bound by bytes.  At SDXL's shapes a
-// group is 20,480 to 491,520 elements (up to 983 KB in bf16), more than the
-// 227 KB of shared memory of one SM, and one block per (b, g) would fill only
-// B*G = 64 of the 132 SMs.
+// bytes read and as many written: it is bound by bytes, and the least it can
+// move is x once and y once.  At SDXL's shapes a group is 20,480 to 589,824
+// elements (up to 1.2 MB in bf16), more than the 227 KB of shared memory of
+// one SM, and one block per (b, g) would fill only B*G = 64 of the 132 SMs.
 //
 // What the design does about it.
-//  * Several blocks per group: a thread-block cluster of kCluster = 8 blocks
-//    owns one (b, g) and each block one eighth of its run, so a SDXL call
-//    spreads over 512 blocks.  Each block sums its slice, writes its two
-//    partial sums to its shared memory, and after a cluster barrier every
-//    block reads the 8 partials through distributed shared memory, in rank
+//  * Several blocks per group: a thread-block cluster of 8 or 16 blocks owns
+//    one (b, g) and each block a contiguous slice of its run, so a SDXL call
+//    spreads over 512 or 1024 blocks.  Each block sums its slice, writes its
+//    two partial sums to its shared memory, and after a cluster barrier every
+//    block reads the partials through distributed shared memory, in rank
 //    order, so that all blocks of a group compute bitwise the same mean and
 //    rstd.  A second cluster barrier keeps each block alive until the others
 //    have read it.  One launch, no scratch buffer, no atomics.
-//  * Two passes over the slice: the sums, then the normalisation.  The second
-//    read follows the first within the block and is mostly served by the
-//    50 MB L2; it is marked last-use (__ldcs) and y is stored streaming
-//    (__stcs), so neither displaces the x that other blocks have yet to read
-//    again.
-//  * 16-byte vector loads and stores along the run (8 bf16 or 4 f32 a
-//    thread).  A group need not start on a 16-byte boundary (C/G*H*W odd,
-//    e.g. 3 channels of 7x9): the scalars before the first and after the last
-//    whole vector go to rank 0.  The wrapper clones an x whose base is not
-//    16-byte aligned; y is freshly allocated.
+//  * x is read from device memory once.  The block's slice is loaded into
+//    its shared memory by 1-D bulk TMA copies of 16 KB, each completing on
+//    its own mbarrier, all issued at once; the sums run over each chunk as
+//    it lands, and the normalisation reads the slice back from shared memory
+//    and stores y with 16-byte streaming stores.  The launch plan
+//    (ops/groupnorm.py:launch_plan, passed in) takes clusters of 8 or 16 (a
+//    non-portable size), whichever needs fewer waves of resident blocks,
+//    among those whose slice fits 224 KB.  A larger slice (none on a main
+//    path) takes the streaming plan: two passes over device memory, the
+//    second marked last-use (__ldcs) and hoped to hit the 50 MB L2.  A
+//    group's load, sums, barriers and stores run in sequence, so phases
+//    overlap only between blocks; x of the 128^2 SDXL shapes (21-75 MB)
+//    exceeds the card's shared memory (~30 MB), hence 2-3 waves there.
+//  * 16-byte vectors along the run (8 bf16 or 4 f32).  A group need not
+//    start on a 16-byte boundary (C/G*H*W odd, e.g. 3 channels of 7x9): the
+//    scalars before the first and after the last whole vector go to rank 0,
+//    from device memory.  The wrapper clones an x whose base is not 16-byte
+//    aligned; y is freshly allocated.
 //  * The channel of a vector's first element takes one 32-bit division; the
 //    rest of the vector steps through it, so a vector that crosses a channel
 //    boundary (ragged H*W) picks up the next gamma/beta.
@@ -51,13 +59,26 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;  // blocks per (image, group); the portable cluster size
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// blocks an SM must be able to hold by registers (48 a thread): with 53,
+// four fit, and packed into clusters of 8 they left a 512-block SDXL call
+// a second wave
+constexpr int kMinBlocks = 5;
+constexpr int kChunkBytes = 16384;  // one bulk copy of a resident slice
+// the largest resident slice (the launch plan's 224 KB)
+constexpr int kMaxSliceBytes = 224 * 1024;
+constexpr int kMaxChunks = kMaxSliceBytes / kChunkBytes;
+
+// bytes of the largest block slice of a run of n elements (whole 16-byte
+// vectors of V elements) over cs blocks: the launch plan's formula
+long long slice_bytes(long long n, int V, int cs) { return (n / V + cs - 1) / cs * 16; }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -121,11 +142,14 @@ struct Pack<__nv_bfloat16> {
   }
 };
 
+// (v - mean) * rstd * gamma + beta folded into v * a + b, a = rstd * gamma,
+// b = beta - mean * a (per channel), then SiLU by the fast exponential and
+// division: a few instructions an element, so that the normalisation keeps
+// up with the bytes
 template <bool kSilu>
-__device__ __forceinline__ float normalize(float v, float mean, float rstd, float ga, float be) {
-  float t = (v - mean) * rstd;
-  t = t * ga + be;
-  if (kSilu) t = t / (1.0f + __expf(-t));
+__device__ __forceinline__ float normalize(float v, float a, float b) {
+  float t = fmaf(v, a, b);
+  if (kSilu) t = __fdividef(t, 1.0f + __expf(-t));
   return t;
 }
 
@@ -135,18 +159,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One cluster of kCluster blocks per (image, group): blockIdx.x / kCluster is
-// the flat (b, g) index, the block's rank in the cluster its slice.
-template <typename T, typename P, bool kSilu>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+// One cluster of cs blocks per (image, group): blockIdx.x / cs is the flat
+// (b, g) index, the block's rank in the cluster its slice.  kResident: the
+// slice lives in dynamic shared memory between the two passes.
+template <typename T, typename P, bool kSilu, bool kResident>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     gn_silu_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
                    const P* __restrict__ beta, T* __restrict__ y, int C, int G, int hw,
                    float eps) {
   constexpr int V = Pack<T>::kN;
   cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = static_cast<int>(threadIdx.x);
-  const long long bg = blockIdx.x / kCluster;
+  const long long bg = blockIdx.x / cs;
   const int g = static_cast<int>(bg % G);
   const int cpg = C / G;
   const int n = cpg * hw;  // elements of the group (checked < 2^31 by the entry)
@@ -158,27 +184,62 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   const long long t0 = a0 + static_cast<long long>(nv) * V;
   const int head = static_cast<int>(a0 - base);
   const int tail = static_cast<int>(base + n - t0);
-  const int v_lo = static_cast<int>(static_cast<long long>(nv) * rank / kCluster);
-  const int v_hi = static_cast<int>(static_cast<long long>(nv) * (rank + 1) / kCluster);
-  const T* xa = x + a0;
-  T* ya = y + a0;
+  const int v_lo = static_cast<int>(static_cast<long long>(nv) * rank / cs);
+  const int v_hi = static_cast<int>(static_cast<long long>(nv) * (rank + 1) / cs);
+  const int nvs = v_hi - v_lo;  // this block's vectors
+  const T* xs = x + a0 + static_cast<long long>(v_lo) * V;
+  T* ys = y + a0 + static_cast<long long>(v_lo) * V;
   // this thread's scalar, if any: a head element (tid < head) or a tail one
   long long scalar = -1;
   if (rank == 0) {
     if (tid < head) scalar = base + tid;
     else if (tid >= V && tid < V + tail) scalar = t0 + (tid - V);
   }
+  extern __shared__ __align__(128) uint8_t slice[];
+  __shared__ uint64_t landed[kMaxChunks];
 
   // pass 1: the slice's sum and sum of squares in f32
   float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll 4
-  for (int v = v_lo + tid; v < v_hi; v += kThreads) {
-    float f[V];
-    Pack<T>::template load<false>(xa + static_cast<long long>(v) * V, f);
+  auto add = [&](const float (&f)[V]) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       s1 += f[j];
       s2 += f[j] * f[j];
+    }
+  };
+  if constexpr (kResident) {
+    const int bytes = nvs * 16;
+    const int chunks = (bytes + kChunkBytes - 1) / kChunkBytes;
+    if (tid == 0) {
+      for (int k = 0; k < chunks; ++k) mbar_init(&landed[k], 1);
+      fence_barrier_init();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int k = 0; k < chunks; ++k) {
+        const int cb = min(kChunkBytes, bytes - k * kChunkBytes);
+        mbar_arrive_expect_tx(&landed[k], cb);
+        bulk_load(slice + k * kChunkBytes, reinterpret_cast<const uint8_t*>(xs) + k * kChunkBytes,
+                  cb, &landed[k]);
+      }
+    }
+    constexpr int kChunkVecs = kChunkBytes / 16;
+    for (int k = 0; k < chunks; ++k) {
+      mbar_wait(&landed[k], 0);
+      const int end = min(nvs, (k + 1) * kChunkVecs);
+#pragma unroll 4
+      for (int v = k * kChunkVecs + tid; v < end; v += kThreads) {
+        float f[V];
+        Pack<T>::template load<false>(reinterpret_cast<const T*>(slice) + v * V, f);
+        add(f);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int v = tid; v < nvs; v += kThreads) {
+      float f[V];
+      Pack<T>::template load<false>(xs + static_cast<long long>(v) * V, f);
+      add(f);
     }
   }
   if (scalar >= 0) {
@@ -209,8 +270,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   cluster.sync();  // every block's partial sums are in its shared memory
   if (tid == 0) {
     float a = 0.0f, b = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kCluster; ++r) {
+    for (int r = 0; r < cs; ++r) {
       const float2 p = *cluster.map_shared_rank(&part, r);
       a += p.x;
       b += p.y;
@@ -225,74 +285,113 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   const P* gam = gamma + static_cast<long long>(g) * cpg;
   const P* bet = beta + static_cast<long long>(g) * cpg;
 
-  // pass 2: normalise, scale and shift, SiLU
-  const int e_a0 = head;  // group-local index of xa[0]
-#pragma unroll 4
-  for (int v = v_lo + tid; v < v_hi; v += kThreads) {
+  // pass 2: normalise, scale and shift, SiLU; y by 16-byte streaming stores
+  const int e0 = head + v_lo * V;  // group-local index of xs[0]
+#pragma unroll 2
+  for (int v = tid; v < nvs; v += kThreads) {
     float f[V];
-    Pack<T>::template load<true>(xa + static_cast<long long>(v) * V, f);
-    const int e = e_a0 + v * V;
+    if constexpr (kResident)
+      Pack<T>::template load<false>(reinterpret_cast<const T*>(slice) + v * V, f);
+    else
+      Pack<T>::template load<true>(xs + static_cast<long long>(v) * V, f);
+    const int e = e0 + v * V;
     int c = e / hw;
     int p = e - c * hw;
-    float ga = to_f32(gam[c]), be = to_f32(bet[c]);
+    float a = rstd * to_f32(gam[c]);
+    float b = to_f32(bet[c]) - mean * a;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       if (p == hw) {  // the vector crosses into the next channel
         p = 0;
         ++c;
-        ga = to_f32(gam[c]);
-        be = to_f32(bet[c]);
+        a = rstd * to_f32(gam[c]);
+        b = to_f32(bet[c]) - mean * a;
       }
-      f[j] = normalize<kSilu>(f[j], mean, rstd, ga, be);
+      f[j] = normalize<kSilu>(f[j], a, b);
       ++p;
     }
-    Pack<T>::store(ya + static_cast<long long>(v) * V, f);
+    Pack<T>::store(ys + static_cast<long long>(v) * V, f);
   }
   if (scalar >= 0) {
     const int c = static_cast<int>((scalar - base) / hw);
-    y[scalar] = from_f32<T>(
-        normalize<kSilu>(to_f32(x[scalar]), mean, rstd, to_f32(gam[c]), to_f32(bet[c])));
+    const float a = rstd * to_f32(gam[c]);
+    y[scalar] = from_f32<T>(normalize<kSilu>(to_f32(x[scalar]), a, to_f32(bet[c]) - mean * a));
   }
+}
+
+template <typename T, typename P, bool kSilu, bool kResident>
+cudaError_t launch_plan(const T* x, const P* gamma, const P* beta, T* y, int B, int C, int G,
+                        int hw, float eps, int cluster, int smem, cudaStream_t stream) {
+  auto kernel = gn_silu_kernel<T, P, kSilu, kResident>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(static_cast<long long>(B) * G * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, gamma, beta, y, C, G, hw, eps);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, typename P>
 cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y, int B, int C,
-                   int G, int hw, float eps, bool silu, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(static_cast<long long>(B) * G * kCluster));
+                   int G, int hw, float eps, bool silu, int cluster, bool resident,
+                   cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const P* gt = static_cast<const P*>(gamma);
   const P* bt = static_cast<const P*>(beta);
   T* yt = static_cast<T*>(y);
+  const long long n = static_cast<long long>(C / G) * hw;
+  const int smem = resident ? static_cast<int>(slice_bytes(n, Pack<T>::kN, cluster)) : 0;
+  if (resident && smem > kMaxSliceBytes) return cudaErrorInvalidValue;
   if (silu)
-    gn_silu_kernel<T, P, true><<<grid, kThreads, 0, stream>>>(xt, gt, bt, yt, C, G, hw, eps);
-  else
-    gn_silu_kernel<T, P, false><<<grid, kThreads, 0, stream>>>(xt, gt, bt, yt, C, G, hw, eps);
-  return cudaGetLastError();
+    return resident ? launch_plan<T, P, true, true>(xt, gt, bt, yt, B, C, G, hw, eps, cluster,
+                                                    smem, stream)
+                    : launch_plan<T, P, true, false>(xt, gt, bt, yt, B, C, G, hw, eps, cluster,
+                                                     smem, stream);
+  return resident ? launch_plan<T, P, false, true>(xt, gt, bt, yt, B, C, G, hw, eps, cluster,
+                                                   smem, stream)
+                  : launch_plan<T, P, false, false>(xt, gt, bt, yt, B, C, G, hw, eps, cluster,
+                                                    smem, stream);
 }
 
 }  // namespace
 
 // x, y: contiguous (B, C, H, W), 16-byte aligned; gamma, beta: (C,).
-// x_dtype / p_dtype: 0 float32, 1 bfloat16.  hw = H * W.
+// x_dtype / p_dtype: 0 float32, 1 bfloat16.  hw = H * W.  cluster (8 or 16)
+// and resident: the launch plan of ops/groupnorm.py:launch_plan; a
+// resident slice must fit kMaxSliceBytes.
 extern "C" int group_norm_silu_fwd(const void* x, const void* gamma, const void* beta, void* y,
                                    int B, int C, int G, int x_dtype, int p_dtype, long long hw,
-                                   float eps, int apply_silu, void* stream) {
-  if (B <= 0 || G <= 0 || C <= 0 || C % G != 0 || hw <= 0 ||
+                                   float eps, int apply_silu, int cluster, int resident,
+                                   void* stream) {
+  if (B <= 0 || G <= 0 || C <= 0 || C % G != 0 || hw <= 0 || (cluster != 8 && cluster != 16) ||
       static_cast<long long>(C / G) * hw > INT_MAX ||
-      static_cast<long long>(B) * G * kCluster > INT_MAX)
+      static_cast<long long>(B) * G * cluster > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(hw);
-  const bool silu = apply_silu != 0;
+  const bool silu = apply_silu != 0, res = resident != 0;
   cudaError_t err;
   if (x_dtype == 1 && p_dtype == 1)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, B, C, G, h, eps, silu, s);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, B, C, G, h, eps, silu, cluster,
+                                               res, s);
   else if (x_dtype == 1 && p_dtype == 0)
-    err = launch<__nv_bfloat16, float>(x, gamma, beta, y, B, C, G, h, eps, silu, s);
+    err = launch<__nv_bfloat16, float>(x, gamma, beta, y, B, C, G, h, eps, silu, cluster, res, s);
   else if (x_dtype == 0 && p_dtype == 1)
-    err = launch<float, __nv_bfloat16>(x, gamma, beta, y, B, C, G, h, eps, silu, s);
+    err = launch<float, __nv_bfloat16>(x, gamma, beta, y, B, C, G, h, eps, silu, cluster, res, s);
   else if (x_dtype == 0 && p_dtype == 0)
-    err = launch<float, float>(x, gamma, beta, y, B, C, G, h, eps, silu, s);
+    err = launch<float, float>(x, gamma, beta, y, B, C, G, h, eps, silu, cluster, res, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

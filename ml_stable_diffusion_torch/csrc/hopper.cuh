@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_attention.cu, palettized_matmul.cu): mbarriers, TMA tile loads and
-// the host-side encoding of their tensor maps, wgmma shared-memory
-// descriptors for the 128-byte swizzle, the wgmma fences, register
-// reallocation, the wgmma instructions the kernels issue, a transposing
-// ldmatrix and bf16 packing.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu, palettized_matmul.cu, groupnorm_silu.cu): mbarriers,
+// TMA tile and bulk loads and the host-side encoding of their tensor maps,
+// wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
+// fences, register reallocation, the wgmma instructions the kernels issue
+// (bf16 and tf32), a transposing ldmatrix, bf16 packing and tf32 rounding.
 //
 // Layouts.  A TMA load with CU_TENSOR_MAP_SWIZZLE_128B stores a tile of
 // 128-byte rows with 16-byte chunk c of row r at chunk c ^ (r % 8); every
@@ -13,6 +13,9 @@
 //    apart (SBO), and the k16 slice s starts 32 * s bytes into the row;
 //  * MN-major operand (rows of 64 bf16 along M or N, one row per k): the
 //    k16 slice s starts at row 16 * s, its two 8-row groups 1024 bytes apart.
+// A tf32 operand is K-major only (the transpose bits exist for 16-bit types
+// alone): rows of 32 f32 along K, the k8 slice s 32 * s bytes into the row,
+// the same descriptor as a bf16 K-major tile.
 
 #pragma once
 
@@ -53,6 +56,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
+// mbar_arrive_expect_tx by the threads whose `issue` is true (predicated,
+// as tma_load_2d_if)
+__device__ __forceinline__ void mbar_arrive_expect_tx_if(bool issue, uint64_t* bar,
+                                                         uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(bytes), "r"(static_cast<int>(issue))
+      : "memory");
+}
+
 // returns once the phase of parity `parity` has completed.  A wait that
 // outlasts about 2^22 polls (seconds; a lost arrival) traps, so a fault
 // ends the kernel with an error instead of hanging the card
@@ -71,6 +85,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (done) return;
     if (i == (1u << 22)) __trap();
+  }
+}
+
+// mbar_wait for a warpgroup with wgmma in flight: after about 2^24 polls it
+// returns (the kernel then ends, its result wrong) instead of trapping.  A
+// trap is a second, divergent exit from the loop, and ptxas serialises
+// every wgmma of the warpgroup around it (C7518).
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t i = 0; i < (1u << 24); ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
   }
 }
 
@@ -102,6 +137,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// tma_load_2d by the threads whose `issue` is true, as one predicated
+// instruction: no divergent branch between a warpgroup's wgmma and their
+// wait (ptxas serialises the wgmma around one)
+__device__ __forceinline__ void tma_load_2d_if(bool issue, void* dst, const CUtensorMap* map,
+                                               uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n}\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(static_cast<int>(issue))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -109,6 +158,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// this block's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -176,6 +235,15 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x rounded to tf32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, as an f32 whose low 13 bits are 0: the "hi" part of the
+// 3xTF32 split, x - hi being exact in f32
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
 }
 
 // ---------------------------------------------------------------------------
@@ -361,6 +429,46 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float* d, const uint32_t* a,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 8, smem, K-major) * B (8 x 64, smem, K-major),
+// tf32 operands (f32 words whose low 13 bits are ignored); the product
+// overwrites d when scale_d is 0
+__device__ __forceinline__ void wgmma_ss_m64n64k8_tf32(float* d, uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 8, registers) * B (8 x 64, smem, K-major), tf32
+// operands.  A fragment of a lane (g = lane / 4, t = lane % 4, rows offset
+// by 16 * warp): a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4)
+__device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float* d, const uint32_t* a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 }  // namespace

@@ -8,13 +8,25 @@ The kernel is hand-written CUDA, ``csrc/flash_attention.cu``, built for
 ``sm_90a`` on first use (utils/cuda_build.py) and called through ctypes.  Its
 header says what bounds it on the card and what its design does about that.
 In short: one thread block per (batch*head, query tile) loops over KV tiles
-with an online base-2 softmax in f32; q, k and v are read in place from the
-(B, S, H, D) layout; ragged edges are masked in the kernel.  bf16 at D = 64
-(the UNet and the MMDiT) runs on ``wgmma``, a producer warp feeding k/v
-tiles by TMA to two consumer warpgroups (128 query rows a block, or 64 where
-128-row tiles would leave SMs idle: ``query_tile_rows``); f32, and D = 512
-(the VAE's single head), run on the FMA units.  One launch covers every
-query stream: the grid counts the query tiles of all streams.
+with an online base-2 softmax in f32; ragged edges are masked in the kernel.
+Which kernel serves a call:
+
+- bf16 at D = 64 (the UNet and the MMDiT): ``wgmma``, a producer warp
+  feeding k/v tiles by TMA to two consumer warpgroups (128 query rows a
+  block, or 64 where 128-row tiles would leave SMs idle:
+  ``query_tile_rows``); q, k and v read in place from the (B, S, H, D)
+  layout;
+- f32 at D = 512 (the VAE's single head): ``wgmma`` on tf32 operands in the
+  split-precision "3xTF32" form, ``a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``
+  with ``hi = tf32(x)`` and ``lo = tf32(x − hi)``, f32 accumulation.  A
+  pre-pass writes the split q, k and v (v transposed) into a workspace; the
+  keys may be split across blocks and the partial results merged by a
+  combine pass (``wide_f32_plan``).  ``flash_attention_3xtf32_emulation``
+  repeats that arithmetic in plain PyTorch for the CPU tests;
+- f32 at D = 64 and bf16 at D = 512 (no main path): the FMA units.
+
+One launch covers every query stream: the grid counts the query tiles of
+all streams.
 
 For each of the two functions there are three entry points:
 
@@ -24,7 +36,10 @@ For each of the two functions there are three entry points:
   and ``chip_smoke.py`` hold the kernel against;
 - ``flash_attention_cuda`` / ``flash_attention_multi_q_cuda``: the kernel
   wrappers.  They launch the kernel on CUDA tensors or raise, and count
-  their launches in their own ``.launches``;
+  their launches in their own ``.launches``; an f32 D = 512 call goes
+  through ``flash_attention_wide_f32_cuda``, which counts it again in its
+  own ``.launches``, and its pre-pass ``flash_split_tf32_cuda`` (held
+  against ``flash_split_tf32_reference``) counts in its own;
 - ``flash_attention`` / ``flash_attention_multi_q``: the FLASH branch of the
   dispatch.  A CPU tensor takes the plain version; a CUDA tensor takes the
   kernel.
@@ -33,6 +48,7 @@ For each of the two functions there are three entry points:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -63,6 +79,76 @@ def flash_attention_multi_q_reference(qs, k, v):
     return _plain_joint_attention(qs, k, v)
 
 
+#: the 3xTF32 kernel's head width, query rows a block and keys a tile
+WIDE_D = 512
+WIDE_ROWS = 64
+#: key tiles one block of it accumulates at most (kTfMaxTilesPerSplit): the
+#: tensor cores' f32 accumulation drifts with the chain's length
+WIDE_MAX_TILES_PER_SPLIT = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class WideF32Plan:
+    """Launch plan of the f32 D = 512 kernel (``tf_layout`` in the source)."""
+    rows: int             # padded query rows a (b, h): each stream to 64
+    keys: int             # padded keys: Sk to 64
+    splits: int           # blocks the keys are split across (1: no combine pass)
+    tiles_per_split: int  # 64-key tiles a split takes
+    blocks: int           # blocks of the main kernel
+    workspace_bytes: int
+
+
+def wide_f32_plan(q_lens, Sk: int, B: int, H: int) -> WideF32Plan:
+    """The keys split across ``floor(SMS / blocks)`` blocks when the query
+    tiles alone give fewer than ``SMS`` blocks (one block an SM), and into
+    ranges of at most ``WIDE_MAX_TILES_PER_SPLIT`` tiles in any case; then
+    evened so that no split is empty.  The workspace holds q and k (hi, lo),
+    v transposed (hi, lo) and, with splits, each split's partial O, max
+    and sum."""
+    tiles = sum(-(-n // WIDE_ROWS) for n in q_lens)
+    rows, keys = tiles * WIDE_ROWS, -(-Sk // WIDE_ROWS) * WIDE_ROWS
+    ntiles, bh = keys // WIDE_ROWS, B * H
+    splits = max(-(-ntiles // WIDE_MAX_TILES_PER_SPLIT), min(SMS // (tiles * bh), ntiles))
+    per = -(-ntiles // splits)
+    splits = -(-ntiles // per)
+    floats = 2 * bh * rows * WIDE_D + 4 * bh * keys * WIDE_D
+    if splits > 1:
+        floats += splits * bh * rows * (WIDE_D + 2)
+    return WideF32Plan(rows, keys, splits, per, tiles * splits * bh, 4 * floats)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as the kernel's ``cvt.rna.tf32.f32``: by bit masking
+    on the int32 view."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split3(a, b, terms):
+    """a @ b in the kernel's split precision: lo·hi + hi·lo + hi·hi (the
+    small terms first), each product of tf32 values exact in f32; ``terms``
+    1 keeps hi·hi alone (single-pass tf32)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def flash_attention_3xtf32_emulation(q, k, v, terms: int = 3):
+    """The f32 D = 512 kernel's arithmetic in plain PyTorch over (B, S, H, D)
+    f32 tensors: S = q kᵀ in 3xTF32, P = exp(S/√D − max) split again, P v
+    in 3xTF32, divided by the f32 row sum of P.  ``terms=1`` gives
+    single-pass tf32 (hi parts only).  For the CPU tests: the card runs the
+    kernel."""
+    qt, kt, vt = (x.float().transpose(1, 2) for x in (q, k, v))
+    s = _split3(qt, kt.transpose(-1, -2), terms) / q.shape[-1] ** 0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _split3(p, vt, terms) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2)
+
+
 def query_tile_rows(q_lens, B: int, H: int) -> int:
     """Query rows a block of the bf16 D = 64 kernel takes for these streams:
     128, unless 128-row tiles give fewer than ``SMS`` blocks, then 64 (the
@@ -75,15 +161,19 @@ def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(cuda_build.load("flash_attention"), name)
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        streams = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                   strides, strides, ctypes.c_void_p, ctypes.c_void_p]
         if name == "flash_attention_fwd":
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                            + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+        elif name in ("flash_attention_wide_f32_fwd", "flash_split_tf32_fwd"):
+            fn.argtypes = (streams + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 6
+                           + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_void_p])
         else:
-            strides = ctypes.POINTER(ctypes.c_longlong)
-            fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                            strides, strides, ctypes.c_void_p, ctypes.c_void_p]
-                           + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+            fn.argtypes = (streams + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
                            + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -131,10 +221,103 @@ def _raise_on(rc, what, k):
                            f"at k {tuple(k.shape)} {k.dtype}")
 
 
+def _wide_args(qs, k, v, outs, plan, ws):
+    """The arguments both C entries of the f32 D = 512 path take."""
+    n = len(qs)
+    ptrs = ctypes.c_void_p * n
+    strides = ctypes.c_longlong * (3 * n)
+    B, Sk, H, _ = k.shape
+    return (n, ptrs(*(q.data_ptr() for q in qs)), ptrs(*(o.data_ptr() for o in outs)),
+            (ctypes.c_int * n)(*(q.shape[1] for q in qs)),
+            strides(*(s for q in qs for s in q.stride()[:3])),
+            strides(*(s for o in outs for s in o.stride()[:3])),
+            k.data_ptr(), v.data_ptr(), B, H, Sk, *k.stride()[:3], *v.stride()[:3],
+            ws.data_ptr(), ws.numel() * 4, plan.splits,
+            torch.cuda.current_stream(k.device).cuda_stream)
+
+
+def wide_f32_planes(ws, plan: WideF32Plan, B: int, H: int):
+    """Views of the workspace's split planes: (q hi, q lo) (B·H, rows, 512),
+    (k hi, k lo) (B·H, keys, 512), (vᵀ hi, vᵀ lo) (B·H, 512, keys)."""
+    bh = B * H
+    q, kv = bh * plan.rows * WIDE_D, bh * plan.keys * WIDE_D
+    shapes = [(bh, plan.rows, WIDE_D)] * 2 + [(bh, plan.keys, WIDE_D)] * 2 + \
+        [(bh, WIDE_D, plan.keys)] * 2
+    sizes = [q, q, kv, kv, kv, kv]
+    starts = [sum(sizes[:i]) for i in range(6)]
+    return [ws[a:a + n].view(shape) for a, n, shape in zip(starts, sizes, shapes)]
+
+
+def flash_split_tf32_reference(qs, k, v, plan: WideF32Plan):
+    """Plain PyTorch version of the pre-pass: the planes of
+    ``wide_f32_planes`` (hi = tf32(x), lo = tf32(x − hi)), each query stream
+    padded to 64 rows and the keys to ``plan.keys`` with zeros, v
+    transposed."""
+    B, Sk, H, D = k.shape
+
+    def heads(x, rows):  # (B, S, H, D) -> (B·H, rows, D), zero rows after S
+        x = x.float().permute(0, 2, 1, 3).reshape(B * H, x.shape[1], D)
+        return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[1]))
+
+    q = torch.cat([heads(q, -(-q.shape[1] // WIDE_ROWS) * WIDE_ROWS) for q in qs], dim=1)
+    out = []
+    for x in (q, heads(k, plan.keys), heads(v, plan.keys).transpose(1, 2)):
+        hi = tf32_round(x)
+        out += [hi, tf32_round(x - hi)]
+    return out
+
+
+def flash_split_tf32_cuda(qs, k, v, plan: WideF32Plan, ws):
+    """The pre-pass kernel: the split planes of f32 D = 512 query streams,
+    k and v into the workspace ``ws`` (``plan.workspace_bytes``)."""
+    qs, k, v = _checked("flash_split_tf32_cuda", list(qs), k, v)
+    if ws.device != k.device or ws.dtype != torch.float32 or ws.numel() * 4 < plan.workspace_bytes:
+        raise ValueError(f"the workspace must be float32 on {k.device} with "
+                         f"{plan.workspace_bytes} bytes")
+    rc = _kernel("flash_split_tf32_fwd")(*_wide_args(qs, k, v, qs, plan, ws))
+    _raise_on(rc, "3xTF32 pre-pass", k)
+    flash_split_tf32_cuda.launches += 1
+
+
+flash_split_tf32_cuda.launches = 0
+
+
+def flash_attention_wide_f32_cuda(qs, k, v):
+    """f32 D = 512 query streams over one k/v by the 3xTF32 kernel: the
+    pre-pass (``flash_split_tf32_cuda``), then the main kernel and, with kv
+    splits, the combine pass; -> one output per stream.  Takes what
+    ``_checked`` has passed, and checks it again."""
+    qs, k, v = _checked("flash_attention_wide_f32_cuda", list(qs), k, v)
+    B, Sk, H, D = k.shape
+    if k.dtype != torch.float32 or D != WIDE_D:
+        raise ValueError(f"the 3xTF32 kernel takes float32 at D={WIDE_D}, got {k.dtype} "
+                         f"D={D}")
+    plan = wide_f32_plan([q.shape[1] for q in qs], Sk, B, H)
+    ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=k.device)
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for q in qs]
+    with torch.cuda.device(k.device):
+        flash_split_tf32_cuda(qs, k, v, plan, ws)
+        rc = _kernel("flash_attention_wide_f32_fwd")(*_wide_args(qs, k, v, outs, plan, ws))
+    _raise_on(rc, "3xTF32 flash attention", k)
+    flash_attention_wide_f32_cuda.launches += 1
+    return outs
+
+
+flash_attention_wide_f32_cuda.launches = 0
+
+
+def _wide_f32(q):
+    return q.dtype == torch.float32 and q.shape[-1] == WIDE_D
+
+
 def flash_attention_cuda(q, k, v):
     """softmax(q k^T / sqrt(D)) v over (B, S, H, D) CUDA tensors, by the
     hand-written kernel.  Raises for anything the kernel does not take."""
     (q,), k, v = _checked("flash_attention_cuda", [q], k, v)
+    if _wide_f32(q):
+        out = flash_attention_wide_f32_cuda([q], k, v)[0]
+        flash_attention_cuda.launches += 1
+        return out
     B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     fwd = _kernel("flash_attention_fwd")
@@ -161,6 +344,10 @@ def flash_attention_multi_q_cuda(qs, k, v):
         raise ValueError(f"flash_attention_multi_q_cuda takes 1 to {MAX_STREAMS} "
                          f"query streams, got {len(qs)}")
     qs, k, v = _checked("flash_attention_multi_q_cuda", qs, k, v)
+    if _wide_f32(k):
+        outs = flash_attention_wide_f32_cuda(qs, k, v)
+        flash_attention_multi_q_cuda.launches += 1
+        return outs
     outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for q in qs]
     n = len(qs)
     ptrs = ctypes.c_void_p * n

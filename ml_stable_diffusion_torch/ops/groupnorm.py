@@ -13,7 +13,10 @@ contiguous run of (C/G)·H·W elements.  The function of the Pallas kernel:
 
 The kernel is hand-written CUDA, ``csrc/groupnorm_silu.cu``, built for
 ``sm_90a`` on first use (utils/cuda_build.py) and called through ctypes; its
-header says what bounds it and how it is laid out.  Entry points:
+header says what bounds it and how it is laid out.  Its launch plan (blocks a
+group, and whether a block's slice of x stays in shared memory between the
+two passes) is ``launch_plan``, a pure function of the shape here, passed to
+the C entry.  Entry points:
 
 - ``group_norm_silu_reference``: the plain PyTorch version of the kernel's
   function, which the tests and ``chip_smoke.py`` hold the kernel against;
@@ -32,6 +35,7 @@ header says what bounds it and how it is laid out.  Entry points:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +43,60 @@ import torch.nn.functional as F
 from ..utils import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: streaming multiprocessors of the H100 SXM
+SMS = 132
+#: shared memory of one SM (228 KB), and what each block takes beside its
+#: slice (the 1 KB the system reserves a block, the kernel's static arrays)
+SMEM_PER_SM = 233472
+BLOCK_SMEM_OVERHEAD = 1280
+#: blocks of the kernel an SM holds by registers and threads (kMinBlocks)
+BLOCKS_PER_SM = 5
+#: the largest slice a block keeps in shared memory (kMaxSliceBytes)
+MAX_SLICE_BYTES = 224 * 1024
 
 _fns: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupNormPlan:
+    """How the kernel covers a call: ``cluster`` blocks a (image, group),
+    each holding a slice of at most ``slice_bytes`` of the group's run in
+    shared memory (``resident``), or streaming it twice from device memory."""
+    cluster: int
+    resident: bool
+    slice_bytes: int  # the largest block slice: whole 16-byte vectors
+    blocks: int
+    waves: int        # ceil(blocks / the blocks the card holds at once)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a block takes."""
+        return self.slice_bytes if self.resident else 0
+
+
+def launch_plan(B: int, C: int, groups: int, hw: int, dtype) -> GroupNormPlan:
+    """Clusters of 8 or 16 blocks a group, whichever needs fewer waves of
+    resident blocks (16 on a tie: smaller slices pack the card better),
+    among those whose slice fits ``MAX_SLICE_BYTES``; the streaming plan
+    (clusters of 8) when neither fits.  A slice is the block's share of the
+    group's whole 16-byte vectors (``slice_bytes`` in the source); an SM
+    holds ``BLOCKS_PER_SM`` blocks, fewer when their slices fill its shared
+    memory."""
+    n = C // groups * hw
+    vectors = n * torch.tensor([], dtype=dtype).element_size() // 16
+    plans = []
+    for cluster in (16, 8):
+        slice_bytes = -(-vectors // cluster) * 16
+        blocks = B * groups * cluster
+        per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (slice_bytes + BLOCK_SMEM_OVERHEAD))
+        if slice_bytes <= MAX_SLICE_BYTES and per_sm:
+            plans.append(GroupNormPlan(cluster, True, slice_bytes, blocks,
+                                       -(-blocks // (SMS * per_sm))))
+    if plans:
+        return min(plans, key=lambda p: p.waves)
+    blocks = B * groups * 8
+    return GroupNormPlan(8, False, -(-vectors // 8) * 16, blocks,
+                         -(-blocks // (SMS * BLOCKS_PER_SM)))
 
 
 def _check_groups(x, groups: int):
@@ -92,7 +148,7 @@ def _kernel():
     if fn is None:
         fn = cuda_build.load("groupnorm_silu").group_norm_silu_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns["fwd"] = fn
     return fn
@@ -124,11 +180,12 @@ def group_norm_silu_cuda(x, gamma, beta, groups: int = 32, eps: float = 1e-5,
     if x.data_ptr() % 16:
         x = x.clone()  # the kernel's 16-byte loads need an aligned base
     y = torch.empty_like(x)
+    plan = launch_plan(B, C, groups, H * W, x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _kernel()(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
                        B, C, groups, _DTYPE_CODES[x.dtype], _DTYPE_CODES[gamma.dtype],
-                       H * W, eps, int(apply_silu), stream)
+                       H * W, eps, int(apply_silu), plan.cluster, int(plan.resident), stream)
     if rc != 0:
         raise RuntimeError(f"group norm kernel launch failed with CUDA error {rc} at "
                            f"x {tuple(x.shape)} {x.dtype}")

@@ -56,13 +56,12 @@ class GenerationResult:
     seconds_per_step: float
 
 
-_SDXL_ONLY = ("SDXL micro-conditioning, which only the SDXL pipeline reads "
-              "(pipelines/sdxl.py), in another pipeline")
-
 #: configuration fields of features not ported yet, with the ROADMAP item
-#: that brings them, or of another family (``read_fields`` of the pipeline
-#: that reads them): a value other than the default raises rather than being
-#: ignored
+#: that brings them: a value other than the default raises rather than being
+#: ignored.  The SDXL-only fields (``refiner_start`` and the
+#: micro-conditioning) and ``timestep_shift`` are not here: the JAX SD and
+#: SD3 pipelines ignore the first, and every scheduler but DiscreteFlow the
+#: second, and so does the port
 _UNPORTED_FIELDS = {
     "starting_image": "img2img: ROADMAP Queue 1 item 11",
     "strength": "img2img strength: ROADMAP Queue 1 item 11",
@@ -72,28 +71,16 @@ _UNPORTED_FIELDS = {
     "deepcache_interval": "DeepCache: ROADMAP Queue 1 item 12",
     "unet_batch_one": "serial batch-1 CFG: ROADMAP Queue 1 item 12",
     "use_denoised_intermediates": "denoised previews (progress callbacks): ROADMAP Queue 1 item 12",
-    "refiner_start": "the SDXL refiner, which only the SDXL pipeline reads "
-                     "(pipelines/sdxl.py), in another pipeline",
-    "original_size": _SDXL_ONLY,
-    "crops_coords_top_left": _SDXL_ONLY,
-    "target_size": _SDXL_ONLY,
-    "aesthetic_score": _SDXL_ONLY,
-    "negative_aesthetic_score": _SDXL_ONLY,
-    "timestep_shift": ("the rectified-flow shift, which only the DiscreteFlow scheduler "
-                       "reads (SD3: pipelines/sd3.py), with another scheduler"),
     "ip_adapter_image": "IP-Adapter: ROADMAP Queue 1 item 15",
     "ip_adapter_scale": "IP-Adapter: ROADMAP Queue 1 item 15",
     "reduce_memory": "reduce_memory staging: ROADMAP Queue 1 item 17",
 }
 
 
-def _unported(cfg: PipelineConfiguration, scheduler: str, read_fields=frozenset()):
-    """Raise for a field of an unported feature set away from its default;
-    ``read_fields`` are the ones the calling pipeline reads itself."""
+def _unported(cfg: PipelineConfiguration, scheduler: str):
+    """Raise for a field of an unported feature set away from its default."""
     defaults = PipelineConfiguration()
     for name, what in _UNPORTED_FIELDS.items():
-        if name in read_fields or (name == "timestep_shift" and scheduler == "DiscreteFlow"):
-            continue
         value, default = getattr(cfg, name), getattr(defaults, name)
         if isinstance(default, tuple):
             value = tuple(value)
@@ -116,8 +103,9 @@ class StableDiffusionPipeline:
     default_latent_shift = 0.0
     latent_channels = 4
     vae_downscale = 8
-    #: configuration fields of ``_UNPORTED_FIELDS`` that this family reads
-    read_fields: frozenset = frozenset()
+    #: whether DeepCache's shallow/deep split applies to this denoiser (the
+    #: JAX pipelines' flag; the MMDiT has no such split)
+    supports_deepcache = True
 
     def __init__(self, *, tokenizer, text_encoder, unet, vae_decoder,
                  vae_encoder=None, safety_checker=None, controlnets=(),
@@ -367,7 +355,10 @@ class StableDiffusionPipeline:
     def generate_images(self, cfg: PipelineConfiguration, progress_handler=None,
                         image_hw: tuple[int, int] = (512, 512)) -> GenerationResult:
         cfg.validate()
-        _unported(cfg, self._scheduler_name(cfg), self.read_fields)
+        if cfg.deepcache_interval > 1 and not self.supports_deepcache:
+            raise ValueError("deepcache_interval > 1 is not supported for this model family "
+                             "(no shallow/deep UNet split)")
+        _unported(cfg, self._scheduler_name(cfg))
         if progress_handler is not None:
             raise NotImplementedError("progress callbacks: ROADMAP Queue 1 item 12")
         N = cfg.image_count

@@ -14,7 +14,8 @@ What differs from the SD-2.x pipeline it extends:
 - 16 latent channels, latent scale 1.5305 and shift 0.0609.
 
 The T5 encoder and tokenizer, SD3 ControlNet and the VAE encoder raise
-``NotImplementedError`` naming their ROADMAP.md items.
+``NotImplementedError`` naming their ROADMAP.md items; ``deepcache_interval
+> 1`` raises ``ValueError``, as in the JAX pipeline.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ class StableDiffusion3Pipeline(StableDiffusionPipeline):
     default_latent_scale = 1.5305
     default_latent_shift = 0.0609
     latent_channels = 16
+    #: a uniform transformer stack: no shallow/deep split for DeepCache
+    supports_deepcache = False
 
     def __init__(self, *, tokenizer, tokenizer2, text_encoder, text_encoder2, mmdit,
                  vae_decoder, t5_tokenizer=None, t5_encoder=None, vae_encoder=None,

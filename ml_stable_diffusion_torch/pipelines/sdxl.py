@@ -35,8 +35,6 @@ from .sd import StableDiffusionPipeline
 
 class StableDiffusionXLPipeline(StableDiffusionPipeline):
     default_latent_scale = 0.13025
-    read_fields = frozenset({"refiner_start", "original_size", "crops_coords_top_left",
-                             "target_size", "aesthetic_score", "negative_aesthetic_score"})
 
     def __init__(self, *, tokenizer, tokenizer2, text_encoder=None, text_encoder2, unet,
                  refiner_unet=None, vae_decoder, vae_encoder=None, safety_checker=None,

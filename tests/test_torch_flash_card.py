@@ -17,14 +17,19 @@ from ml_stable_diffusion_torch.ops.flash_attention import (
     flash_attention_multi_q_cuda,
     flash_attention_multi_q_reference,
     flash_attention_reference,
+    flash_attention_wide_f32_cuda,
+    flash_split_tf32_cuda,
+    flash_split_tf32_reference,
+    wide_f32_plan,
+    wide_f32_planes,
 )
 
 #: max-abs tolerance against the plain version (tests/test_pallas_kernels.py's)
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: relative RMS tolerance, ||got - ref|| / ||ref||: with unit-normal inputs a
 #: bfloat16 output is itself of the order of ATOL, so the max-abs bound alone
-#: would pass a kernel that dropped a KV tile; f32 leaves room for the FMA
-#: kernel's own summation order (chip_smoke.py holds the same bounds)
+#: would pass a kernel that dropped a KV tile; f32 leaves room for the
+#: kernels' own summation order (chip_smoke.py holds the same bounds)
 REL_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -51,6 +56,9 @@ def cuda_device():
     ((2, 256, 20, 64), torch.bfloat16),
     ((2, 4096, 5, 64), torch.bfloat16),
     ((1, 300, 1, 512), torch.float32),
+    ((1, 330, 1, 512), torch.float32),    # 3xTF32: ragged, 6 kv splits and the combine
+    ((1, 4096, 1, 512), torch.float32),   # 3xTF32: the SD-2.1 VAE, 2 kv splits
+    ((2, 300, 3, 512), torch.float32),    # 3xTF32: several heads
     ((1, 300, 1, 512), torch.bfloat16),
     ((2, 77, 3, 64), torch.bfloat16),
     ((2, 154, 24, 64), torch.bfloat16),   # 154 keys: under one 128-row k/v tile and a half
@@ -61,9 +69,13 @@ def test_flash_kernel_matches_plain(shape, dtype, cuda_device):
     q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
     before = flash_attention_cuda.launches
+    wide = flash_attention_wide_f32_cuda.launches
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    # f32 at D = 512 takes the 3xTF32 kernel, every other case the others
+    assert flash_attention_wide_f32_cuda.launches == wide + (
+        dtype == torch.float32 and shape[-1] == 512)
     assert got.dtype == dtype and got.shape == q.shape
     assert_matches_plain(got, q, k, v)
 
@@ -118,6 +130,43 @@ def test_multi_q_kernel_matches_plain(q_lens, sk, heads, dtype, cuda_device):
         diff = out.float() - ref.float()
         assert diff.abs().max().item() <= ATOL[dtype]
         assert (diff.norm() / ref.float().norm()).item() <= REL_RMS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_lens,sk,heads", [
+    ((384, 77), 461, 3),     # ragged streams and keys, kv splits
+    ((4096, 154), 4250, 1),  # two streams over 67 key tiles: 3 splits of 23
+])
+def test_wide_f32_multi_q_matches_plain(q_lens, sk, heads, cuda_device):
+    """f32 D = 512 query streams through the 3xTF32 kernel's stream table."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qs = [torch.randn(1, n, heads, 512, generator=g, device=cuda_device) for n in q_lens]
+    k, v = (torch.randn(1, sk, heads, 512, generator=g, device=cuda_device) for _ in range(2))
+    before = flash_attention_wide_f32_cuda.launches
+    got = flash_attention_multi_q_cuda(qs, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_wide_f32_cuda.launches == before + 1
+    for out, ref in zip(got, flash_attention_multi_q_reference(qs, k, v)):
+        diff = out - ref
+        assert diff.abs().max().item() <= ATOL[torch.float32]
+        assert (diff.norm() / ref.norm()).item() <= REL_RMS[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_lens,sk,B,H", [((330,), 330, 1, 1), ((70, 5), 100, 2, 3)])
+def test_split_prepass_matches_plain(q_lens, sk, B, H, cuda_device):
+    """The pre-pass writes the planes of its plain version bit for bit: the
+    same round-to-nearest-away tf32 split, padding and transposition."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    qs = [torch.randn(B, n, H, 512, generator=g, device=cuda_device) for n in q_lens]
+    k, v = (torch.randn(B, sk, H, 512, generator=g, device=cuda_device) for _ in range(2))
+    plan = wide_f32_plan(q_lens, sk, B, H)
+    ws = torch.full((plan.workspace_bytes // 4,), float("nan"), device=cuda_device)
+    flash_split_tf32_cuda(qs, k, v, plan, ws)
+    torch.cuda.synchronize()
+    for got, ref in zip(wide_f32_planes(ws, plan, B, H),
+                        flash_split_tf32_reference(qs, k, v, plan)):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda

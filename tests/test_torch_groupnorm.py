@@ -116,3 +116,45 @@ def test_groups_must_divide_channels(fn):
     p = torch.ones(30)
     with pytest.raises(ValueError, match="groups"):
         fn(x, p, p, 8)
+
+
+@pytest.fixture(scope="module")
+def sdxl_gn_shapes():
+    """The 26 resnet GroupNorm+SiLU shapes of the SDXL base and refiner UNets
+    at 1024x1024, CFG batch 2 (recorded on the meta device), and ragged
+    ones."""
+    from kernel_bounds import gn_calls
+    from ml_stable_diffusion_torch.models.unet import UNetConfig
+
+    shapes = set(gn_calls(UNetConfig.sdxl(), (128, 128), 2048, n_time_ids=6))
+    shapes |= set(gn_calls(UNetConfig.sdxl_refiner(), (128, 128), 1280, n_time_ids=5))
+    assert len(shapes) == 26
+    return sorted(shapes) + [(2, 96, 7, 9), (1, 64, 5, 5), (1, 64, 701, 701),
+                             (1, 256, 129, 129), (3, 96, 33, 35)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_plan(sdxl_gn_shapes, dtype):
+    """Each plan covers the run exactly with its cluster's slices, fits a
+    block's 227 KB of shared memory, takes clusters of 8 or 16, and streams
+    only where no cluster's slice fits."""
+    from ml_stable_diffusion_torch.ops.groupnorm import MAX_SLICE_BYTES, launch_plan
+
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    for B, C, H, W in sdxl_gn_shapes:
+        n = C // 32 * H * W
+        plan = launch_plan(B, C, 32, H * W, dtype)
+        assert plan.cluster in (8, 16) and plan.blocks == B * 32 * plan.cluster
+        # the kernel's partition of a group's whole 16-byte vectors (any
+        # alignment of the group's start: at most one vector fewer)
+        for vectors in {n * itemsize // 16, max(n * itemsize // 16 - 1, 0)}:
+            cuts = [vectors * r // plan.cluster for r in range(plan.cluster + 1)]
+            assert cuts[0] == 0 and cuts[-1] == vectors
+            assert max(b - a for a, b in zip(cuts, cuts[1:])) * 16 <= plan.slice_bytes
+        assert plan.smem_bytes + 1024 + 256 <= 232448
+        fits = any(-(-(n * itemsize // 16) // cs) * 16 <= MAX_SLICE_BYTES for cs in (8, 16))
+        assert plan.resident == fits
+    # every SDXL shape keeps its slices in shared memory in bf16
+    if dtype == torch.bfloat16:
+        assert all(launch_plan(B, C, 32, H * W, dtype).resident
+                   for B, C, H, W in sdxl_gn_shapes[:26])

@@ -13,6 +13,7 @@ from ml_stable_diffusion_torch.ops.groupnorm import (
     group_norm_silu,
     group_norm_silu_cuda,
     group_norm_silu_reference,
+    launch_plan,
 )
 
 #: max-abs tolerance against the plain version (bf16: tests/test_pallas_kernels.py's)
@@ -59,6 +60,27 @@ def test_gn_kernel_matches_plain(shape, dtype, silu, cuda_device):
     assert group_norm_silu_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     ref = group_norm_silu_reference(x, gamma, beta, 32, 1e-5, silu).float()
+    diff = got.float() - ref
+    assert diff.abs().max().item() <= ATOL[dtype]
+    assert (diff.norm() / ref.norm()).item() <= REL_RMS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,groups,cluster,resident", [
+    ((2, 320, 128, 128), torch.bfloat16, 32, 8, True),    # SDXL: slices in shared memory
+    ((2, 960, 128, 128), torch.bfloat16, 32, 16, True),   # SDXL: clusters of 16
+    ((1, 256, 129, 129), torch.float32, 4, 8, False),     # 4.3 MB groups: streaming, ragged
+    ((1, 256, 129, 129), torch.bfloat16, 4, 16, True),    # ragged run, resident
+    ((2, 96, 7, 9), torch.bfloat16, 32, 8, True),         # groups off 16-byte boundaries
+])
+def test_gn_kernel_each_plan(shape, dtype, groups, cluster, resident, cuda_device):
+    """Each of the launch plan's paths against the plain version."""
+    B, C, H, W = shape
+    plan = launch_plan(B, C, groups, H * W, dtype)
+    assert (plan.cluster, plan.resident) == (cluster, resident)
+    x, gamma, beta = _inputs(shape, dtype, cuda_device, seed=C + groups)
+    got = group_norm_silu_cuda(x, gamma, beta, groups, 1e-5, True)
+    ref = group_norm_silu_reference(x, gamma, beta, groups, 1e-5, True).float()
     diff = got.float() - ref
     assert diff.abs().max().item() <= ATOL[dtype]
     assert (diff.norm() / ref.norm()).item() <= REL_RMS[dtype]

@@ -2,8 +2,8 @@
 
 A tiny generation (3 steps of DPM++ 2M, CFG on, rng="numpy") through both
 ``generate_images`` on the same weights: latents within atol 1e-3, uint8
-images within 1.  Also: importing the port pulls in no JAX, and features not
-ported yet raise.
+images within 1.  Also: importing the port pulls in no JAX, features not
+ported yet raise, and fields the JAX pipeline ignores are ignored.
 """
 
 import subprocess
@@ -62,9 +62,6 @@ def test_guidance_off_matches_jax(pair):
     (dict(prompt="a (cat:1.5)"), "prompt weight"),
     (dict(deepcache_interval=2), "DeepCache"),
     (dict(strength=0.5), "img2img strength"),
-    (dict(refiner_start=0.5), "SDXL refiner"),
-    (dict(crops_coords_top_left=(8, 8)), "micro-conditioning"),
-    (dict(timestep_shift=1.0), "rectified-flow"),
     (dict(ip_adapter_scale=0.5), "IP-Adapter"),
 ])
 def test_unported_features_raise(pair, kw, match):
@@ -73,6 +70,22 @@ def test_unported_features_raise(pair, kw, match):
     args.update(kw)
     with pytest.raises(NotImplementedError, match=match):
         port_pipe.generate_images(PipelineConfiguration(**args), image_hw=HW)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(refiner_start=0.5),
+    dict(crops_coords_top_left=(8, 8)),
+    dict(timestep_shift=1.0),
+])
+def test_fields_the_jax_pipeline_ignores_are_ignored(pair, kw):
+    """The SDXL-only fields, and the flow shift with a scheduler other than
+    DiscreteFlow, change nothing here, as in the JAX pipeline."""
+    jax_pipe, port_pipe = pair
+    args = dict(prompt="a cat", step_count=2, scheduler="DPMSolverMultistep",
+                guidance_scale=7.5, seed=17, disable_safety=True, rng="numpy", **kw)
+    ref = jax_pipe.generate_images(JaxConfig(**args), image_hw=HW)
+    got = port_pipe.generate_images(PipelineConfiguration(**args), image_hw=HW)
+    np.testing.assert_allclose(got.latents, ref.latents, atol=1e-3)
 
 
 def test_unported_fields_at_their_defaults_pass(pair):

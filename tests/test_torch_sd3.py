@@ -171,6 +171,18 @@ def test_unported_parts_raise(pair, kw, match):
         StableDiffusion3Pipeline(**args)
 
 
+def test_deepcache_raises_value_error_as_in_jax(pair):
+    """The MMDiT has no shallow/deep split: both pipelines refuse DeepCache
+    with ValueError."""
+    jax_pipe, port_pipe = pair
+    kw = _kw(step_count=2, deepcache_interval=2)
+    with pytest.raises(ValueError, match="deepcache_interval") as ref:
+        jax_pipe.generate_images(JaxConfig(**kw), image_hw=HW)
+    with pytest.raises(ValueError, match="deepcache_interval") as got:
+        port_pipe.generate_images(PipelineConfiguration(**kw), image_hw=HW)
+    assert str(got.value) == str(ref.value)
+
+
 def test_sd3_pipeline_constants_are_the_jax_ones():
     assert (StableDiffusion3Pipeline.default_latent_scale,
             StableDiffusion3Pipeline.default_latent_shift,
