@@ -63,14 +63,37 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    ``palettized_dense_fused``, against the same UNet serving the
    dequantized weights (install mode): PSNR beside its prediction, and the
    launch count against the recorded call list.
+11. SD-1.5 512x512 txt2img with the default configuration: PNDM, 20 steps
+   (21 UNet calls: the PLMS warm-up), CFG batch 2, guidance 7.5, CLIP-L in
+   float32, ``UNetConfig.sd15`` in bf16 (heads of width 40, 80 and 160 on
+   the flash kernel), the VAE in float32; as phase 3: warm-up, median of 3,
+   launch counts (316 flash), one generation forced plain.  Then one
+   full-width SD-1.5 UNet forward with variance-preserving weights, flash
+   against plain (as phase 4).
+12. SD-2.1 img2img and inpainting on phase 3's modules plus a VAE encoder
+   (run right after phase 4): PNDM, 20 steps at strength 0.75 (16 UNet
+   calls), then the same with the left half of the image repainted.  s/step,
+   s/image, launch counts (15 per UNet call + 2: the encoder's and the
+   decoder's f32 D = 512 heads), and the known half of the inpainted
+   latents against the starting image's latents z0, recomputed.
+13. Every scheduler of ``SCHEDULER_MAP`` on the SD-2.1 pipeline at 8 steps,
+   one generation each: finite latents and launch counts; then LCM on a
+   full-width SD-2.1 UNet with ``time_cond_proj_dim=256`` at 4 steps,
+   without CFG.
+14. One SD3 img2img generation on phase 5's pipeline plus its 16-channel
+   VAE encoder, and one SDXL-base img2img generation on phase 7's base
+   pipeline plus a VAE encoder (before the refiner joins): strength 0.75 of
+   20 steps, launch counts of both flash entries, the encoder's head and
+   the GroupNorm kernel.
 
 Every kernel launch counter is set to 0 just before each main path (phases
-3, 5, both runs of 7, both modes of 9, and phase 10 for the fused
-dequant-matmul, whose main path it is) and read just after it.  Prints a
+3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, and
+phase 10 for the fused dequant-matmul, whose main path it is) and read just
+after it; phase 13 reads them around each generation.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --profile sdxl   (or sd3, sd21)
+    python3 chip_smoke.py --profile sdxl   (or sd3, sd21, sd15)
 
 runs instead one generation of that path under ``torch.profiler`` after a
 warm-up and prints where the device time goes: the kernels grouped (the
@@ -81,6 +104,7 @@ wall time.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import json
@@ -132,6 +156,20 @@ PROMPTS = ["a photo of an astronaut riding a horse on mars",
 #: the VAE mid block's f32 D = 512 head, once per generation on every path:
 #: one of the flash_attention launches, on the 3xTF32 kernel and its pre-pass
 VAE_ATTENTION = {"flash_attention_wide_f32": 1, "flash_split_tf32": 1}
+#: img2img and inpainting encode the starting image once: a second head
+VAE_ATTENTION_ENCODE = {name: 2 for name in VAE_ATTENTION}
+#: img2img strength of phases 12 and 14: the last 15 of 20 steps (PNDM: 16
+#: UNet calls, its warm-up replayed at the resume point)
+STRENGTH = 0.75
+#: UNet calls of each generation: phase 11's PNDM 20 steps (one more than
+#: the steps: the PLMS warm-up), phase 12's strength-sliced PNDM, phase 14's
+#: strength-sliced DPM++ and DiscreteFlow (main() checks them against the
+#: schedulers' plans)
+UNET_CALLS = {"sd15": 21, "sd21_img2img": 16, "sd21_inpaint": 16, "sd3_img2img": 15,
+              "sdxl_img2img": 15}
+#: phase 13's steps a scheduler, and LCM's on the guidance-embedded UNet
+SCHED_STEPS = 8
+LCM_STEPS = 4
 PATHS = {
     "sd21": dict(label="SD-2.1-base 512x512, 20 steps DPM++ 2M, CFG batch 2",
                  image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5,
@@ -159,13 +197,52 @@ PATHS = {
                                          "flash_attention_multi_q": 0, **VAE_ATTENTION,
                                          "group_norm_silu": 720, "palettized_dense_fused": 0}),
 }
+PATHS.update({
+    "sd15": dict(label="SD-1.5 512x512, the default configuration: 20 steps PNDM (21 UNet "
+                       "calls), CFG batch 2, guidance 7.5",
+                 image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5, scheduler="PNDM",
+                 per_generation={"flash_attention": 15 * UNET_CALLS["sd15"] + 1,
+                                 "flash_attention_multi_q": 0,
+                                 **VAE_ATTENTION, "group_norm_silu": 0,
+                                 "palettized_dense_fused": 0}),
+    "sd21_img2img": dict(label="SD-2.1-base 512x512 img2img, strength 0.75: 15 of 20 steps "
+                               "PNDM (16 UNet calls), CFG batch 2",
+                         image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5,
+                         scheduler="PNDM",
+                         per_generation={"flash_attention": 15 * UNET_CALLS["sd21_img2img"] + 2,
+                                         "flash_attention_multi_q": 0, **VAE_ATTENTION_ENCODE,
+                                         "group_norm_silu": 0, "palettized_dense_fused": 0}),
+    "sd3_img2img": dict(label="SD3-medium 1024x1024 img2img (no T5), strength 0.75: 15 of 20 "
+                              "steps DiscreteFlow, CFG batch 2",
+                        image_hw=(1024, 1024), latents=(1, 128, 128, 16), guidance=4.5,
+                        scheduler="DiscreteFlow",
+                        per_generation={"flash_attention": 2,
+                                        "flash_attention_multi_q": 24 * UNET_CALLS["sd3_img2img"],
+                                        **VAE_ATTENTION_ENCODE, "group_norm_silu": 0,
+                                        "palettized_dense_fused": 0}),
+    "sdxl_img2img": dict(label="SDXL-base 1024x1024 img2img, strength 0.75: 15 of 20 steps "
+                               "DPM++ 2M, CFG batch 2, guidance 5",
+                         image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
+                         scheduler="DPMSolverMultistep",
+                         per_generation={"flash_attention": 70 * UNET_CALLS["sdxl_img2img"] + 2,
+                                         "flash_attention_multi_q": 0, **VAE_ATTENTION_ENCODE,
+                                         "group_norm_silu": 34 * UNET_CALLS["sdxl_img2img"],
+                                         "palettized_dense_fused": 0}),
+})
+PATHS["sd21_inpaint"] = dict(PATHS["sd21_img2img"],
+                             label="SD-2.1-base 512x512 inpainting (the left half), strength "
+                                   "0.75: 15 of 20 steps PNDM (16 UNet calls), CFG batch 2")
 #: phase 9: the SD-2.1 path on a palettized bundle, in each serving mode
 for _mode in ("install", "program"):
     PATHS[f"sd21_pal_{_mode}"] = dict(
         PATHS["sd21"], label=f"SD-2.1-base 512x512 from a 6-bit palettized bundle, {_mode} "
                              "mode, 20 steps DPM++ 2M, CFG batch 2")
 #: steps of each UNet in one generation of a path: (base, refiner)
-UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4)}
+UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4), "sdxl_img2img": (15, 0)}
+#: the known half of an inpainted generation's latents against the starting
+#: image's latents z0 (max abs, relative to z0's peak): after the last step
+#: the known region is z0 itself, recomputed here by the same encoder
+INPAINT_KNOWN_REL_ERR = 1e-5
 #: the attention kernel entries (phase 7's plain-attention run launches none)
 ATTENTION_KERNELS = ("flash_attention", "flash_attention_multi_q", *VAE_ATTENTION)
 #: bf16-level agreement of a full denoiser call, flash kernel vs plain attention
@@ -331,24 +408,33 @@ def timings(kernel, plain, library, bound_s):
                 library_ms=time_ms(library, reps=3 if slow else 20))
 
 
-def sd21_all(n):
-    """Launches per generation of the SD-2.1 path and its palettized runs."""
-    return {"sd21": n, "sd21_pal_install": n, "sd21_pal_program": n}
+def sd21_all(n, img2img=None):
+    """Launches per generation of the SD-2.1 path and its palettized runs,
+    and ``img2img`` of its img2img and inpainting runs."""
+    out = {"sd21": n, "sd21_pal_install": n, "sd21_pal_program": n}
+    if img2img:
+        out.update(sd21_img2img=img2img, sd21_inpaint=img2img)
+    return out
 
 
 #: (label, query stream lengths, Sk, B, H, D, dtype, {path: launches per
 #: generation of that path})
 FLASH_SHAPES = [
-    ("unet 64x64", (4096,), 4096, 2, 5, 64, torch.bfloat16, sd21_all(100)),
-    ("unet 32x32", (1024,), 1024, 2, 10, 64, torch.bfloat16, sd21_all(100)),
-    ("unet 16x16", (256,), 256, 2, 20, 64, torch.bfloat16, sd21_all(100)),
-    ("vae mid 512", (4096,), 4096, 1, 1, 512, torch.float32, sd21_all(1)),
+    ("unet 64x64", (4096,), 4096, 2, 5, 64, torch.bfloat16, sd21_all(100, 5 * 16)),
+    ("unet 32x32", (1024,), 1024, 2, 10, 64, torch.bfloat16, sd21_all(100, 5 * 16)),
+    ("unet 16x16", (256,), 256, 2, 20, 64, torch.bfloat16, sd21_all(100, 5 * 16)),
+    ("vae mid 512", (4096,), 4096, 1, 1, 512, torch.float32,
+     {**sd21_all(1, 2), "sd15": 1}),
     ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32,
-     {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1}),
+     {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1, "sd3_img2img": 2, "sdxl_img2img": 2}),
+    ("sd15 64x64", (4096,), 4096, 2, 8, 40, torch.bfloat16, {"sd15": 5 * 21}),
+    ("sd15 32x32", (1024,), 1024, 2, 8, 80, torch.bfloat16, {"sd15": 5 * 21}),
+    ("sd15 16x16", (256,), 256, 2, 8, 160, torch.bfloat16, {"sd15": 5 * 21}),
+    ("ragged D80", (330,), 330, 2, 3, 80, torch.bfloat16, {}),
     ("sdxl 64x64", (4096,), 4096, 2, 10, 64, torch.bfloat16,
-     {"sdxl": 10 * 20, "sdxl_refiner": 10 * 16}),
+     {"sdxl": 10 * 20, "sdxl_refiner": 10 * 16, "sdxl_img2img": 10 * 15}),
     ("sdxl 32x32", (1024,), 1024, 2, 20, 64, torch.bfloat16,
-     {"sdxl": 60 * 20, "sdxl_refiner": 60 * 16}),
+     {"sdxl": 60 * 20, "sdxl_refiner": 60 * 16, "sdxl_img2img": 60 * 15}),
     ("refiner 64x64", (4096,), 4096, 2, 12, 64, torch.bfloat16, {"sdxl_refiner": 20 * 4}),
     ("refiner 32x32", (1024,), 1024, 2, 24, 64, torch.bfloat16, {"sdxl_refiner": 20 * 4}),
     ("refiner 16x16", (256,), 256, 2, 24, 64, torch.bfloat16, {"sdxl_refiner": 1 * 4}),
@@ -357,7 +443,8 @@ FLASH_SHAPES = [
     ("ragged bf16", (330,), 330, 2, 3, 64, torch.bfloat16, {}),
 ]
 MULTI_Q_SHAPES = [
-    ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16, {"sd3": 480}),
+    ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16,
+     {"sd3": 480, "sd3_img2img": 24 * 15}),
     ("ragged f32", (384, 77), 461, 2, 3, 64, torch.float32, {}),
     ("ragged f32 512", (384, 77), 461, 1, 3, 512, torch.float32, {}),
     ("ragged bf16", (384, 77), 461, 2, 3, 64, torch.bfloat16, {}),
@@ -379,7 +466,7 @@ def check_kernel(kernel, reference, shapes):
     the kernel, the plain version and SDPA on the concatenated queries."""
     import torch.nn.functional as F
 
-    from ml_stable_diffusion_torch.ops.flash_attention import query_tile_rows, wide_f32_plan
+    from ml_stable_diffusion_torch.ops.flash_attention import bf16_plan, wide_f32_plan
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, calls, libraries = [], [], []
@@ -409,16 +496,26 @@ def check_kernel(kernel, reference, shapes):
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         qt = torch.cat(qs, dim=1).transpose(1, 2)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        # the kernel and its instantiation: query rows a block, kv splits
-        if dtype == torch.bfloat16 and D == 64:
-            tile = f"wgmma {query_tile_rows(q_lens, B, H)}-row"
+        # the kernel and its instantiation: query rows a block, 64-column
+        # chunks of a head, kv tile rows and stages; kv splits
+        extra = {}
+        if dtype == torch.bfloat16 and D != 512:
+            plan = bf16_plan(q_lens, B, H, D)
+            tile = (f"wgmma {plan.rows}-row, {plan.chunks} chunk(s), kv {plan.kv_rows} rows "
+                    f"x {plan.stages} stages")
+            # the tensor cores' work with the head padded: q k^T over the
+            # 16-column k-steps below D, P v over whole 64-column chunks
+            done = 2 * B * H * sum(q_lens) * sk * (16 * -(-D // 16) + 64 * plan.chunks)
+            extra = dict(bf16_plan=dataclasses.asdict(plan),
+                         executed_ops_bound_ms=1e3 * done / PEAK_FLOPS[dtype])
         elif dtype == torch.float32 and D == 512:
             splits = wide_f32_plan(q_lens, sk, B, H).splits
             tile = f"wgmma 3xtf32 64-row, {splits} kv split(s)"
         else:
             tile = "fma"
         row = dict(label=label, q_lens=list(q_lens), sk=sk, B=B, H=H, D=D,
-                   dtype=str(dtype).split(".")[-1], tile=tile, launches_per_generation=per_gen,
+                   dtype=str(dtype).split(".")[-1], tile=tile, **extra,
+                   launches_per_generation=per_gen,
                    max_abs_err=err, atol=ATOL[dtype], rel_rms_err=rel,
                    rel_rms_tol=REL_RMS[dtype], dropped_tile_max_abs=cut_err,
                    dropped_tile_rel_rms=cut_rel,
@@ -829,6 +926,39 @@ def build_sd21_pipeline(tokdir: Path):
                                    unet=unet, vae_decoder=vae, device="cuda")
 
 
+def build_sd15_pipeline(tokdir: Path):
+    """SD-1.5: CLIP-L (f32), ``UNetConfig.sd15`` (bf16), the VAE decoder
+    (f32), speed weights."""
+    from ml_stable_diffusion_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
+    from ml_stable_diffusion_torch.pipelines import StableDiffusionPipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    with torch.device("meta"):
+        te = CLIPTextEncoder(CLIPTextConfig.sd1())
+        unet = UNet2DConditionModel(UNetConfig.sd15())
+        vae = VAEDecoder(VAEConfig.sd())
+    return StableDiffusionPipeline(
+        tokenizer=letters_tokenizer(tokdir), text_encoder=materialize(te, gen),
+        unet=materialize(unet, gen, torch.bfloat16), vae_decoder=materialize(vae, gen),
+        device="cuda")
+
+
+def with_encoder(pipe, seed: int):
+    """The same pipeline over the same modules plus a full-width VAE encoder
+    (f32, speed weights) for the pipeline's latent channels."""
+    from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEEncoder
+
+    cfg = VAEConfig.sd3() if pipe.latent_channels == 16 else VAEConfig.sd()
+    with torch.device("meta"):
+        enc = VAEEncoder(cfg)
+    enc = materialize(enc, torch.Generator(device="cuda").manual_seed(seed))
+    out = copy.copy(pipe)
+    out.vae_encoder = enc.eval()
+    return out
+
+
 def build_sd3_pipeline(tokdir: Path):
     from ml_stable_diffusion_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
     from ml_stable_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
@@ -888,7 +1018,7 @@ def sdxl_with_refiner(pipe):
 
 #: the paths ``--profile`` takes, and their pipelines
 PROFILE_BUILDERS = {"sd21": build_sd21_pipeline, "sd3": build_sd3_pipeline,
-                    "sdxl": build_sdxl_pipeline}
+                    "sdxl": build_sdxl_pipeline, "sd15": build_sd15_pipeline}
 
 
 def reset_counters(counters):
@@ -896,10 +1026,14 @@ def reset_counters(counters):
         fn.launches = 0
 
 
-def run_main_path(pipe, path, counters, timed=3, plain=True):
-    """One warm-up and ``timed`` generations with distinct prompts and seeds,
-    the counters set to 0 just before and read just after; then (``plain``)
-    the last generation again with attention forced to the plain path."""
+def run_main_path(pipe, path, counters, timed=3, plain=True, warmup=True, extra=None,
+                  results=None):
+    """One warm-up (``warmup``) and ``timed`` generations with distinct
+    prompts and seeds, the counters set to 0 just before and read just
+    after; then (``plain``) the last generation again with attention forced
+    to the plain path.  ``extra``: more configuration fields (the starting
+    image and mask); ``results``: a list that receives the generations'
+    results."""
     from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 
     spec = PATHS[path]
@@ -909,7 +1043,7 @@ def run_main_path(pipe, path, counters, timed=3, plain=True):
             prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS,
             guidance_scale=spec["guidance"], seed=1000 + i, scheduler=spec["scheduler"],
             rng="numpy", disable_safety=True, attention_implementation=attention,
-            **spec.get("extra", {}))
+            **spec.get("extra", {}), **(extra or {}))
         before = {name: fn.launches for name, fn in counters.items()}
         t0 = time.perf_counter()
         res = pipe.generate_images(cfg, image_hw=spec["image_hw"])
@@ -925,18 +1059,20 @@ def run_main_path(pipe, path, counters, timed=3, plain=True):
 
     reset_counters(counters)
     t0 = time.perf_counter()
-    runs = [generate(i) for i in range(1 + timed)]  # warm-up + timed
+    runs = [generate(i) for i in range(int(warmup) + timed)]  # warm-up + timed
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     for _, launched, _ in runs:
         if launched != spec["per_generation"]:
             fail(f"{path}: a generation launched {launched}, want {spec['per_generation']}")
-    sps = statistics.median(r.seconds_per_step for r, _, _ in runs[1:])
-    spi = statistics.median(secs for _, _, secs in runs[1:])
+    sps = statistics.median(r.seconds_per_step for r, _, _ in runs[int(warmup):])
+    spi = statistics.median(secs for _, _, secs in runs[int(warmup):])
     out = dict(seconds_per_step=sps, iter_per_s=1.0 / sps, seconds_per_image=spi,
                seconds_per_step_runs=[r.seconds_per_step for r, _, _ in runs],
                seconds_per_image_runs=[secs for _, _, secs in runs],
                wall_s_generations=wall, launches=launches)
+    if results is not None:
+        results.extend(r for r, _, _ in runs)
     if not plain:
         return out
     # the same generation with attention forced to the plain path.  On these
@@ -944,13 +1080,13 @@ def run_main_path(pipe, path, counters, timed=3, plain=True):
     # this shows the plain path runs end to end more than it tests the
     # kernel: phases 4, 6 and 8, on variance-preserving weights, are the
     # in-model checks.  The GroupNorm kernel stays on.
-    res, plain_launched, plain_secs = generate(timed, attention="plain")
+    res, plain_launched, plain_secs = generate(len(runs) - 1, attention="plain")
     want = {name: 0 if name in ATTENTION_KERNELS else n
             for name, n in spec["per_generation"].items()}
     if plain_launched != want:
         fail(f"{path}: attention_implementation='plain' launched {plain_launched}, "
              f"want {want}")
-    rel = float(abs(runs[timed][0].latents - res.latents).max()
+    rel = float(abs(runs[-1][0].latents - res.latents).max()
                 / max(abs(res.latents).max(), 1e-12))
     if not rel <= GEN_MAX_REL_ERR:
         fail(f"{path}: flash vs plain latents differ by {rel} (rel) > {GEN_MAX_REL_ERR}")
@@ -1078,6 +1214,143 @@ def check_sdxl_unet(counters):
     flash = check_model_flash_vs_plain("sdxl unet", unet, inputs,
                                        counters["flash_attention"], 70)
     return {"group_norm_silu": gn, "flash_attention": flash}
+
+
+# -- phases 11 to 14 -----------------------------------------------------------------
+
+def check_unet_calls():
+    """UNET_CALLS against the schedulers' own plans (``plan.num_steps``)."""
+    from ml_stable_diffusion_torch.schedulers import SCHEDULER_MAP
+
+    for path, want in UNET_CALLS.items():
+        spec = PATHS[path]
+        strength = 1.0 if path == "sd15" else STRENGTH
+        got = SCHEDULER_MAP[spec["scheduler"]]().set_timesteps(STEPS, strength=strength)
+        if got.num_steps != want:
+            fail(f"{path}: {spec['scheduler']} at strength {strength} plans {got.num_steps} "
+                 f"UNet calls, the launch counts assume {want}")
+
+
+def check_sd15_flash_vs_plain(counter):
+    """Phase 11's model check: one full-width SD-1.5 UNet forward (heads of
+    width 40, 80 and 160), variance-preserving weights."""
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(UNetConfig.sd15())
+    unet = materialize(unet, gen, torch.bfloat16, std=None)
+    inputs = (torch.randn(2, 4, 64, 64, generator=gen, device="cuda"),
+              torch.tensor(500.0, device="cuda"),
+              torch.randn(2, 77, 768, generator=gen, device="cuda"))
+    return check_model_flash_vs_plain("sd15 unet", unet, inputs, counter, 15)
+
+
+def starting_image(hw, seed: int):
+    """A seeded (1, H, W, 3) float32 image in [-1, 1]."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((1, *hw, 3), generator=gen) * 2 - 1).numpy()
+
+
+def left_half_mask(hw):
+    """(H, W) float32: 1 (repaint) on the left half, 0 on the right."""
+    mask = torch.zeros(hw)
+    mask[:, : hw[1] // 2] = 1.0
+    return mask.numpy()
+
+
+def check_inpaint_known_half(pipe, image, results):
+    """After the last step the known (right) half of the latents is the
+    starting image's latents z0 itself: recompute z0 from the same encoder
+    and host noise (seed 1000 + i of generation i) and compare; the
+    repainted half must differ from it."""
+    from ml_stable_diffusion_torch.models.vae import sample_diagonal_gaussian
+    from ml_stable_diffusion_torch.utils.rng import make_random_source
+
+    worst = 0.0
+    x = torch.from_numpy(image).cuda().permute(0, 3, 1, 2).contiguous()
+    for i, res in enumerate(results):
+        h, w = res.latents.shape[1:3]
+        noise = torch.from_numpy(make_random_source("numpy", 1000 + i).normal((1, 4, h, w)))
+        with torch.inference_mode():
+            z0 = sample_diagonal_gaussian(pipe.vae_encoder(x), noise.cuda())
+            z0 = (z0 * pipe.default_latent_scale).permute(0, 2, 3, 1).cpu()
+        got = torch.from_numpy(res.latents)
+        peak = z0.abs().max().item()
+        known = (got[:, :, w // 2:] - z0[:, :, w // 2:]).abs().max().item() / peak
+        repainted = (got[:, :, : w // 2] - z0[:, :, : w // 2]).abs().max().item() / peak
+        if not known <= INPAINT_KNOWN_REL_ERR:
+            fail(f"inpainting: the known half of generation {i} is {known} (rel) from z0, "
+                 f"> {INPAINT_KNOWN_REL_ERR}")
+        if not repainted > 1e-2:
+            fail(f"inpainting: the repainted half of generation {i} stayed at z0 ({repainted})")
+        worst = max(worst, known)
+    log(f"inpainting: the known half within {worst:.3g} (rel) of the starting image's "
+        f"latents z0 (bound {INPAINT_KNOWN_REL_ERR}) in {len(results)} generations")
+    return dict(known_half_max_rel_err=worst, bound=INPAINT_KNOWN_REL_ERR)
+
+
+def run_img2img_paths(pipe, counters, report):
+    """Phase 12 on the SD-2.1 pipeline plus a VAE encoder: img2img, then
+    inpainting of the left half.  -> ({path: timings and counts}, the
+    inpainting check)."""
+    enc_pipe = with_encoder(pipe, 12)
+    image = starting_image((512, 512), 12)
+    out = {}
+    out["sd21_img2img"] = run_main_path(enc_pipe, "sd21_img2img", counters, plain=False,
+                                        extra=dict(starting_image=image, strength=STRENGTH))
+    report("sd21_img2img", out["sd21_img2img"])
+    results = []
+    out["sd21_inpaint"] = run_main_path(
+        enc_pipe, "sd21_inpaint", counters, plain=False, results=results,
+        extra=dict(starting_image=image, strength=STRENGTH,
+                   mask_image=left_half_mask((512, 512))))
+    report("sd21_inpaint", out["sd21_inpaint"])
+    return out, check_inpaint_known_half(enc_pipe, image, results)
+
+
+def run_scheduler_sweep(pipe, counters):
+    """Phase 13: every scheduler on the SD-2.1 pipeline at SCHED_STEPS steps,
+    one generation each, then LCM on a full-width guidance-embedded UNet
+    (``time_cond_proj_dim=256``) at LCM_STEPS steps without CFG: finite
+    latents and the launch counts of each generation."""
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+    from ml_stable_diffusion_torch.schedulers import SCHEDULER_MAP
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    with torch.device("meta"):
+        lcm_unet = UNet2DConditionModel(dataclasses.replace(UNetConfig.sd21(),
+                                                            time_cond_proj_dim=256))
+    lcm_pipe = copy.copy(pipe)
+    lcm_pipe.unet = materialize(lcm_unet, gen, torch.bfloat16).eval()
+    runs = [(name, pipe, name, SCHED_STEPS, 7.5) for name in sorted(SCHEDULER_MAP)]
+    runs.append(("LCM, guidance-embedded UNet", lcm_pipe, "LCM", LCM_STEPS, 8.0))
+    out = {}
+    for k, (label, p, name, steps, guidance) in enumerate(runs):
+        calls = SCHEDULER_MAP[name]().set_timesteps(steps).num_steps
+        want = {"flash_attention": 15 * calls + 1, "flash_attention_multi_q": 0,
+                **VAE_ATTENTION, "group_norm_silu": 0, "palettized_dense_fused": 0}
+        cfg = PipelineConfiguration(prompt=PROMPTS[k % len(PROMPTS)], step_count=steps,
+                                    guidance_scale=guidance, seed=2000 + k, scheduler=name,
+                                    rng="numpy", disable_safety=True)
+        reset_counters(counters)
+        t0 = time.perf_counter()
+        res = p.generate_images(cfg, image_hw=(512, 512))
+        seconds = time.perf_counter() - t0
+        launched = {n: fn.launches for n, fn in counters.items()}
+        if launched != want:
+            fail(f"scheduler {label}: a generation launched {launched}, want {want}")
+        if res.latents.shape != (1, 64, 64, 4) or not bool(
+                torch.isfinite(torch.from_numpy(res.latents)).all()):
+            fail(f"scheduler {label}: latents {res.latents.shape} not finite")
+        out[label] = dict(unet_calls=calls, seconds_per_step=res.seconds_per_step,
+                          seconds_per_image=seconds, launches=launched)
+        log(f"scheduler {label}: {steps} steps ({calls} UNet calls, CFG "
+            f"{'off' if p is lcm_pipe else 'on'}): {res.seconds_per_step * 1e3:.2f} ms/step, "
+            f"{seconds:.3f} s/image, launches {launched}")
+    del lcm_pipe
+    return out
 
 
 # -- phases 9 and 10 ----------------------------------------------------------------
@@ -1557,13 +1830,33 @@ def main():
             f"{res['seconds_per_image']:.3f} s/image ({card}){plain}; "
             f"launches {res['launches']}")
 
-    for path, build, check in (("sd21", build_sd21_pipeline, check_unet_flash_vs_plain),
-                               ("sd3", build_sd3_pipeline, check_mmdit_flash_vs_plain)):
+    check_unet_calls()
+    schedulers = inpainting = None
+
+    def sd21_more(pipe):
+        """Phases 12 and 13 on phase 3's pipeline."""
+        nonlocal schedulers, inpainting
+        paths, inpainting = run_img2img_paths(pipe, counters, report)
+        main_paths.update(paths)
+        schedulers = run_scheduler_sweep(pipe, counters)
+
+    def sd3_more(pipe):
+        """Phase 14's SD3 img2img on phase 5's pipeline."""
+        main_paths["sd3_img2img"] = run_main_path(
+            with_encoder(pipe, 14), "sd3_img2img", counters, timed=1, plain=False,
+            warmup=False, extra=dict(starting_image=starting_image((1024, 1024), 14),
+                                     strength=STRENGTH))
+        report("sd3_img2img", main_paths["sd3_img2img"])
+
+    for path, build, check, more in (
+            ("sd21", build_sd21_pipeline, check_unet_flash_vs_plain, sd21_more),
+            ("sd3", build_sd3_pipeline, check_mmdit_flash_vs_plain, sd3_more)):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tokdir:
             pipe = build(Path(tokdir))
         main_paths[path] = run_main_path(pipe, path, counters)
         report(path, main_paths[path])
+        more(pipe)
         del pipe
         torch.cuda.empty_cache()
         counter = counters["flash_attention" if path == "sd21" else "flash_attention_multi_q"]
@@ -1577,6 +1870,12 @@ def main():
         pipe = build_sdxl_pipeline(Path(tokdir))
     main_paths["sdxl"] = run_main_path(pipe, "sdxl", counters)
     report("sdxl", main_paths["sdxl"])
+    # phase 14's SDXL-base img2img, before the refiner joins
+    main_paths["sdxl_img2img"] = run_main_path(
+        with_encoder(pipe, 17), "sdxl_img2img", counters, timed=1, plain=False, warmup=False,
+        extra=dict(starting_image=starting_image((1024, 1024), 17), strength=STRENGTH))
+    report("sdxl_img2img", main_paths["sdxl_img2img"])
+    torch.cuda.empty_cache()
     pipe = sdxl_with_refiner(pipe)
     main_paths["sdxl_refiner"] = run_main_path(pipe, "sdxl_refiner", counters, timed=1,
                                                plain=False)
@@ -1587,6 +1886,18 @@ def main():
     model_checks["sdxl"] = check_sdxl_unet(counters)
     torch.cuda.empty_cache()
     log(f"phases of sdxl: {time.perf_counter() - t0:.1f} s")
+
+    # phase 11: SD-1.5 with the default configuration, then its UNet check
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tokdir:
+        pipe = build_sd15_pipeline(Path(tokdir))
+    main_paths["sd15"] = run_main_path(pipe, "sd15", counters)
+    report("sd15", main_paths["sd15"])
+    del pipe
+    torch.cuda.empty_cache()
+    model_checks["sd15"] = check_sd15_flash_vs_plain(counters["flash_attention"])
+    torch.cuda.empty_cache()
+    log(f"phases of sd15: {time.perf_counter() - t0:.1f} s")
 
     # phases 9 and 10: the palettized path and the fused op's witness
     t0 = time.perf_counter()
@@ -1619,7 +1930,8 @@ def main():
         pal_kernel_entry(rows["palettized_dense_fused"], model_checks["palettized"], launches),
     ]
     log(json.dumps({"main_paths": main_paths, "in_model_checks": model_checks,
-                    "palettized_path": palettized, "numerics": numerics_settings(),
+                    "palettized_path": palettized, "schedulers": schedulers,
+                    "inpainting": inpainting, "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
     log(json.dumps({"kernels": kernels}))
     log(card)

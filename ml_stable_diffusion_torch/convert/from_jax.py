@@ -5,7 +5,7 @@ caller runs ``np.asarray`` over the leaves; this module imports no JAX) or of
 torch tensors (``convert/artifacts.load_module``).  The output is a
 diffusers/transformers-keyed state dict of torch tensors that
 ``load_state_dict(strict=True)`` accepts for ``UNet2DConditionModel``,
-``VAEDecoder``, ``CLIPTextEncoder`` and ``MMDiT``.
+``VAEDecoder``, ``VAEEncoder``, ``CLIPTextEncoder`` and ``MMDiT``.
 
 Layouts: a conv kernel goes HWIO -> OIHW, a dense kernel is transposed,
 a norm ``scale`` becomes ``weight``, an embedding table stays as it is.
@@ -103,6 +103,12 @@ def vae_decoder_state_dict(params) -> dict[str, torch.Tensor]:
     """Flax ``VAEDecoder`` params -> port ``VAEDecoder`` state dict."""
     return _unet_vae_state_dict(
         params, lambda n: n if n.startswith("post_quant_conv") else "decoder." + n)
+
+
+def vae_encoder_state_dict(params) -> dict[str, torch.Tensor]:
+    """Flax ``VAEEncoder`` params -> port ``VAEEncoder`` state dict."""
+    return _unet_vae_state_dict(
+        params, lambda n: n if n.startswith("quant_conv") else "encoder." + n)
 
 
 _CLIP_LAYER = {

@@ -16,10 +16,11 @@ default install mode (host dequantization to ``compute_dtype``), and the
 other modules are dequantized to float32 as they load.  (The JAX function's
 docstring speaks of program mode; its code installs with the default.)
 
-A bundle's VAE encoder, safety checker or ControlNets (SD and SD3; the SDXL
-branch passes none, as in JAX) reach the pipeline constructor by name, and
-it raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-them; so does the loader for a T5 encoder (ROADMAP Queue 1 item 14).
+A bundle's VAE encoder is loaded in float32 like the decoder.  Its safety
+checker or ControlNets (SD and SD3; the SDXL branch passes none, as in JAX)
+reach the pipeline constructor by name, and it raises
+``NotImplementedError`` naming the ROADMAP.md item that ports them; so does
+the loader for a T5 encoder (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from ..models.clip import CLIPTextConfig, CLIPTextEncoder
 from ..models.mmdit import MMDiT, MMDiTConfig
 from ..models.unet import UNet2DConditionModel, UNetConfig
-from ..models.vae import VAEConfig, VAEDecoder
+from ..models.vae import VAEConfig, VAEDecoder, VAEEncoder
 from ..schedulers.base import BetaSchedule, PredictionType, SchedulerConfig, TimestepSpacing
 from ..tokenizer import CLIPTokenizer
 from .artifacts import load_module
@@ -42,6 +43,7 @@ from .from_jax import (
     mmdit_state_dict,
     unet_state_dict,
     vae_decoder_state_dict,
+    vae_encoder_state_dict,
 )
 
 
@@ -80,7 +82,7 @@ def load_pipeline_from_artifacts(artifact_dir: str | Path, compute_dtype=torch.b
                                  device: str | torch.device = "cuda"):
     """Assemble an SD / SDXL / SD3 pipeline from an artifact bundle on
     ``device``: the denoisers in ``compute_dtype``, the text encoders and
-    the VAE decoder in float32."""
+    the VAE decoder and encoder in float32."""
     from ..pipelines import (
         StableDiffusion3Pipeline,
         StableDiffusionPipeline,
@@ -130,9 +132,10 @@ def load_pipeline_from_artifacts(artifact_dir: str | Path, compute_dtype=torch.b
     # modules the port has no pipeline support for yet go to the constructor
     # by name, and it raises
     safety = "SafetyChecker" if has("SafetyChecker") else None
-    enc = "VAEEncoder" if has("VAEEncoder") else None
     controlnets = list(bundle.get("controlnets", ()))
     dec = module("VAEDecoder", VAEDecoder, VAEConfig, vae_decoder_state_dict, torch.float32)[0]
+    enc = (module("VAEEncoder", VAEEncoder, VAEConfig, vae_encoder_state_dict,
+                  torch.float32)[0] if has("VAEEncoder") else None)
 
     if "XL" in family:
         tok = CLIPTokenizer.from_pretrained_dir(root) if (root / "vocab.json").exists() else None

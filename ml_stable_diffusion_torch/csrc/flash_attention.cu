@@ -183,11 +183,37 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 
 // ---------------------------------------------------------------------------
-// bf16 D = 64 wgmma kernel
+// bf16 wgmma kernel, D = 40, 64, 80 or 160
 // ---------------------------------------------------------------------------
 
-constexpr int kHd = 64;       // head width of the wgmma kernel: one 128-byte row
-constexpr int kKvStages = 4;  // k/v tiles in flight
+// Head columns of one 128-byte swizzled row in shared memory.  A head of
+// width D is held as NC = ceil(D / 64) chunks of 64 columns; the tensor map's
+// inner extent is the true D, so TMA fills the columns past D with zeros and
+// they add nothing to q k^T; P v computes NC x 64 output columns and the
+// store writes the first D.
+constexpr int kChunk = 64;
+
+// The shape of one instantiation: NWG consumer warpgroups of 64 query rows,
+// head width D.
+template <int NWG, int D>
+struct FlashShape {
+  static constexpr int NC = (D + kChunk - 1) / kChunk;  // 64-column chunks
+  static constexpr int KS = (D + 15) / 16;              // 16-column k-steps of q k^T
+  static constexpr int BQ = 64 * NWG;                   // query rows a block
+  // kv rows a tile: 128 only where one chunk leaves registers for the
+  // 64 x 128 logits beside O
+  static constexpr int BK = (NWG == 2 && NC == 1) ? 128 : 64;
+  static constexpr int STAGES = NC == 3 ? 3 : 4;        // k/v tiles in flight
+  static constexpr int Q_CHUNK = BQ * kChunk * 2;       // bytes of a q chunk
+  static constexpr int KV_CHUNK = BK * kChunk * 2;      // bytes of a k or v chunk
+  static constexpr int KV_TILE = NC * KV_CHUNK;         // bytes of a k or v tile
+  // 1024 bytes of slack to align the tiles; q, the k and v ring, barriers
+  static constexpr int SMEM = 1024 + NC * Q_CHUNK + 2 * STAGES * KV_TILE + (1 + 3 * STAGES) * 8;
+  // two blocks an SM where their registers fit (64-row tiles, one chunk)
+  static constexpr int MIN_BLOCKS = (NWG == 1 && NC == 1) ? 2 : 1;
+  static_assert(D % 8 == 0 && D <= 3 * kChunk, "head width");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
 
 struct FlashParams {
   CUtensorMap tq[kMaxStreams];  // each stream's q, box (64, BQ, 1, 1)
@@ -197,31 +223,25 @@ struct FlashParams {
   float scale_log2;
 };
 
-template <int NWG, int BK>
-constexpr int flash_smem_bytes() {
-  // 1024 bytes of slack to align the tiles; q, the k and v ring, barriers
-  return 1024 + NWG * 64 * kHd * 2 + 2 * kKvStages * BK * kHd * 2 + (1 + 3 * kKvStages) * 8;
-}
-
 // NWG consumer warpgroups of 64 query rows each, then one producer
-// warpgroup; BK kv rows a tile.  The 64-row instantiation (short sequences)
-// takes 64-row kv tiles and fits two blocks on an SM.
-template <int NWG, int BK>
-__global__ void __launch_bounds__((NWG + 1) * 128, NWG == 1 ? 2 : 1)
+// warpgroup.  The 64-row instantiation (short sequences) takes 64-row kv
+// tiles and, at one chunk, fits two blocks on an SM.
+template <int NWG, int D>
+__global__ void __launch_bounds__((NWG + 1) * 128, FlashShape<NWG, D>::MIN_BLOCKS)
 flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
-  constexpr int BQ = 64 * NWG;
+  using F = FlashShape<NWG, D>;
+  constexpr int NC = F::NC, BQ = F::BQ, BK = F::BK, STAGES = F::STAGES;
   constexpr int kKvTile = BK;
-  constexpr int kKvBytes = BK * kHd * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* sQ = smem;
-  uint8_t* sK = sQ + BQ * kHd * 2;
-  uint8_t* sV = sK + kKvStages * kKvBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kKvStages * kKvBytes);
+  uint8_t* sQ = smem;                    // NC chunks of (BQ, 64)
+  uint8_t* sK = sQ + NC * F::Q_CHUNK;    // STAGES tiles of NC chunks of (BK, 64)
+  uint8_t* sV = sK + STAGES * F::KV_TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * F::KV_TILE);
   uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kKvStages;
-  uint64_t* empty = v_full + kKvStages;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
@@ -230,7 +250,7 @@ flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
 
   if (tid == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kKvStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], NWG * 128);
@@ -240,22 +260,31 @@ flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
   __syncthreads();
 
   if (tid >= NWG * 128) {
-    // ---- producer: q once, then k and v tiles into the ring ----
+    // ---- producer: q once, then k and v tiles into the ring, a chunk of
+    // 64 columns a load ----
     if constexpr (NWG == 2) reg_dealloc<24>();
     if (tid == NWG * 128) {
       const CUtensorMap* tq = &p.tq[0];
 #pragma unroll
       for (int i = 1; i < kMaxStreams; ++i)
         if (i == tile.si) tq = &p.tq[i];
-      mbar_arrive_expect_tx(q_full, BQ * kHd * 2);
-      tma_load_4d(sQ, tq, q_full, 0, tile.q0, h, b);
+      mbar_arrive_expect_tx(q_full, NC * F::Q_CHUNK);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        tma_load_4d(sQ + c * F::Q_CHUNK, tq, q_full, c * kChunk, tile.q0, h, b);
       for (int j = 0; j < ntiles; ++j) {
-        const int s = j % kKvStages;
-        mbar_wait(&empty[s], ((j / kKvStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&k_full[s], kKvBytes);
-        tma_load_4d(sK + s * kKvBytes, &p.tk, &k_full[s], 0, j * kKvTile, h, b);
-        mbar_arrive_expect_tx(&v_full[s], kKvBytes);
-        tma_load_4d(sV + s * kKvBytes, &p.tv, &v_full[s], 0, j * kKvTile, h, b);
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&k_full[s], F::KV_TILE);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(sK + s * F::KV_TILE + c * F::KV_CHUNK, &p.tk, &k_full[s], c * kChunk,
+                      j * kKvTile, h, b);
+        mbar_arrive_expect_tx(&v_full[s], F::KV_TILE);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(sV + s * F::KV_TILE + c * F::KV_CHUNK, &p.tv, &v_full[s], c * kChunk,
+                      j * kKvTile, h, b);
       }
     }
   } else {
@@ -265,45 +294,52 @@ flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
     if constexpr (NWG == 2) reg_alloc<240>();
     const int wg = tid / 128, wi = (tid / 32) % 4, lane = tid % 32;
     const int g = lane >> 2, t = lane & 3;
-    const uint8_t* q_rows = sQ + wg * 64 * kHd * 2;
+    const uint8_t* q_rows = sQ + wg * 64 * kChunk * 2;
 
-    float o[32];
+    float o[NC * 32];  // chunk c's 64 columns: o[32 c .. 32 c + 31]
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < NC * 32; ++i) o[i] = 0.f;
     float sc[BK / 2];
     uint32_t pf[kKvTile / 16][4];  // P of the last softmax, bf16 A fragments
     // rows g and g + 8 of this warp's 16: running max and (thread-partial) sum
     float m0 = kNegBig, m1 = kNegBig, l0 = 0.f, l1 = 0.f;
     float c0 = 1.f, c1 = 1.f;  // the last softmax's rescale of O
 
-    // S = q k_j^T into sc, issued (not waited for)
+    // S = q k_j^T into sc, issued (not waited for): the k-steps that hold a
+    // column below D (past D both operands are zero)
     auto issue_s = [&](int j) {
-      const int s = j % kKvStages;
-      mbar_wait(&k_full[s], (j / kKvStages) & 1);
-      const uint8_t* tK = sK + s * kKvBytes;
+      const int s = j % STAGES;
+      mbar_wait(&k_full[s], (j / STAGES) & 1);
+      const uint8_t* tK = sK + s * F::KV_TILE;
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) fence_operand(sc[i]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kHd / 16; ++kk) {
-        const uint64_t da = desc_sw128(q_rows + 32 * kk, 16, 1024);
-        const uint64_t db = desc_sw128(tK + 32 * kk, 16, 1024);
+      for (int kk = 0; kk < F::KS; ++kk) {
+        const int c = kk / 4, col = 32 * (kk % 4);
+        const uint64_t da = desc_sw128(q_rows + c * F::Q_CHUNK + col, 16, 1024);
+        const uint64_t db = desc_sw128(tK + c * F::KV_CHUNK + col, 16, 1024);
         if constexpr (BK == 128) wgmma_ss_m64n128k16(sc, da, db, kk > 0);
         else wgmma_ss_m64n64k16(sc, da, db, kk > 0);
       }
       wgmma_commit();
     };
-    // O += P_j v_j, issued (not waited for)
+    // O += P_j v_j, issued (not waited for): one m64n64 product a chunk
     auto issue_pv = [&](int j) {
-      const int s = j % kKvStages;
-      mbar_wait(&v_full[s], (j / kKvStages) & 1);
-      const uint8_t* tV = sV + s * kKvBytes;
+      const int s = j % STAGES;
+      mbar_wait(&v_full[s], (j / STAGES) & 1);
+      const uint8_t* tV = sV + s * F::KV_TILE;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) fence_operand(o[i]);
+      for (int i = 0; i < NC * 32; ++i) fence_operand(o[i]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKvTile / 16; ++kk)
-        wgmma_rs_m64n64k16<1>(o, pf[kk], desc_sw128(tV + kk * 16 * kHd * 2, kKvBytes, 1024));
+      for (int kk = 0; kk < kKvTile / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          wgmma_rs_m64n64k16<1>(o + 32 * c, pf[kk],
+                                desc_sw128(tV + c * F::KV_CHUNK + kk * 16 * kChunk * 2,
+                                           F::KV_CHUNK, 1024));
+      }
       wgmma_commit();
     };
     // the online softmax of tile j's logits (in sc) into P (bf16 A
@@ -363,7 +399,7 @@ flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
     };
     auto rescale_o = [&]() {
 #pragma unroll
-      for (int n = 0; n < kHd / 8; ++n) {
+      for (int n = 0; n < NC * kChunk / 8; ++n) {
         o[4 * n] *= c0;
         o[4 * n + 1] *= c0;
         o[4 * n + 2] *= c1;
@@ -404,8 +440,8 @@ flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
       turn_end(false);
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < 32; ++i) fence_operand(o[i]);
-      mbar_arrive(&empty[(j - 1) % kKvStages]);
+      for (int i = 0; i < NC * 32; ++i) fence_operand(o[i]);
+      mbar_arrive(&empty[(j - 1) % STAGES]);
       softmax(j);
       rescale_o();
     }
@@ -414,8 +450,8 @@ flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
     turn_end(true);
     wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 32; ++i) fence_operand(o[i]);
-    mbar_arrive(&empty[(ntiles - 1) % kKvStages]);
+    for (int i = 0; i < NC * 32; ++i) fence_operand(o[i]);
+    mbar_arrive(&empty[(ntiles - 1) % STAGES]);
 
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -426,8 +462,9 @@ flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(tile.o) + b * os.b + h * os.h;
     const int row0 = tile.q0 + wg * 64 + wi * 16 + g, row1 = row0 + 8;
 #pragma unroll
-    for (int n = 0; n < kHd / 8; ++n) {
-      const int col = n * 8 + t * 2;
+    for (int n = 0; n < NC * kChunk / 8; ++n) {
+      const int col = n * 8 + t * 2;  // D is a multiple of 8: col + 1 < D too
+      if (col >= D) continue;
       if (row0 < tile.sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * os.s + col) =
             __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
@@ -438,37 +475,46 @@ flash_wgmma_bf16(const __grid_constant__ FlashParams p) {
   }
 }
 
-// a (B, S, H, 64) bf16 view with element strides st: 4-D tensor map, box
-// (64, rows, 1, 1), 128-byte swizzle
-bool head_map(CUtensorMap* map, const void* base, int B, int S, int H, Strides st, int rows) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(kHd), static_cast<uint64_t>(S),
+// a (B, S, H, D) bf16 view with element strides st: 4-D tensor map of inner
+// extent D, box (64, rows, 1, 1), 128-byte swizzle; a box past D or past the
+// sequence loads zeros there
+bool head_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, Strides st,
+              int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
                             static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
   const uint64_t strides[3] = {static_cast<uint64_t>(st.s) * 2, static_cast<uint64_t>(st.h) * 2,
                                static_cast<uint64_t>(st.b) * 2};
-  const uint32_t box[4] = {static_cast<uint32_t>(kHd), static_cast<uint32_t>(rows), 1, 1};
+  const uint32_t box[4] = {static_cast<uint32_t>(kChunk), static_cast<uint32_t>(rows), 1, 1};
   return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
                          CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int NWG, int BK>
+template <int NWG, int D>
 cudaError_t launch_flash(const FlashParams& p, dim3 grid, cudaStream_t stream) {
-  constexpr int smem = flash_smem_bytes<NWG, BK>();
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_bf16<NWG, BK>,
+  constexpr int smem = FlashShape<NWG, D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_bf16<NWG, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_wgmma_bf16<NWG, BK><<<grid, (NWG + 1) * 128, smem, stream>>>(p);
+  flash_wgmma_bf16<NWG, D><<<grid, (NWG + 1) * 128, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The 128-row tile (two consumer warpgroups, 128-row kv tiles) unless its
-// grid leaves SMs idle, then the 64-row one (one consumer warpgroup, 64-row
-// kv tiles).  Returns the cudaError_t of the launch.
+// The 128-row tile (two consumer warpgroups) unless its grid leaves SMs
+// idle or the head takes three chunks, then the 64-row one (one consumer
+// warpgroup); kv tile rows and stages as FlashShape sets them for D
+// (ops/flash_attention.py:bf16_plan repeats the rule).  Returns the
+// cudaError_t of the launch.
+template <int D>
 cudaError_t launch_wgmma(QStreams streams, const void* k, const void* v, int B, int H, int Sk,
                          Strides ks, Strides vs, float scale_log2, cudaStream_t stream) {
   int tiles128 = 0;
   for (int i = 0; i < streams.n; ++i) tiles128 += (streams.sq[i] + 127) / 128;
-  const bool wide = static_cast<long long>(tiles128) * B * H >= kSms;
-  const int bq = wide ? 128 : 64, bk = wide ? 128 : 64;
+  // three chunks take the 64-row tile always: with two consumer warpgroups
+  // the 96 accumulators a thread exceed the 168 registers ptxas gives a
+  // 384-thread block, and it spilled and serialised every wgmma (C7512)
+  const bool wide = FlashShape<2, D>::NC < 3 && static_cast<long long>(tiles128) * B * H >= kSms;
+  const int bq = wide ? 128 : 64;
+  const int bk = wide ? FlashShape<2, D>::BK : FlashShape<1, D>::BK;
   streams.tile0[0] = 0;
   for (int i = 0; i < streams.n; ++i)
     streams.tile0[i + 1] = streams.tile0[i] + (streams.sq[i] + bq - 1) / bq;
@@ -477,12 +523,15 @@ cudaError_t launch_wgmma(QStreams streams, const void* k, const void* v, int B, 
   p.H = H;
   p.Sk = Sk;
   p.scale_log2 = scale_log2;
-  bool ok = head_map(&p.tk, k, B, Sk, H, ks, bk) && head_map(&p.tv, v, B, Sk, H, vs, bk);
+  bool ok = head_map(&p.tk, k, B, Sk, H, D, ks, bk) && head_map(&p.tv, v, B, Sk, H, D, vs, bk);
   for (int i = 0; i < streams.n; ++i)
-    ok = ok && head_map(&p.tq[i], streams.q[i], B, streams.sq[i], H, streams.qs[i], bq);
+    ok = ok && head_map(&p.tq[i], streams.q[i], B, streams.sq[i], H, D, streams.qs[i], bq);
   if (!ok) return cudaErrorNotSupported;
   const dim3 grid(streams.tile0[streams.n], B * H);
-  return wide ? launch_flash<2, 128>(p, grid, stream) : launch_flash<1, 64>(p, grid, stream);
+  if constexpr (FlashShape<2, D>::NC < 3) {
+    if (wide) return launch_flash<2, D>(p, grid, stream);
+  }
+  return launch_flash<1, D>(p, grid, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1244,13 +1293,21 @@ cudaError_t launch_wide(QStreams streams, int B, int H, int Sk, float* ws, long 
 }
 
 // One launch over every stream of the table: the wgmma kernel for bf16 at
-// D = 64, else the FMA kernel for this (dtype, D) with its tile offsets.
-// f32 at D = 512 takes flash_attention_wide_f32_fwd instead.
+// D = 40, 64, 80 and 160, else the FMA kernel for this (dtype, D) with its
+// tile offsets.  f32 at D = 512 takes flash_attention_wide_f32_fwd instead.
+// The logit scale is 1/sqrt(D) of the true D.
 int launch(QStreams streams, const void* k, const void* v, int B, int H, int Sk, int D,
            int dtype, Strides ks, Strides vs, cudaStream_t stream) {
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  if (dtype == 1 && D == kHd)
-    return static_cast<int>(launch_wgmma(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+  if (dtype == 1 && D == 40)
+    return static_cast<int>(launch_wgmma<40>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+  if (dtype == 1 && D == 64)
+    return static_cast<int>(launch_wgmma<64>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+  if (dtype == 1 && D == 80)
+    return static_cast<int>(launch_wgmma<80>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+  if (dtype == 1 && D == 160)
+    return static_cast<int>(
+        launch_wgmma<160>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
   streams.tile0[0] = 0;
   for (int i = 0; i < streams.n; ++i)
     streams.tile0[i + 1] = streams.tile0[i] + (streams.sq[i] + kFmaBQ - 1) / kFmaBQ;

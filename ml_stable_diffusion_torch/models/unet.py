@@ -17,6 +17,10 @@ diffusers checkpoint keys (``down_blocks.0.attentions.0.transformer_blocks.0
 - SDXL's added conditioning (``addition_embed_type="text_time"``): the
   sinusoid of every time id, concatenated after the pooled text embedding in
   float32, through ``add_embedding`` and added to the timestep embedding;
+- the LCM guidance embedding (``time_cond_proj_dim``): the sinusoid of
+  ``w * 1000`` (``get_guidance_scale_embedding``) through the bias-free
+  ``time_embedding.cond_proj``, added to the timestep sinusoid before the
+  MLP;
 - the resnet GroupNorm+SiLU goes through ``ops/groupnorm.py``:
   ``fused_groupnorm`` runs the CUDA kernel (its plain version on the CPU),
   ``lowmem_groupnorm`` the low-memory formulation.  ``norm1``/``norm2``
@@ -24,9 +28,8 @@ diffusers checkpoint keys (``down_blocks.0.attentions.0.transformer_blocks.0
   do not depend on the flag.  The transformer GroupNorm and
   ``conv_norm_out`` stay plain, as in the JAX package.
 
-ControlNet residuals, IP-Adapter tokens, DeepCache, the LCM guidance
-embedding and fused qkv raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+ControlNet residuals, IP-Adapter tokens, DeepCache and fused qkv raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -70,7 +73,8 @@ class UNetConfig:
     addition_time_embed_dim: int = 256
     #: SDXL: 2816 = 1280 pooled + 6*256 time ids; refiner: 2560 (5 ids)
     projection_class_embeddings_input_dim: int = 2816
-    #: LCM guidance-embedding input width (not ported yet)
+    #: LCM guidance-embedding input width (diffusers ``time_cond_proj_dim``,
+    #: e.g. 256): the guidance scale is an input, not applied by CFG
     time_cond_proj_dim: int | None = None
     #: single fused qkv matmul (not ported yet)
     fuse_qkv: bool = False
@@ -84,6 +88,11 @@ class UNetConfig:
     #: NN-2x + conv, which is what the port runs for either value
     parity_upsample: bool = False
     fused_upsample: bool = True
+
+    @classmethod
+    def sd15(cls) -> "UNetConfig":
+        """SD-1.5: 8 heads in every block (D = 40, 80, 160), CLIP-L context."""
+        return cls(cross_attention_dim=768, num_attention_heads=(8, 8, 8, 8))
 
     @classmethod
     def sd21(cls) -> "UNetConfig":
@@ -140,15 +149,36 @@ def get_timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
     return out
 
 
-class TimestepEmbedding(nn.Module):
-    """Two-layer MLP over the sinusoidal embedding."""
+def get_guidance_scale_embedding(w, dim: int):
+    """The LCM guidance embedding (diffusers semantics): the sinusoid of
+    ``w * 1000``, denominator ``half - 1``, [sin, cos] order; float32."""
+    w = torch.as_tensor(w, dtype=torch.float32) * 1000.0
+    half = dim // 2
+    log_period = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    emb = torch.exp(torch.arange(half, dtype=torch.float32, device=w.device)
+                    * (-log_period / (half - 1)))
+    emb = w[:, None] * emb[None, :]
+    out = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if dim % 2 == 1:
+        out = F.pad(out, (0, 1))
+    return out
 
-    def __init__(self, in_dim: int, dim: int):
+
+class TimestepEmbedding(nn.Module):
+    """Two-layer MLP over the sinusoidal embedding; with ``cond_dim``, a
+    bias-free ``cond_proj`` of a conditioning vector is added to the input
+    first (the LCM guidance embedding)."""
+
+    def __init__(self, in_dim: int, dim: int, cond_dim: int | None = None):
         super().__init__()
+        if cond_dim is not None:
+            self.cond_proj = nn.Linear(cond_dim, in_dim, bias=False)
         self.linear_1 = nn.Linear(in_dim, dim)
         self.linear_2 = nn.Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, cond=None):
+        if cond is not None:
+            x = x + self.cond_proj(cond.to(x.dtype))
         return self.linear_2(F.silu(self.linear_1(x)))
 
 
@@ -318,14 +348,9 @@ class _Block(nn.Module):
 def _check_supported(cfg: UNetConfig):
     if cfg.addition_embed_type not in (None, "text_time"):
         raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
-    unported = {
-        "time_cond_proj_dim": (cfg.time_cond_proj_dim is not None,
-                               "LCM guidance embedding: ROADMAP Queue 1 item 11"),
-        "fuse_qkv": (cfg.fuse_qkv, "fused qkv serving params: ROADMAP Queue 1 item 17"),
-    }
-    for name, (is_set, what) in unported.items():
-        if is_set:
-            raise NotImplementedError(f"UNetConfig.{name}: {what} is not ported yet")
+    if cfg.fuse_qkv:
+        raise NotImplementedError("UNetConfig.fuse_qkv: fused qkv serving params: "
+                                  "ROADMAP Queue 1 item 17 is not ported yet")
 
 
 class UNet2DConditionModel(nn.Module):
@@ -354,7 +379,7 @@ class UNet2DConditionModel(nn.Module):
                                       cfg.cross_attention_dim, G,
                                       fast_gelu=cfg.fast_gelu)
 
-        self.time_embedding = TimestepEmbedding(ch[0], temb)
+        self.time_embedding = TimestepEmbedding(ch[0], temb, cfg.time_cond_proj_dim)
         if cfg.addition_embed_type == "text_time":
             self.add_embedding = TimestepEmbedding(
                 cfg.projection_class_embeddings_input_dim, temb)
@@ -408,7 +433,8 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states, added_cond=None,
                 down_block_residuals=None, mid_block_residual=None,
-                ip_context=None, deep_feature=None, return_deep_feature=False):
+                ip_context=None, deep_feature=None, return_deep_feature=False,
+                timestep_cond=None):
         if down_block_residuals is not None or mid_block_residual is not None:
             raise NotImplementedError("ControlNet residuals: ROADMAP Queue 1 item 12")
         if ip_context is not None:
@@ -420,9 +446,14 @@ class UNet2DConditionModel(nn.Module):
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])
 
+        if cfg.time_cond_proj_dim is not None and timestep_cond is None:
+            raise ValueError(
+                f"this UNet is guidance-embedded (time_cond_proj_dim={cfg.time_cond_proj_dim}); "
+                "pass timestep_cond (get_guidance_scale_embedding(w, dim))")
         t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
                                        cfg.flip_sin_to_cos, cfg.freq_shift)
-        emb = self.time_embedding(t_emb.to(dtype))
+        emb = self.time_embedding(
+            t_emb.to(dtype), timestep_cond if cfg.time_cond_proj_dim is not None else None)
         if cfg.addition_embed_type == "text_time":
             if added_cond is None:
                 raise ValueError("an SDXL UNet needs added_cond")

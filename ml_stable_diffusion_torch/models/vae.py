@@ -1,16 +1,18 @@
-"""VAE decoder (port of the decoder half of ml_stable_diffusion_tpu/models/vae.py).
+"""VAE decoder and encoder (port of ml_stable_diffusion_tpu/models/vae.py).
 
-NCHW inside.  Parameter names are the diffusers ``AutoencoderKL`` keys of
-the decoding half: ``post_quant_conv.*`` and ``decoder.*``.  The encoder
-comes with the img2img slice (ROADMAP Queue 1 item 11).  The JAX decoder's
-fused and parity upsamplers compute the same function as the nearest-2x +
-3x3 conv used here.
+NCHW inside.  Parameter names are the diffusers ``AutoencoderKL`` keys:
+``post_quant_conv.*`` and ``decoder.*`` for the decoder, ``encoder.*`` and
+``quant_conv.*`` for the encoder.  The JAX decoder's fused and parity
+upsamplers compute the same function as the nearest-2x + 3x3 conv used
+here.  Both mid blocks hold the single-head D = 512 attention, which takes
+the f32 flash kernel on the card (ops/attention.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -116,6 +118,85 @@ class _UpBlock(nn.Module):
         if hasattr(self, "upsamplers"):
             x = self.upsamplers[0](x)
         return x
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, layers: int, groups: int,
+                 eps: float, downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            VAEResnetBlock(in_channels if li == 0 else out_channels, out_channels,
+                           groups, eps) for li in range(layers))
+        if downsample:
+            self.downsamplers = nn.ModuleList([_Downsample(out_channels)])
+
+    def forward(self, x):
+        for resnet in self.resnets:
+            x = resnet(x)
+        if hasattr(self, "downsamplers"):
+            x = self.downsamplers[0](x)
+        return x
+
+
+class _Downsample(nn.Module):
+    """Pad (0, 1, 0, 1), then a stride-2 valid 3x3 conv (diffusers)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class _Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        ch = cfg.block_out_channels
+        G, eps = cfg.norm_num_groups, cfg.norm_eps
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList(
+            _DownBlock(ch[max(bi - 1, 0)], out, cfg.layers_per_block, G, eps,
+                       downsample=bi < len(ch) - 1)
+            for bi, out in enumerate(ch))
+        self.mid_block = VAEMidBlock(ch[-1], G, eps)
+        self.conv_norm_out = nn.GroupNorm(G, ch[-1], eps=eps)
+        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            h = block(h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
+class VAEEncoder(nn.Module):
+    """image (B, 3, H, W) in [-1, 1] -> Gaussian moments (B, 2 * C_lat, H/8,
+    W/8): mean, then log-variance; float32, computed in the dtype of its
+    parameters."""
+
+    def __init__(self, config: VAEConfig):
+        super().__init__()
+        self.config = config
+        self.encoder = _Encoder(config)
+        if config.use_quant_conv:
+            self.quant_conv = nn.Conv2d(2 * config.latent_channels,
+                                        2 * config.latent_channels, 1)
+
+    def forward(self, x):
+        h = self.encoder(x.to(self.encoder.conv_in.weight.dtype))
+        if self.config.use_quant_conv:
+            h = self.quant_conv(h)
+        return h.float()
+
+
+def sample_diagonal_gaussian(moments, noise):
+    """Moments (B, 2C, h, w) and standard-normal noise (B, C, h, w) -> a
+    latent sample, the log-variance clamped to [-30, 20]."""
+    mean, logvar = torch.chunk(moments, 2, dim=1)
+    logvar = torch.clamp(logvar, -30.0, 20.0)
+    return mean + torch.exp(0.5 * logvar) * noise
 
 
 class _Decoder(nn.Module):

@@ -7,7 +7,8 @@ Two interchangeable implementations over (B, S, H, D) tensors:
   compiler; here it is left to cuBLAS (or the CPU).
 - ``FLASH``: the hand-written CUDA flash kernel (ops/flash_attention.py)
   for the large self-attention sequences (4096, 1024 and 256 tokens at
-  512x512 latents, and the VAE's single 512-wide head).
+  512x512 latents, and the VAE's single 512-wide head), at the head widths
+  it is built for (``KERNEL_HEAD_DIMS``: SD-1.5's 40/80/160 and 64 in bf16).
 - ``AUTO``: FLASH where the shapes qualify, else PLAIN.
 
 As in the JAX package, UNet cross attention (Sk = 77), the causal text
@@ -72,14 +73,14 @@ def _plain_joint_attention(q_streams, k, v):
 
 
 def _flash_qualifies(q, k) -> bool:
-    """The JAX rule (Sq >= 256, Sk >= 256) on a CUDA tensor whose head width
-    the kernel is built for."""
-    from .flash_attention import SUPPORTED_HEAD_DIMS
+    """The JAX rule (Sq >= 256, Sk >= 256) on a CUDA tensor whose dtype and
+    head width the kernel is built for."""
+    from .flash_attention import KERNEL_HEAD_DIMS
 
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     return (q.is_cuda and Sq >= _FLASH_MIN_S and Sk >= _FLASH_MIN_S
-            and D in SUPPORTED_HEAD_DIMS)
+            and D in KERNEL_HEAD_DIMS.get(q.dtype, ()))
 
 
 def dot_product_attention(q, k, v, bias=None, causal=False,

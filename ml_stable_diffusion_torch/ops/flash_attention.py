@@ -11,11 +11,13 @@ In short: one thread block per (batch*head, query tile) loops over KV tiles
 with an online base-2 softmax in f32; ragged edges are masked in the kernel.
 Which kernel serves a call:
 
-- bf16 at D = 64 (the UNet and the MMDiT): ``wgmma``, a producer warp
-  feeding k/v tiles by TMA to two consumer warpgroups (128 query rows a
-  block, or 64 where 128-row tiles would leave SMs idle:
-  ``query_tile_rows``); q, k and v read in place from the (B, S, H, D)
-  layout;
+- bf16 at D = 40, 64, 80 and 160 (SD-1.5's 40/80/160; 64 for the other
+  UNets and the MMDiT): ``wgmma``, a producer warp feeding k/v tiles by TMA
+  to two consumer warpgroups (128 query rows a block, or 64 where 128-row
+  tiles would leave SMs idle: ``query_tile_rows``); q, k and v read in
+  place from the (B, S, H, D) layout.  A head is held in shared memory as
+  ceil(D / 64) chunks of 64 columns, the columns past D loaded as zeros
+  (``bf16_plan``);
 - f32 at D = 512 (the VAE's single head): ``wgmma`` on tf32 operands in the
   split-precision "3xTF32" form, ``a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``
   with ``hi = tf32(x)`` and ``lo = tf32(x − hi)``, f32 accumulation.  A
@@ -55,10 +57,13 @@ import torch
 from ..utils import cuda_build
 from .attention import _plain_attention, _plain_joint_attention
 
-#: head widths the kernel is instantiated for: the UNet's and SD3's MMDiT's
-#: 64 (SD3-medium and SD3.5-large both have 64-wide heads) and the VAE's 512
-#: (SD-1.5's 40/80/160 come with that model)
-SUPPORTED_HEAD_DIMS = (64, 512)
+#: head widths the kernels are built for, by dtype: the widths the JAX
+#: package's configurations produce.  bf16: SD-1.5's 40, 80 and 160, the
+#: other UNets' and SD3's MMDiT's 64 (wgmma), and 512 (the FMA kernel); f32:
+#: 64 (FMA) and the VAE's single 512-wide head (3xTF32).  Any other (dtype,
+#: D) stays on the plain path in the dispatch and raises here.
+KERNEL_HEAD_DIMS = {torch.bfloat16: (40, 64, 80, 160, 512), torch.float32: (64, 512)}
+SUPPORTED_HEAD_DIMS = tuple(sorted(set().union(*KERNEL_HEAD_DIMS.values())))
 #: query streams one multi-stream launch takes (kMaxStreams in the source)
 MAX_STREAMS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -150,11 +155,35 @@ def flash_attention_3xtf32_emulation(q, k, v, terms: int = 3):
 
 
 def query_tile_rows(q_lens, B: int, H: int) -> int:
-    """Query rows a block of the bf16 D = 64 kernel takes for these streams:
+    """Query rows a block of the bf16 wgmma kernel takes for these streams:
     128, unless 128-row tiles give fewer than ``SMS`` blocks, then 64 (the
     rule of ``launch_wgmma`` in the source)."""
     tiles = sum(-(-n // 128) for n in q_lens)
     return 64 if tiles * B * H < SMS else 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16Plan:
+    """Instantiation of the bf16 wgmma kernel (``FlashShape`` in the source)."""
+    rows: int    # query rows a block (two consumer warpgroups at 128, one at 64)
+    chunks: int  # 64-column chunks a head takes in shared memory
+    kv_rows: int  # keys a kv tile
+    stages: int  # kv tiles in flight
+    smem_bytes: int
+
+
+def bf16_plan(q_lens, B: int, H: int, D: int) -> Bf16Plan:
+    """The bf16 wgmma kernel's instantiation for these streams at width D:
+    ``query_tile_rows``, but 64 rows always at three chunks (D = 160: two
+    warpgroups' accumulators exceed a 384-thread block's registers);
+    128-row kv tiles only with two warpgroups at one chunk; three stages at
+    three chunks, four otherwise."""
+    chunks = -(-D // 64)
+    rows = 64 if chunks == 3 else query_tile_rows(q_lens, B, H)
+    kv_rows = 128 if rows == 128 and chunks == 1 else 64
+    stages = 3 if chunks == 3 else 4
+    smem = 1024 + chunks * rows * 128 + 2 * stages * chunks * kv_rows * 128 + (1 + 3 * stages) * 8
+    return Bf16Plan(rows, chunks, kv_rows, stages, smem)
 
 
 def _kernel(name: str):
@@ -181,8 +210,10 @@ def _kernel(name: str):
 
 
 def _vector_ready(x):
-    """The kernel loads 16-byte vectors: the base must be 16-byte aligned and
-    the batch, sequence and head strides multiples of 8 elements."""
+    """The kernel loads 16-byte vectors and TMA tiles: the base must be
+    16-byte aligned and the batch, sequence and head strides multiples of 8
+    elements (16 bytes at least).  A view that breaks this is copied, never
+    launched: a contiguous copy meets it at every width the kernel takes."""
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(s % 8 == 0 for s in x.stride()[:3])):
         return x
@@ -207,9 +238,9 @@ def _checked(who, qs, k, v):
     if v.shape != k.shape or any(q.shape[0] != B or q.shape[2:] != (H, D) for q in qs):
         raise ValueError(f"shape mismatch: q {[tuple(q.shape) for q in qs]}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernel is built for head widths "
-                         f"{SUPPORTED_HEAD_DIMS}, got D={D}")
+    if D not in KERNEL_HEAD_DIMS[k.dtype]:
+        raise ValueError(f"flash kernel is built for {k.dtype} head widths "
+                         f"{KERNEL_HEAD_DIMS[k.dtype]}, got D={D}")
     if Sk == 0 or any(q.shape[1] == 0 for q in qs):
         raise ValueError("flash kernel needs non-empty sequences")
     return [_vector_ready(q) for q in qs], _vector_ready(k), _vector_ready(v)

@@ -23,10 +23,10 @@ class PipelineConfiguration:
     prompt: str | Sequence[str] = ""
     negative_prompt: str | Sequence[str] = ""
 
-    #: img2img input and strength (not ported yet)
+    #: img2img input (NHWC float in [-1, 1] or a PIL image) and strength
     starting_image: Any | None = None
     strength: float = 1.0
-    #: inpainting mask, 1 = repaint (not ported yet)
+    #: inpainting mask, 1 = repaint
     mask_image: Any | None = None
 
     image_count: int = 1
@@ -36,7 +36,7 @@ class PipelineConfiguration:
     seed: int | Sequence[int] = 0
     guidance_scale: float = 7.5
 
-    #: SDXL base -> refiner handoff (0..1 fraction of steps; not ported yet)
+    #: SDXL base -> refiner handoff (0..1 fraction of steps)
     refiner_start: float = 0.8
 
     #: per-ControlNet conditioning images (not ported yet)
@@ -77,7 +77,7 @@ class PipelineConfiguration:
     decoder_scale_factor: float | None = None
     decoder_shift_factor: float | None = None
 
-    # SDXL micro-conditioning (not ported yet)
+    # SDXL micro-conditioning
     original_size: tuple[int, int] | None = None
     crops_coords_top_left: tuple[int, int] = (0, 0)
     target_size: tuple[int, int] | None = None

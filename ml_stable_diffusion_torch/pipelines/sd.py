@@ -1,16 +1,29 @@
-"""Stable Diffusion 1.x/2.x txt2img pipeline (port of the txt2img path of
-ml_stable_diffusion_tpu/pipelines/sd.py).
+"""Stable Diffusion 1.x/2.x pipeline: txt2img, img2img and inpainting
+(port of ml_stable_diffusion_tpu/pipelines/sd.py).
 
 The JAX package compiles the whole generation into one XLA program; here
 the same steps run eagerly on the card:
 
 1. tokenize the negative and positive prompts, encode them with CLIP;
 2. draw the initial noise on the host (numpy, torch or Philox streams, NCHW
-   then NHWC, as the JAX package does) and scale it by ``init_noise_sigma``;
-3. each step: ``scale_model_input``, the UNet on ``cat([lat, lat])`` with
+   then NHWC, as the JAX package does) and scale it by ``init_noise_sigma``.
+   A scheduler that needs noise at every step (Euler ancestral, LCM) takes
+   one more draw of the same stream a step, or of each image's own stream
+   for a list of seeds;
+3. img2img (``starting_image``): encode the image once with the VAE
+   encoder, ``z0 = sample_diagonal_gaussian(moments, noise) * scale`` with
+   the same host draw as the noise, and start from ``add_noise(plan, z0,
+   noise)`` on the strength-sliced plan;
+4. each step: ``scale_model_input``, the UNet on ``cat([lat, lat])`` with
    ``cat([ctx_neg, ctx_pos])``, the guidance ``neg + g * (pos - neg)``, the
-   scheduler step;
-4. decode with the VAE to uint8 pixels.
+   scheduler step.  Inpainting (``mask_image``, 1 = repaint): the pixel mask
+   area-pooled to the latents; a 4-channel UNet has the known region
+   replaced after every step by ``z0`` re-noised to the next step's level
+   (clean after the last); a 9-channel inpainting UNet takes ``[latents,
+   mask, masked-image latents]`` as its input instead.  A guidance-embedded
+   (LCM) UNet runs without CFG and takes ``w = guidance_scale - 1`` as its
+   ``timestep_cond``;
+5. decode with the VAE to uint8 pixels.
 
 ``seconds_per_step`` is measured as in the JAX package: text encoding plus
 the denoise loop, ended by fetching the latents to the host, divided by the
@@ -36,8 +49,10 @@ import torch
 from ..compress.palettize import PalettizedTensor
 from ..ops.attention import set_attention_implementation
 from ..schedulers import SCHEDULER_MAP
+from ..models.unet import get_guidance_scale_embedding
+from ..models.vae import sample_diagonal_gaussian
 from ..schedulers.base import Scheduler, SchedulerConfig, TimestepSpacing
-from ..utils.image import nchw_to_nhwc
+from ..utils.image import nchw_to_nhwc, pil_to_tensor
 from ..utils.numerics import apply_numerics
 from ..utils.rng import make_random_source
 from .config import PipelineConfiguration
@@ -63,10 +78,6 @@ class GenerationResult:
 #: SD3 pipelines ignore the first, and every scheduler but DiscreteFlow the
 #: second, and so does the port
 _UNPORTED_FIELDS = {
-    "starting_image": "img2img: ROADMAP Queue 1 item 11",
-    "strength": "img2img strength: ROADMAP Queue 1 item 11",
-    "encoder_scale_factor": "the VAE encoder: ROADMAP Queue 1 item 11",
-    "mask_image": "inpainting: ROADMAP Queue 1 item 11",
     "controlnet_inputs": "ControlNet: ROADMAP Queue 1 item 12",
     "deepcache_interval": "DeepCache: ROADMAP Queue 1 item 12",
     "unet_batch_one": "serial batch-1 CFG: ROADMAP Queue 1 item 12",
@@ -77,7 +88,7 @@ _UNPORTED_FIELDS = {
 }
 
 
-def _unported(cfg: PipelineConfiguration, scheduler: str):
+def _unported(cfg: PipelineConfiguration):
     """Raise for a field of an unported feature set away from its default."""
     defaults = PipelineConfiguration()
     for name, what in _UNPORTED_FIELDS.items():
@@ -86,17 +97,31 @@ def _unported(cfg: PipelineConfiguration, scheduler: str):
             value = tuple(value)
         if value is not None if default is None else value != default:
             raise NotImplementedError(f"{what} ({name}={value!r}) is not ported yet")
-    if scheduler not in SCHEDULER_MAP:
-        raise NotImplementedError(
-            f"scheduler {scheduler!r}: ROADMAP Queue 1 item 11 is not ported yet")
+
+
+def _mask_pixels(mask, N: int, H: int, W: int) -> np.ndarray:
+    """A repaint mask (PIL image or array: (H, W), (H, W, 1|3), (N, H, W) or
+    (N, H, W, 1|3)) -> (N, H, W, 1) float32 in [0, 1], as the JAX pipeline
+    reads it."""
+    if not isinstance(mask, np.ndarray):
+        mask = pil_to_tensor(mask, size=(H, W), value_range=(0.0, 1.0))
+    m = np.asarray(mask, np.float32)
+    if m.ndim == 2:
+        m = m[None, :, :, None]
+    elif m.ndim == 3:
+        m = m[None] if m.shape[-1] in (1, 3) else m[..., None]
+    if m.shape[-1] == 3:
+        m = m.mean(axis=-1, keepdims=True)
+    return np.broadcast_to(np.clip(m, 0.0, 1.0), (N, H, W, 1)).copy()
 
 
 class StableDiffusionPipeline:
-    """SD 1.x / 2.x txt2img.
+    """SD 1.x / 2.x: txt2img, img2img and inpainting.
 
     Model arguments are ``nn.Module``s (``CLIPTextEncoder``,
-    ``UNet2DConditionModel``, ``VAEDecoder``) in the dtypes they should
-    compute in; they are moved to ``device``.
+    ``UNet2DConditionModel``, ``VAEDecoder``, and ``VAEEncoder`` for img2img
+    and inpainting) in the dtypes they should compute in; they are moved to
+    ``device``.
     """
 
     default_latent_scale = 0.18215
@@ -112,8 +137,6 @@ class StableDiffusionPipeline:
                  scheduler_config: SchedulerConfig | None = None,
                  text_embedding_key: str = "last_hidden_state",
                  device: str | torch.device = "cuda"):
-        if vae_encoder is not None:
-            raise NotImplementedError("the VAE encoder: ROADMAP Queue 1 item 11")
         if safety_checker is not None:
             raise NotImplementedError("the safety checker: ROADMAP Queue 1 item 12")
         if controlnets:
@@ -125,6 +148,8 @@ class StableDiffusionPipeline:
                              else text_encoder.to(self.device).eval())
         self.unet = unet.to(self.device).eval()
         self.vae_decoder = vae_decoder.to(self.device).eval()
+        self.vae_encoder = (None if vae_encoder is None
+                            else vae_encoder.to(self.device).eval())
         self.scheduler_config = scheduler_config or SchedulerConfig()
         self.text_embedding_key = text_embedding_key
         #: program mode: module key -> ({parameter key: PalettizedTensor on
@@ -210,6 +235,9 @@ class StableDiffusionPipeline:
 
     def _make_scheduler(self, cfg: PipelineConfiguration) -> Scheduler:
         name = self._scheduler_name(cfg)
+        if name not in SCHEDULER_MAP:
+            raise ValueError(f"unknown scheduler {name!r}; expected one of "
+                             f"{sorted(SCHEDULER_MAP)}")
         cls = SCHEDULER_MAP[name]
         kwargs = {}
         if cfg.timestep_spacing is not None:
@@ -290,32 +318,90 @@ class StableDiffusionPipeline:
         ctx_neg, ctx_pos = self._split_neg_pos(text["context"], N)
         return ctx_neg, ctx_pos, None, None
 
-    def _call_unet(self, phase: str, latents, t, context, added_cond):
-        return self.unet(latents, t, context)
+    def _call_unet(self, phase: str, latents, t, context, added_cond, timestep_cond=None):
+        return self.unet(latents, t, context, timestep_cond=timestep_cond)
 
     # -- latents ---------------------------------------------------------------
 
-    def _initial_noise(self, cfg: PipelineConfiguration, N: int, h: int, w: int):
-        """Host noise, NHWC float32: one stream for the batch, or each
-        image's own seed stream for a list of seeds."""
+    def _noise(self, cfg: PipelineConfiguration, N: int, h: int, w: int, step_draws: int):
+        """Host noise, NHWC float32: the initial draw (N, h, w, C) and, for a
+        scheduler that needs noise, ``step_draws`` more (step_draws, N, h, w,
+        C) continuing the stream, else None.  One stream for the batch, or
+        each image's own seed stream for a list of seeds."""
         C = self.latent_channels
         if isinstance(cfg.seed, (list, tuple)):
             if len(cfg.seed) != N:
                 raise ValueError(f"seed list length {len(cfg.seed)} != image_count {N}")
-            return np.concatenate([
-                nchw_to_nhwc(make_random_source(cfg.rng, s).normal((1, C, h, w)))
-                for s in cfg.seed]).astype(np.float32)
-        src = make_random_source(cfg.rng, cfg.seed)
-        return nchw_to_nhwc(src.normal((N, C, h, w))).astype(np.float32)
+            srcs = [make_random_source(cfg.rng, s) for s in cfg.seed]
 
-    def _denoise(self, cfg, latents, text, N, plan, scheduler, guidance_on, g):
+            def draw():
+                return np.concatenate([nchw_to_nhwc(src.normal((1, C, h, w))) for src in srcs])
+        else:
+            src = make_random_source(cfg.rng, cfg.seed)
+
+            def draw():
+                return nchw_to_nhwc(src.normal((N, C, h, w)))
+        init = draw().astype(np.float32)
+        steps = (np.stack([draw() for _ in range(step_draws)]).astype(np.float32)
+                 if step_draws else None)
+        return init, steps
+
+    def _nchw(self, x: np.ndarray) -> torch.Tensor:
+        """An NHWC host array -> a contiguous NCHW float32 tensor on the device."""
+        return torch.from_numpy(np.array(x, np.float32)).to(self.device).permute(
+            0, 3, 1, 2).contiguous()
+
+    def _start(self, cfg, plan, scheduler, noise, N: int, hw, img2img: bool, inpaint: bool,
+               unet9: bool):
+        """-> (latents, inpainting state): the first latents (NCHW) and, for
+        inpainting, {"mask": latent mask, and "extras9" (9-channel UNet) or
+        "z0" and "noise" (4-channel)}, as the JAX encode stage builds them."""
+        noise = self._nchw(noise)
+        if not img2img:
+            return noise * plan.init_noise_sigma, None
+        if self.vae_encoder is None:
+            raise ValueError("starting_image needs a pipeline with a vae_encoder")
+        h, w = hw
+        ds = self.vae_downscale
+        H, W = h * ds, w * ds
+        image = cfg.starting_image
+        if not isinstance(image, np.ndarray):
+            image = pil_to_tensor(image, size=(H, W))
+        image = self._nchw(np.broadcast_to(image, (N, H, W, 3)))
+        scale = cfg.encoder_scale_factor or self.default_latent_scale
+        # the parity RNG modes use the single host draw for the encoder too
+        z0 = sample_diagonal_gaussian(self.vae_encoder(image), noise) * scale
+        latents = scheduler.add_noise(plan, z0, noise)
+        if not inpaint:
+            return latents, None
+        mask_px = self._nchw(_mask_pixels(cfg.mask_image, N, H, W))
+        # latent-resolution mask by area pooling of the pixel mask
+        mask = mask_px.reshape(N, 1, h, ds, w, ds).mean(dim=(3, 5))
+        if unet9:
+            masked = image * (1.0 - mask_px)
+            masked_z0 = sample_diagonal_gaussian(self.vae_encoder(masked), noise) * scale
+            return latents, {"mask": mask, "extras9": torch.cat([mask, masked_z0], dim=1)}
+        return latents, {"mask": mask, "z0": z0, "noise": noise}
+
+    def _denoise(self, cfg, latents, text, N, plan, scheduler, guidance_on, g,
+                 step_noises=None, inpaint=None, timestep_cond=None):
         """The denoise loop on NCHW float32 latents: the phases in turn over
-        one scheduler state, as the JAX package's consecutive scans."""
+        one scheduler state, as the JAX package's consecutive scans.
+        ``step_noises`` (steps, N, h, w, C) host noise for a scheduler that
+        needs it; ``inpaint`` the inpainting state of ``_start``;
+        ``timestep_cond`` the guidance embedding of a guidance-embedded UNet
+        (its base phase only)."""
         timesteps = torch.from_numpy(plan.timesteps).to(self.device)
         state = scheduler.initial_state(plan, latents)
+        inpaint = inpaint or {}
         for start, end, phase in self._denoise_phases(cfg, plan.num_steps):
             ctx_neg, ctx_pos, added_neg, added_pos = self._phase_conditioning(
                 cfg, text, N, phase)
+            base = phase == "unet"
+            # 9-channel inputs and the guidance embedding reach the base UNet
+            # only (the SDXL refiner has neither)
+            extras9 = inpaint.get("extras9") if base else None
+            tc_kw = {"timestep_cond": timestep_cond} if base and timestep_cond is not None else {}
             ctx2 = added2 = None
             if guidance_on:
                 ctx2 = torch.cat([ctx_neg, ctx_pos])
@@ -325,13 +411,24 @@ class StableDiffusionPipeline:
             for i in range(start, end):
                 t = timesteps[i]
                 lat_in = scheduler.scale_model_input(plan, state, latents, i)
+                if extras9 is not None:
+                    lat_in = torch.cat([lat_in, extras9.to(lat_in.dtype)], dim=1)
                 if guidance_on:
                     out = self._call_unet(phase, torch.cat([lat_in, lat_in]), t, ctx2, added2)
                     out_neg, out_pos = out.chunk(2)
                     noise_pred = out_neg + g * (out_pos - out_neg)
                 else:
-                    noise_pred = self._call_unet(phase, lat_in, t, ctx_pos, added_pos)
-                state, latents = scheduler.step(plan, state, noise_pred, i, latents)
+                    noise_pred = self._call_unet(phase, lat_in, t, ctx_pos, added_pos, **tc_kw)
+                noise = None
+                if scheduler.needs_noise:
+                    noise = self._nchw(step_noises[i])
+                state, latents = scheduler.step(plan, state, noise_pred, i, latents, noise=noise)
+                if "z0" in inpaint:
+                    # the known region at the next step's noise level
+                    z0, m = inpaint["z0"], inpaint["mask"]
+                    known = (z0 if i + 1 >= plan.num_steps else
+                             scheduler.add_noise(plan, z0, inpaint["noise"], i + 1))
+                    latents = m * latents + (1.0 - m) * known
         return latents
 
     # -- decode ----------------------------------------------------------------
@@ -358,28 +455,47 @@ class StableDiffusionPipeline:
         if cfg.deepcache_interval > 1 and not self.supports_deepcache:
             raise ValueError("deepcache_interval > 1 is not supported for this model family "
                              "(no shallow/deep UNet split)")
-        _unported(cfg, self._scheduler_name(cfg))
+        _unported(cfg)
         if progress_handler is not None:
             raise NotImplementedError("progress callbacks: ROADMAP Queue 1 item 12")
         N = cfg.image_count
         h, w = image_hw[0] // self.vae_downscale, image_hw[1] // self.vae_downscale
         scheduler = self._make_scheduler(cfg)
-        plan = scheduler.set_timesteps(cfg.step_count)
-        guidance_on = cfg.guidance_scale > 1.0
+        img2img = cfg.starting_image is not None
+        inpaint = cfg.mask_image is not None
+        C = self.latent_channels
+        unet9 = self.unet.config.in_channels == C + 5
+        if inpaint and not img2img:
+            raise ValueError("mask_image requires starting_image")
+        if unet9 and not inpaint:
+            raise ValueError("this checkpoint is a 9-channel inpainting UNet; pass "
+                             "starting_image + mask_image")
+        plan = scheduler.set_timesteps(cfg.step_count,
+                                       strength=cfg.strength if img2img else 1.0)
+        # a guidance-embedded (LCM) UNet never runs CFG: the scale is an input
+        tcp = getattr(self.unet.config, "time_cond_proj_dim", None)
+        guidance_on = cfg.guidance_scale > 1.0 and not tcp
         set_attention_implementation(cfg.attention_implementation)
 
         token_inputs = self._tokenize(cfg)
-        noise = self._initial_noise(cfg, N, h, w)
+        noise, step_noises = self._noise(cfg, N, h, w,
+                                         plan.num_steps if scheduler.needs_noise else 0)
 
         t0 = time.perf_counter()
         self._materialize_palettized()
         try:
             with torch.inference_mode():
                 text = self._encode_text(token_inputs)
-                latents = torch.from_numpy(noise).to(self.device).permute(0, 3, 1, 2)
-                latents = latents.contiguous() * plan.init_noise_sigma
-                latents = self._denoise(cfg, latents, text, N, plan, scheduler,
-                                        guidance_on, float(cfg.guidance_scale))
+                w_emb = None
+                if tcp:
+                    w_emb = get_guidance_scale_embedding(
+                        torch.full((N,), float(cfg.guidance_scale) - 1.0,
+                                   dtype=torch.float32, device=self.device), tcp)
+                latents, inpaint_state = self._start(cfg, plan, scheduler, noise, N, (h, w),
+                                                     img2img, inpaint, unet9)
+                latents = self._denoise(cfg, latents, text, N, plan, scheduler, guidance_on,
+                                        float(cfg.guidance_scale), step_noises,
+                                        inpaint_state, w_emb)
                 # the host fetch waits for the device
                 latents = latents.permute(0, 2, 3, 1).cpu().numpy()
         finally:

@@ -10,10 +10,14 @@ What differs from the SD-2.x pipeline it extends:
   pooled vector is both encoders' pooled outputs concatenated (768 + 1280 =
   2048) and conditions every denoiser call beside the context;
 - the DiscreteFlow scheduler only (the configuration default "PNDM" maps to
-  it), with ``timestep_shift`` and float timesteps;
-- 16 latent channels, latent scale 1.5305 and shift 0.0609.
+  it), with ``timestep_shift`` and float timesteps; img2img strength slices
+  its sigma grid;
+- 16 latent channels, latent scale 1.5305 and shift 0.0609.  The decoder
+  takes ``z / scale + shift``; img2img encodes ``z0 = sample * scale``
+  without the shift, as the JAX SD3 pipeline does (the shared encode stage
+  of its SD pipeline).
 
-The T5 encoder and tokenizer, SD3 ControlNet and the VAE encoder raise
+The T5 encoder and tokenizer and SD3 ControlNet raise
 ``NotImplementedError`` naming their ROADMAP.md items; ``deepcache_interval
 > 1`` raises ``ValueError``, as in the JAX pipeline.
 """
@@ -43,10 +47,9 @@ class StableDiffusion3Pipeline(StableDiffusionPipeline):
             raise NotImplementedError("the T5 encoder and tokenizer: ROADMAP Queue 1 item 14")
         if controlnets:
             raise NotImplementedError("SD3 ControlNet: ROADMAP Queue 1 item 14")
-        if vae_encoder is not None:
-            raise NotImplementedError("the VAE encoder: ROADMAP Queue 1 item 11")
         super().__init__(tokenizer=tokenizer, text_encoder=text_encoder, unet=mmdit,
-                         vae_decoder=vae_decoder, safety_checker=safety_checker,
+                         vae_decoder=vae_decoder, vae_encoder=vae_encoder,
+                         safety_checker=safety_checker,
                          scheduler_config=scheduler_config, device=device)
         self.tokenizer2 = tokenizer2
         self.text_encoder2 = text_encoder2.to(self.device).eval()
@@ -88,5 +91,5 @@ class StableDiffusion3Pipeline(StableDiffusionPipeline):
         pooled_neg, pooled_pos = self._split_neg_pos(text["pooled"], N)
         return ctx_neg, ctx_pos, {"pooled": pooled_neg}, {"pooled": pooled_pos}
 
-    def _call_unet(self, phase: str, latents, t, context, added_cond):
+    def _call_unet(self, phase: str, latents, t, context, added_cond, timestep_cond=None):
         return self.unet(latents, t, context, added_cond["pooled"])

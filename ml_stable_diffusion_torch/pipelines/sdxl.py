@@ -20,9 +20,11 @@ What differs from the SD-2.x pipeline it extends:
   min(n, max(0, int(refiner_start * n)))``;
 - latent scale 0.13025.
 
+img2img and inpainting come through the inherited ``generate_images``, as in
+the JAX package: the base -> refiner cut splits the strength-sliced plan.
 Prompt weights and prompts longer than one 77-token window raise
-``NotImplementedError`` as in the SD pipeline; so do SDXL ControlNet, the VAE
-encoder and ``reduce_memory`` staging, naming their ROADMAP.md items.
+``NotImplementedError`` as in the SD pipeline; so do SDXL ControlNet and
+``reduce_memory`` staging, naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -111,6 +113,6 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
         return (ctx_neg, ctx_pos, {"text_embeds": pooled_neg, "time_ids": time_ids(ids_neg)},
                 {"text_embeds": pooled_pos, "time_ids": time_ids(ids_pos)})
 
-    def _call_unet(self, phase: str, latents, t, context, added_cond):
+    def _call_unet(self, phase: str, latents, t, context, added_cond, timestep_cond=None):
         unet = self.refiner_unet if phase == "refiner" else self.unet
-        return unet(latents, t, context, added_cond)
+        return unet(latents, t, context, added_cond, timestep_cond=timestep_cond)

@@ -115,9 +115,39 @@ def sigma_to_timestep(sigmas: np.ndarray, all_sigmas: np.ndarray) -> np.ndarray:
     return ts
 
 
+def strength_slice(num_inference_steps: int, strength: float) -> int:
+    """Starting step index for img2img: the loop runs the last
+    ``min(S, max(1, int(S * strength)))`` steps."""
+    t_enc = min(num_inference_steps, max(1, int(num_inference_steps * strength)))
+    return num_inference_steps - t_enc
+
+
+def pred_original_sample(sample, model_output, alpha_t, sigma_t,
+                         prediction_type: PredictionType):
+    """A model output -> the predicted x0; ``alpha_t`` = sqrt(acp[t]),
+    ``sigma_t`` = sqrt(1 - acp[t]), float32 scalars."""
+    if prediction_type == PredictionType.EPSILON:
+        return (sample - float(sigma_t) * model_output) / float(alpha_t)
+    if prediction_type == PredictionType.V_PREDICTION:
+        return float(alpha_t) * sample - float(sigma_t) * model_output
+    return model_output  # SAMPLE
+
+
+def to_epsilon(sample, model_output, alpha_t, sigma_t, prediction_type: PredictionType):
+    """A model output -> the epsilon prediction."""
+    if prediction_type == PredictionType.EPSILON:
+        return model_output
+    if prediction_type == PredictionType.V_PREDICTION:
+        return float(sigma_t) * sample + float(alpha_t) * model_output
+    return (sample - float(alpha_t) * model_output) / float(sigma_t)  # SAMPLE
+
+
 class Scheduler:
     """Base class: static configuration.  Per-run data lives in the plan and
     in the state dict that ``step`` returns."""
+
+    #: True if ``step`` consumes a fresh noise tensor each call
+    needs_noise: bool = False
 
     def __init__(self, config: SchedulerConfig | None = None, **overrides):
         if config is None:
@@ -126,7 +156,7 @@ class Scheduler:
             config = dataclasses.replace(config, **overrides)
         self.config = config
 
-    def set_timesteps(self, num_inference_steps: int) -> SchedulerPlan:
+    def set_timesteps(self, num_inference_steps: int, strength: float = 1.0) -> SchedulerPlan:
         raise NotImplementedError
 
     def initial_state(self, plan: SchedulerPlan, sample) -> dict[str, Any]:
@@ -135,5 +165,20 @@ class Scheduler:
     def scale_model_input(self, plan: SchedulerPlan, state, sample, i: int):
         return sample
 
-    def step(self, plan: SchedulerPlan, state, model_output, i: int, sample):
+    def step(self, plan: SchedulerPlan, state, model_output, i: int, sample, noise=None):
         raise NotImplementedError
+
+    def add_noise(self, plan: SchedulerPlan, original, noise, i: int = 0):
+        """Noise a clean latent to the level of step ``i`` (0: the img2img
+        start; later steps: the known region of legacy inpainting)."""
+        raise NotImplementedError
+
+    def pred_x0(self, plan: SchedulerPlan, state, model_output, i: int, sample):
+        """The predicted clean latent at step ``i``.  Default: DDPM scaling at
+        the integer training timestep, in float32; sigma-space schedulers
+        override it."""
+        acp = self.config.alphas_cumprod().astype(np.float32)
+        t = int(np.clip(int(plan.timesteps[i]), 0, acp.shape[0] - 1))
+        return pred_original_sample(sample, model_output, np.sqrt(acp[t]),
+                                    np.sqrt(np.float32(1.0) - acp[t]),
+                                    self.config.prediction_type)

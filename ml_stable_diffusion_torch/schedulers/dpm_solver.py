@@ -21,6 +21,7 @@ from .base import (
     karras_sigma_ramp,
     sigma_to_timestep,
     spaced_timesteps,
+    strength_slice,
 )
 
 #: Below this step count the final step drops to first order for stability.
@@ -28,7 +29,7 @@ LOWER_ORDER_FINAL_MAX_STEPS = 15
 
 
 class DPMSolverMultistepScheduler(Scheduler):
-    def set_timesteps(self, num_inference_steps: int) -> SchedulerPlan:
+    def set_timesteps(self, num_inference_steps: int, strength: float = 1.0) -> SchedulerPlan:
         cfg = self.config
         acp = cfg.alphas_cumprod()
         all_ratio_sigmas = np.sqrt((1 - acp) / acp)
@@ -50,6 +51,10 @@ class DPMSolverMultistepScheduler(Scheduler):
         alpha_t = 1.0 / np.sqrt(1.0 + ratio_sigmas**2)
         sigma_t = ratio_sigmas * alpha_t
         lam = np.log(alpha_t / sigma_t)
+
+        start = strength_slice(num_inference_steps, strength)
+        ts = ts[start:]
+        alpha_t, sigma_t, lam = alpha_t[start:], sigma_t[start:], lam[start:]
         S = len(ts)
 
         first_order = np.zeros(S, dtype=bool)
@@ -69,6 +74,10 @@ class DPMSolverMultistepScheduler(Scheduler):
     def initial_state(self, plan, sample):
         return {"prev_x0": torch.zeros_like(sample)}
 
+    def pred_x0(self, plan, state, model_output, i, sample):
+        return self._pred_x0(sample, model_output, plan.table("alpha")[i],
+                             plan.table("sigma")[i])
+
     def _pred_x0(self, sample, model_output, alpha, sigma):
         pt = self.config.prediction_type
         if pt == PredictionType.EPSILON:
@@ -77,7 +86,7 @@ class DPMSolverMultistepScheduler(Scheduler):
             return float(alpha) * sample - float(sigma) * model_output
         return model_output
 
-    def step(self, plan, state, model_output, i, sample):
+    def step(self, plan, state, model_output, i, sample, noise=None):
         alpha = plan.table("alpha")
         sigma = plan.table("sigma")
         lam = plan.table("lambda")
@@ -101,3 +110,7 @@ class DPMSolverMultistepScheduler(Scheduler):
         d1 = (x0 - state["prev_x0"]) / float(r0)
         second = first - float(np.float32(0.5) * a_t * phi) * d1
         return {"prev_x0": x0}, second
+
+    def add_noise(self, plan, original, noise, i=0):
+        return (float(plan.table("alpha")[i]) * original
+                + float(plan.table("sigma")[i]) * noise)

@@ -63,6 +63,16 @@ def cuda_device():
     ((2, 77, 3, 64), torch.bfloat16),
     ((2, 154, 24, 64), torch.bfloat16),   # 154 keys: under one 128-row k/v tile and a half
     ((2, 1000, 4, 64), torch.bfloat16),   # 128-row q tiles; keys not a multiple of 128
+    # SD-1.5's widths: one, two and three 64-column chunks, in both tiles
+    # where the width has both
+    ((2, 4096, 8, 40), torch.bfloat16),   # 512x512 64x64 blocks: 128-row tiles
+    ((2, 330, 3, 40), torch.bfloat16),    # ragged, 64-row tiles
+    ((2, 1024, 8, 80), torch.bfloat16),   # 32x32 blocks: 64-row tiles
+    ((2, 2304, 8, 80), torch.bfloat16),   # 768x768's 48x48: 128-row tiles
+    ((2, 330, 3, 80), torch.bfloat16),    # ragged
+    ((2, 256, 8, 160), torch.bfloat16),   # 16x16 blocks: 64-row tiles
+    ((2, 1200, 8, 160), torch.bfloat16),  # 64-row tiles at any length; keys not
+                                          # a multiple of 64
 ])
 def test_flash_kernel_matches_plain(shape, dtype, cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -94,8 +104,40 @@ def test_flash_kernel_reads_strided_views(pad, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [40, 80, 160])
+def test_flash_kernel_reads_fused_projection_views(D, cuda_device):
+    """SD-1.5's widths with q, k, v as views of one fused (B, S, 3 H D)
+    projection: row strides of 3 H D elements, read in place."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B, S, H = 2, 300, 8
+    x = torch.randn(B, S, 64, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.randn(3 * H * D, 64, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    q, k, v = (x @ w.t() / 8).view(B, S, 3, H, D).unbind(2)
+    assert not q.is_contiguous()
+    assert_matches_plain(flash_attention_cuda(q, k, v), q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [40, 80, 160])
+def test_multi_q_kernel_at_sd15_widths(D, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    qs = [torch.randn(2, n, 4, D, generator=g, device=cuda_device).to(torch.bfloat16)
+          for n in (300, 77)]
+    k, v = (torch.randn(2, 377, 4, D, generator=g, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    for out, ref in zip(flash_attention_multi_q_cuda(qs, k, v),
+                        flash_attention_multi_q_reference(qs, k, v)):
+        diff = out.float() - ref.float()
+        assert diff.abs().max().item() <= ATOL[torch.bfloat16]
+        assert (diff.norm() / ref.float().norm()).item() <= REL_RMS[torch.bfloat16]
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_unsupported(cuda_device):
-    q = torch.zeros(1, 256, 2, 80, device=cuda_device, dtype=torch.bfloat16)
+    q = torch.zeros(1, 256, 2, 96, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention_cuda(q, q, q)
+    q = torch.zeros(1, 256, 2, 80, device=cuda_device, dtype=torch.float32)
     with pytest.raises(ValueError, match="head widths"):
         flash_attention_cuda(q, q, q)
     q = torch.zeros(1, 256, 2, 64, device=cuda_device, dtype=torch.float16)

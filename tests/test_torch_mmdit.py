@@ -161,9 +161,13 @@ def test_flow_scheduler_matches_jax(steps, shift):
 
 
 def test_flow_scheduler_is_registered_and_rejects_img2img():
+    """Registered; img2img strength, which it rejected before the VAE
+    encoder was ported, now slices the sigma grid as the JAX scheduler's."""
     assert SCHEDULER_MAP["DiscreteFlow"] is DiscreteFlowScheduler
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        DiscreteFlowScheduler().set_timesteps(4, strength=0.5)
+    got = DiscreteFlowScheduler().set_timesteps(4, strength=0.5)
+    ref = JaxFlow().set_timesteps(4, strength=0.5)
+    assert got.num_steps == ref.num_steps == 2
+    np.testing.assert_array_equal(got.table("sigmas"), np.asarray(ref.table("sigmas")))
 
 
 # -- MMDiT -------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from ml_stable_diffusion_tpu.ops.flash_attention import flash_attention as jax_f
 from ml_stable_diffusion_torch.ops import activations as port_act
 from ml_stable_diffusion_torch.ops import attention as port_attn
 from ml_stable_diffusion_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIMS,
     SUPPORTED_HEAD_DIMS,
     flash_attention,
     flash_attention_cuda,
@@ -115,19 +116,35 @@ def test_plain_causal_and_bias_match_xla(sq, sk):
     (77, 77, 64),         # text encoder
     (4096, 4096, 512),    # VAE mid block
     (255, 4096, 64), (4096, 255, 64),  # below the threshold on either side
-    (4096, 4096, 80),     # a head width the kernel is not built for
+    (4096, 4096, 80),     # SD-1.5's width in float32: no f32 kernel at it
 ])
 def test_dispatch_rule_follows_jax(sq, sk, D, monkeypatch):
     """On a CUDA tensor the port takes FLASH exactly where the JAX rule does
-    (Sq >= 256, Sk >= 256) and the kernel has the head width; a CPU tensor
-    never qualifies.  Shapes only: meta tensors stand in for CUDA ones."""
-    q = torch.empty(1, sq, 1, D, device="meta")
-    k = torch.empty(1, sk, 1, D, device="meta")
+    (Sq >= 256, Sk >= 256) and the kernel has the dtype's head width; a CPU
+    tensor never qualifies.  Shapes only: meta tensors stand in for CUDA
+    ones (float32 here, bfloat16 below)."""
+    _check_dispatch(sq, sk, D, torch.float32, monkeypatch)
+
+
+@pytest.mark.parametrize("sq,sk,D", [
+    (4096, 4096, 40), (1024, 1024, 80), (256, 256, 160),  # SD-1.5 self-attention
+    (4096, 77, 40),       # its cross attention
+    (4096, 4096, 64),
+    (4096, 4096, 96),     # a width no configuration produces
+])
+def test_dispatch_rule_follows_jax_in_bf16(sq, sk, D, monkeypatch):
+    _check_dispatch(sq, sk, D, torch.bfloat16, monkeypatch)
+
+
+def _check_dispatch(sq, sk, D, dtype, monkeypatch):
+    q = torch.empty(1, sq, 1, D, device="meta", dtype=dtype)
+    k = torch.empty(1, sk, 1, D, device="meta", dtype=dtype)
     assert not port_attn._flash_qualifies(q, k)  # not a CUDA tensor
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr("jax.default_backend", lambda: "tpu")
     jax_rule = jax_flash_qualifies(jnp.zeros((1, sq, 1, D)), jnp.zeros((1, sk, 1, D)))
-    assert port_attn._flash_qualifies(q, k) == (jax_rule and D in SUPPORTED_HEAD_DIMS)
+    assert port_attn._flash_qualifies(q, k) == (jax_rule and D in KERNEL_HEAD_DIMS[dtype])
+    assert set(KERNEL_HEAD_DIMS[dtype]) <= set(SUPPORTED_HEAD_DIMS)
 
 
 def test_auto_dispatch_on_cpu_is_plain(monkeypatch):
@@ -157,3 +174,23 @@ def test_activations_match_jax(name):
     # atol 1e-5 on values up to 12: the two erf implementations differ in the
     # last bits, and 1 + erf(x) cancels for large negative x
     np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("q_lens,B,H,D,want", [
+    ((4096,), 2, 8, 40, (128, 1, 128, 4)),   # SD-1.5 64x64 blocks
+    ((1024,), 2, 8, 80, (64, 2, 64, 4)),     # 32x32: 128 blocks < 132 SMs
+    ((256,), 2, 8, 160, (64, 3, 64, 3)),     # 16x16
+    ((2304,), 2, 8, 80, (128, 2, 64, 4)),    # 768x768's 48x48
+    ((4096,), 2, 8, 160, (64, 3, 64, 3)),    # three chunks: 64 rows always
+    ((4096,), 2, 5, 64, (128, 1, 128, 4)),   # SD-2.1, as before
+    ((4096, 154), 2, 24, 64, (128, 1, 128, 4)),
+])
+def test_bf16_plan(q_lens, B, H, D, want):
+    """The bf16 kernel's instantiation (rows, chunks, kv rows, stages), as
+    csrc/flash_attention.cu:FlashShape and launch_wgmma choose it, in one
+    block's shared memory."""
+    from ml_stable_diffusion_torch.ops.flash_attention import bf16_plan
+
+    plan = bf16_plan(q_lens, B, H, D)
+    assert (plan.rows, plan.chunks, plan.kv_rows, plan.stages) == want
+    assert plan.smem_bytes <= 232448

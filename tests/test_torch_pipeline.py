@@ -2,8 +2,9 @@
 
 A tiny generation (3 steps of DPM++ 2M, CFG on, rng="numpy") through both
 ``generate_images`` on the same weights: latents within atol 1e-3, uint8
-images within 1.  Also: importing the port pulls in no JAX, features not
-ported yet raise, and fields the JAX pipeline ignores are ignored.
+images within 1; the default configuration (PNDM) too.  Also: importing the
+port pulls in no JAX, features not ported yet raise, and fields the JAX
+pipeline ignores are ignored.
 """
 
 import subprocess
@@ -47,6 +48,17 @@ def test_generate_images_matches_jax(pair, case):
     assert got.seconds_per_step > 0
 
 
+def test_default_configuration_matches_jax(pair):
+    """A default ``PipelineConfiguration`` (PNDM, 50 steps cut to 3 here,
+    guidance 7.5) runs and matches the JAX pipeline."""
+    jax_pipe, port_pipe = pair
+    kw = dict(prompt="a cat", step_count=3, seed=7, disable_safety=True, rng="numpy")
+    assert PipelineConfiguration().scheduler == JaxConfig().scheduler == "PNDM"
+    ref = jax_pipe.generate_images(JaxConfig(**kw), image_hw=HW)
+    got = port_pipe.generate_images(PipelineConfiguration(**kw), image_hw=HW)
+    np.testing.assert_allclose(got.latents, ref.latents, atol=1e-3)
+
+
 def test_guidance_off_matches_jax(pair):
     jax_pipe, port_pipe = pair
     kw = dict(prompt="a cat", step_count=2, scheduler="DPMSolverMultistep",
@@ -57,11 +69,11 @@ def test_guidance_off_matches_jax(pair):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(scheduler="PNDM"), "scheduler"),
-    (dict(starting_image=np.zeros((1, 64, 64, 3), np.float32)), "img2img"),
+    (dict(unet_batch_one=True), "batch-1"),
+    (dict(use_denoised_intermediates=True), "denoised previews"),
     (dict(prompt="a (cat:1.5)"), "prompt weight"),
     (dict(deepcache_interval=2), "DeepCache"),
-    (dict(strength=0.5), "img2img strength"),
+    (dict(reduce_memory=True), "reduce_memory"),
     (dict(ip_adapter_scale=0.5), "IP-Adapter"),
 ])
 def test_unported_features_raise(pair, kw, match):

@@ -159,7 +159,7 @@ def test_timestep_shift_is_read(pair):
     (dict(t5_encoder=object()), "T5"),
     (dict(t5_tokenizer=object()), "T5"),
     (dict(controlnets=[object()]), "SD3 ControlNet"),
-    (dict(vae_encoder=object()), "VAE encoder"),
+    (dict(safety_checker=object()), "safety checker"),
 ])
 def test_unported_parts_raise(pair, kw, match):
     _, port_pipe = pair
@@ -188,3 +188,30 @@ def test_sd3_pipeline_constants_are_the_jax_ones():
             StableDiffusion3Pipeline.default_latent_shift,
             StableDiffusion3Pipeline.latent_channels) == (
         JaxSD3.default_latent_scale, JaxSD3.default_latent_shift, JaxSD3.latent_channels)
+
+
+def test_img2img_matches_jax(pair):
+    """img2img through DiscreteFlow strength with a 16-channel encoder:
+    ``z0 = sample * scale`` (no shift, as the JAX SD3 pipeline encodes)."""
+    import copy
+
+    from ml_stable_diffusion_tpu.models.vae import VAEEncoder as JaxVAEEncoder
+
+    from torch_helpers import port_vae_encoder
+
+    cfg = JaxVAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
+                       norm_num_groups=4, latent_channels=16, use_quant_conv=False)
+    enc = JaxVAEEncoder(cfg)
+    ep = randomize_params(jax.jit(enc.init)(jax.random.key(5), jnp.zeros((1, 64, 64, 3)))[
+        "params"], 35)
+    jax_pipe, port_pipe = (copy.copy(p) for p in pair)
+    jax_pipe.vae_encoder, jax_pipe.vae_encoder_params = enc, ep
+    port_pipe.vae_encoder = port_vae_encoder(enc, ep)
+    image = np.random.RandomState(8).uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
+    kw = _kw(step_count=4, starting_image=image, strength=0.6)
+    ref = jax_pipe.generate_images(JaxConfig(**kw), image_hw=HW)
+    got = port_pipe.generate_images(PipelineConfiguration(**kw), image_hw=HW)
+    assert got.latents.shape == (1, 8, 8, 16) and np.isfinite(got.latents).all()
+    np.testing.assert_allclose(got.latents, ref.latents, atol=1e-3)
+    ref_images = np.stack([np.asarray(im) for im in ref.images])
+    assert np.abs(got.images.astype(int) - ref_images.astype(int)).max() <= 1

@@ -267,7 +267,7 @@ def test_denoise_phases_match_jax(pair, refiner_start, steps):
 @pytest.mark.parametrize("kw,match", [
     (dict(prompt="a (cat:1.5)"), "prompt weight"),
     (dict(negative_prompt="a " * 80), "77-token"),
-    (dict(starting_image=np.zeros((1, 64, 64, 3), np.float32)), "img2img"),
+    (dict(use_denoised_intermediates=True), "denoised previews"),
     (dict(reduce_memory=True), "reduce_memory"),
     (dict(deepcache_interval=2), "DeepCache"),
     (dict(unet_batch_one=True), "batch-1"),
@@ -286,8 +286,8 @@ def test_unported_parts_raise(pair):
                 device="cpu")
     with pytest.raises(NotImplementedError, match="SDXL ControlNet"):
         StableDiffusionXLPipeline(**args, controlnets=[object()])
-    with pytest.raises(NotImplementedError, match="VAE encoder"):
-        StableDiffusionXLPipeline(**args, vae_encoder=object())
+    with pytest.raises(NotImplementedError, match="safety checker"):
+        StableDiffusionXLPipeline(**args, safety_checker=object())
 
 
 def test_sdxl_pipeline_constants_are_the_jax_ones():
@@ -329,3 +329,44 @@ def test_load_pipeline_from_jax_sdxl_bundle(pair, tmp_path):
     assert isinstance(pipe, StableDiffusionXLPipeline) and pipe.refiner_unet is not None
     got = pipe.generate_images(PipelineConfiguration(**kw), image_hw=HW).latents
     np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", [
+    # strength 0.5 of 6 steps: 3 steps, the refiner taking the last of them
+    dict(refiner_start=0.6, strength=0.5, step_count=6),
+    # inpainting through both phases: the known region re-noised after each
+    dict(refiner_start=0.5, strength=0.8, step_count=5, mask=True),
+])
+def test_img2img_with_refiner_matches_jax(pair, case):
+    """img2img and inpainting through the inherited ``generate_images``: the
+    base -> refiner cut splits the strength-sliced plan as the JAX
+    ``_denoise_phases`` does."""
+    import copy
+
+    from torch_helpers import port_vae_encoder
+
+    jax_pipe, port_pipes = pair
+    _, (enc, ep) = tiny_vae()
+    ep = randomize_params(ep, 46)
+    jax_pipe = copy.copy(jax_pipe)
+    jax_pipe.vae_encoder, jax_pipe.vae_encoder_params = enc, ep
+    port_pipe = copy.copy(port_pipes["refiner"])
+    port_pipe.vae_encoder = port_vae_encoder(enc, ep)
+    case = dict(case)
+    extra = {}
+    if case.pop("mask", False):
+        mask = np.zeros((64, 64), np.float32)
+        mask[16:48, 16:48] = 1.0
+        extra["mask_image"] = mask
+    image = np.random.RandomState(9).uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
+    kw = _kw(starting_image=image, **case, **extra)
+    steps = jax_pipe._make_scheduler(JaxConfig(**kw)).set_timesteps(
+        kw["step_count"], strength=kw["strength"]).num_steps
+    assert port_pipe._denoise_phases(PipelineConfiguration(**kw), steps) == [
+        (lo, hi, "unet" if c == jax_pipe._call_unet else "refiner")
+        for lo, hi, c in jax_pipe._denoise_phases(JaxConfig(**kw), steps)]
+    ref = jax_pipe.generate_images(JaxConfig(**kw), image_hw=HW)
+    got = port_pipe.generate_images(PipelineConfiguration(**kw), image_hw=HW)
+    np.testing.assert_allclose(got.latents, ref.latents, atol=1e-3)
+    ref_images = np.stack([np.asarray(im) for im in ref.images])
+    assert np.abs(got.images.astype(int) - ref_images.astype(int)).max() <= 1
