@@ -86,10 +86,35 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    20 steps, launch counts of both flash entries, the encoder's head and
    the GroupNorm kernel.
 
+15. SD-1.5 ControlNet on phase 11's modules plus a full-width ControlNet of
+   ``UNetConfig.sd15`` (conditioning channels (16, 32, 96, 256), as
+   lllyasviel/control_v11p_sd15_canny), bf16, N(0, 0.02) weights, a seeded
+   edge-map control image: one net as phase 3 (warm-up, median of 3, one
+   generation forced plain), two nets (one generation), and the one-net
+   latents against phase 11's of the same prompt and seed (the nets must
+   move them).  21 flash launches per UNet call with one net (15 + 6 at
+   batch 1), 27 with two.
+16. The other SD-1.5 features on phase 11's pipeline, one generation each: a
+   weighted prompt of four 77-token windows (cross attention over 308 keys
+   on the kernel: 30 launches per UNet call), the multilingual projection
+   with a deterministic host embedder (256 keys: 30), DeepCache at interval
+   3 (7 full and 14 shallow passes: 176 a generation), serial batch-1 CFG
+   (two batch-1 calls: 30; its latents against phase 11's batched ones,
+   rel <= 1e-3), a progress handler rendering ``latent_to_rgb_preview`` of
+   each step's denoised latents that stops after step 10 (151), and the
+   full-size safety checker (f32, plain attention: no launch) with its ms
+   per image and flags.
+17. SDXL-base 1024x1024 on phase 7's base pipeline plus a full-width SDXL
+   ControlNet (``UNetConfig.sdxl``, as diffusers/controlnet-canny-sdxl-1.0)
+   and a weighted dual-encoder prompt of two windows: one generation, 2081
+   flash launches (70 + 34 a UNet call, + 1) and 680 GroupNorm (the net's
+   GroupNorms are plain, as in the JAX package).
+
 Every kernel launch counter is set to 0 just before each main path (phases
-3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, and
-phase 10 for the fused dequant-matmul, whose main path it is) and read just
-after it; phase 13 reads them around each generation.  Prints a
+3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, each
+path of 15, 16 and 17, and phase 10 for the fused dequant-matmul, whose main
+path it is) and read just after it; phase 13 reads them around each
+generation.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -232,13 +257,76 @@ PATHS.update({
 PATHS["sd21_inpaint"] = dict(PATHS["sd21_img2img"],
                              label="SD-2.1-base 512x512 inpainting (the left half), strength "
                                    "0.75: 15 of 20 steps PNDM (16 UNet calls), CFG batch 2")
+#: phases 15 and 16: SD-1.5 512x512 features at the default configuration
+#: (PNDM 20 steps: 21 UNet calls).  A UNet call launches 15 self-attention
+#: heads at CFG batch 2; a ControlNet 6 at batch 1 (the positive half: two
+#: transformers in each of down blocks 0-2; the mid block's 64 tokens stay
+#: plain); cross attention over 256 context rows or more joins the 15 (a
+#: 4-window prompt's 308, the multilingual projection's 256); serial CFG
+#: makes two batch-1 calls of 15; a DeepCache shallow pass runs down block 0
+#: (2 heads at 4096 tokens) and the last up block (3); a handler that stops
+#: after step STOP_AFTER leaves the rest out; the safety checker adds none
+SD15_CALLS = UNET_CALLS["sd15"]
+DEEPCACHE_INTERVAL = 3
+#: full passes of a DeepCache generation: calls 0, 3, ..., 18
+DEEPCACHE_FULL = len(range(0, SD15_CALLS, DEEPCACHE_INTERVAL))
+STOP_AFTER = 10
+
+
+def _sd15_path(label, flash):
+    return dict(label=f"SD-1.5 512x512, PNDM 20 steps (21 UNet calls), CFG batch 2: {label}",
+                image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5, scheduler="PNDM",
+                per_generation={"flash_attention": flash, "flash_attention_multi_q": 0,
+                                **VAE_ATTENTION, "group_norm_silu": 0,
+                                "palettized_dense_fused": 0})
+
+
+PATHS.update({
+    "sd15_controlnet": _sd15_path("one ControlNet", (15 + 6) * SD15_CALLS + 1),
+    "sd15_controlnet2": _sd15_path("two ControlNets", (15 + 12) * SD15_CALLS + 1),
+    "sd15_long_prompt": _sd15_path("a weighted prompt of four 77-token windows",
+                                   30 * SD15_CALLS + 1),
+    "sd15_multilingual": _sd15_path("the multilingual projection (256 context rows)",
+                                    30 * SD15_CALLS + 1),
+    "sd15_batch_one": _sd15_path("serial batch-1 CFG", 2 * 15 * SD15_CALLS + 1),
+    "sd15_deepcache": _sd15_path(f"DeepCache at interval {DEEPCACHE_INTERVAL}",
+                                 15 * DEEPCACHE_FULL + 5 * (SD15_CALLS - DEEPCACHE_FULL) + 1),
+    "sd15_stop10": _sd15_path(f"a progress handler with previews that stops after step "
+                              f"{STOP_AFTER}", 15 * STOP_AFTER + 1),
+    "sd15_safety": _sd15_path("the safety checker on", 15 * SD15_CALLS + 1),
+    "sdxl_controlnet": dict(
+        label="SDXL-base 1024x1024 + one SDXL ControlNet, a weighted 2-window dual-encoder "
+              "prompt, 20 steps DPM++ 2M, CFG batch 2, guidance 5",
+        image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
+        scheduler="DPMSolverMultistep",
+        per_generation={"flash_attention": (70 + 34) * STEPS + 1, "flash_attention_multi_q": 0,
+                        **VAE_ATTENTION, "group_norm_silu": 34 * STEPS,
+                        "palettized_dense_fused": 0}),
+})
+#: the SD-1.5 paths at 512x512, each with the VAE decoder's head
+SD15_PATHS = [p for p in PATHS if p.startswith("sd15")]
+
+
+def sd15_self(tokens: int):
+    """Launches per generation of the CFG-batch self-attention heads at
+    ``tokens`` on each SD-1.5 path (5 a UNet call at each of 4096, 1024 and
+    256 tokens)."""
+    out = {p: 5 * SD15_CALLS for p in SD15_PATHS if p not in ("sd15_batch_one", "sd15_stop10",
+                                                              "sd15_deepcache")}
+    out["sd15_stop10"] = 5 * STOP_AFTER
+    out["sd15_deepcache"] = 5 * DEEPCACHE_FULL + (
+        5 * (SD15_CALLS - DEEPCACHE_FULL) if tokens == 4096 else 0)
+    return out
+
+
 #: phase 9: the SD-2.1 path on a palettized bundle, in each serving mode
 for _mode in ("install", "program"):
     PATHS[f"sd21_pal_{_mode}"] = dict(
         PATHS["sd21"], label=f"SD-2.1-base 512x512 from a 6-bit palettized bundle, {_mode} "
                              "mode, 20 steps DPM++ 2M, CFG batch 2")
 #: steps of each UNet in one generation of a path: (base, refiner)
-UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4), "sdxl_img2img": (15, 0)}
+UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4), "sdxl_img2img": (15, 0),
+              "sdxl_controlnet": (STEPS, 0)}
 #: the known half of an inpainted generation's latents against the starting
 #: image's latents z0 (max abs, relative to z0's peak): after the last step
 #: the known region is z0 itself, recomputed here by the same encoder
@@ -424,17 +512,47 @@ FLASH_SHAPES = [
     ("unet 32x32", (1024,), 1024, 2, 10, 64, torch.bfloat16, sd21_all(100, 5 * 16)),
     ("unet 16x16", (256,), 256, 2, 20, 64, torch.bfloat16, sd21_all(100, 5 * 16)),
     ("vae mid 512", (4096,), 4096, 1, 1, 512, torch.float32,
-     {**sd21_all(1, 2), "sd15": 1}),
+     {**sd21_all(1, 2), **{p: 1 for p in SD15_PATHS}}),
     ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32,
-     {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1, "sd3_img2img": 2, "sdxl_img2img": 2}),
-    ("sd15 64x64", (4096,), 4096, 2, 8, 40, torch.bfloat16, {"sd15": 5 * 21}),
-    ("sd15 32x32", (1024,), 1024, 2, 8, 80, torch.bfloat16, {"sd15": 5 * 21}),
-    ("sd15 16x16", (256,), 256, 2, 8, 160, torch.bfloat16, {"sd15": 5 * 21}),
+     {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1, "sd3_img2img": 2, "sdxl_img2img": 2,
+      "sdxl_controlnet": 1}),
+    ("sd15 64x64", (4096,), 4096, 2, 8, 40, torch.bfloat16, sd15_self(4096)),
+    ("sd15 32x32", (1024,), 1024, 2, 8, 80, torch.bfloat16, sd15_self(1024)),
+    ("sd15 16x16", (256,), 256, 2, 8, 160, torch.bfloat16, sd15_self(256)),
+    # batch 1: the ControlNets (2 heads a net at each size) and serial CFG
+    ("sd15 b1 64x64", (4096,), 4096, 1, 8, 40, torch.bfloat16,
+     {"sd15_controlnet": 2 * SD15_CALLS, "sd15_controlnet2": 4 * SD15_CALLS,
+      "sd15_batch_one": 10 * SD15_CALLS}),
+    ("sd15 b1 32x32", (1024,), 1024, 1, 8, 80, torch.bfloat16,
+     {"sd15_controlnet": 2 * SD15_CALLS, "sd15_controlnet2": 4 * SD15_CALLS,
+      "sd15_batch_one": 10 * SD15_CALLS}),
+    ("sd15 b1 16x16", (256,), 256, 1, 8, 160, torch.bfloat16,
+     {"sd15_controlnet": 2 * SD15_CALLS, "sd15_controlnet2": 4 * SD15_CALLS,
+      "sd15_batch_one": 10 * SD15_CALLS}),
+    # cross attention: a 4-window prompt (308 keys = 2 x 128 + 52), the
+    # multilingual projection (256)
+    ("sd15 x308 64x64", (4096,), 308, 2, 8, 40, torch.bfloat16,
+     {"sd15_long_prompt": 5 * SD15_CALLS}),
+    ("sd15 x308 32x32", (1024,), 308, 2, 8, 80, torch.bfloat16,
+     {"sd15_long_prompt": 5 * SD15_CALLS}),
+    ("sd15 x308 16x16", (256,), 308, 2, 8, 160, torch.bfloat16,
+     {"sd15_long_prompt": 5 * SD15_CALLS}),
+    ("sd15 x256 64x64", (4096,), 256, 2, 8, 40, torch.bfloat16,
+     {"sd15_multilingual": 5 * SD15_CALLS}),
+    ("sd15 x256 32x32", (1024,), 256, 2, 8, 80, torch.bfloat16,
+     {"sd15_multilingual": 5 * SD15_CALLS}),
+    ("sd15 x256 16x16", (256,), 256, 2, 8, 160, torch.bfloat16,
+     {"sd15_multilingual": 5 * SD15_CALLS}),
     ("ragged D80", (330,), 330, 2, 3, 80, torch.bfloat16, {}),
     ("sdxl 64x64", (4096,), 4096, 2, 10, 64, torch.bfloat16,
-     {"sdxl": 10 * 20, "sdxl_refiner": 10 * 16, "sdxl_img2img": 10 * 15}),
+     {"sdxl": 10 * 20, "sdxl_refiner": 10 * 16, "sdxl_img2img": 10 * 15,
+      "sdxl_controlnet": 10 * 20}),
     ("sdxl 32x32", (1024,), 1024, 2, 20, 64, torch.bfloat16,
-     {"sdxl": 60 * 20, "sdxl_refiner": 60 * 16, "sdxl_img2img": 60 * 15}),
+     {"sdxl": 60 * 20, "sdxl_refiner": 60 * 16, "sdxl_img2img": 60 * 15,
+      "sdxl_controlnet": 60 * 20}),
+    # the SDXL ControlNet at batch 1: 4 heads at 4096 tokens, 30 at 1024
+    ("sdxl cn 64x64", (4096,), 4096, 1, 10, 64, torch.bfloat16, {"sdxl_controlnet": 4 * 20}),
+    ("sdxl cn 32x32", (1024,), 1024, 1, 20, 64, torch.bfloat16, {"sdxl_controlnet": 30 * 20}),
     ("refiner 64x64", (4096,), 4096, 2, 12, 64, torch.bfloat16, {"sdxl_refiner": 20 * 4}),
     ("refiner 32x32", (1024,), 1024, 2, 24, 64, torch.bfloat16, {"sdxl_refiner": 20 * 4}),
     ("refiner 16x16", (256,), 256, 2, 24, 64, torch.bfloat16, {"sdxl_refiner": 1 * 4}),
@@ -1032,18 +1150,20 @@ def run_main_path(pipe, path, counters, timed=3, plain=True, warmup=True, extra=
     prompts and seeds, the counters set to 0 just before and read just
     after; then (``plain``) the last generation again with attention forced
     to the plain path.  ``extra``: more configuration fields (the starting
-    image and mask); ``results``: a list that receives the generations'
-    results."""
+    image and mask, the control images, a prompt); ``results``: a list that
+    receives the generations' results."""
     from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 
     spec = PATHS[path]
 
     def generate(i, attention="auto"):
-        cfg = PipelineConfiguration(
-            prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS,
-            guidance_scale=spec["guidance"], seed=1000 + i, scheduler=spec["scheduler"],
-            rng="numpy", disable_safety=True, attention_implementation=attention,
-            **spec.get("extra", {}), **(extra or {}))
+        fields = dict(prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS,
+                      guidance_scale=spec["guidance"], seed=1000 + i,
+                      scheduler=spec["scheduler"], rng="numpy", disable_safety=True,
+                      attention_implementation=attention)
+        fields.update(spec.get("extra", {}))
+        fields.update(extra or {})
+        cfg = PipelineConfiguration(**fields)
         before = {name: fn.launches for name, fn in counters.items()}
         t0 = time.perf_counter()
         res = pipe.generate_images(cfg, image_hw=spec["image_hw"])
@@ -1351,6 +1471,211 @@ def run_scheduler_sweep(pipe, counters):
             f"{seconds:.3f} s/image, launches {launched}")
     del lcm_pipe
     return out
+
+
+# -- phases 15 to 17 ----------------------------------------------------------------
+
+#: phase 16's weighted prompt of four 77-token windows (239 letter tokens),
+#: phase 17's of two (133)
+LONG_PROMPT = (f"({PROMPTS[0]}:1.3) {' '.join(PROMPTS[1:])} [{PROMPTS[0]}] "
+               f"{' '.join(PROMPTS[1:])} ({PROMPTS[2]})")
+XL_PROMPT = f"({PROMPTS[0]}:1.2) {' '.join(PROMPTS[1:])} [{PROMPTS[3]}]"
+#: the one-net latents against phase 11's of the same prompt and seed
+#: (relative max abs): without the net they are the same bits; N(0, 0.02)
+#: weights move them by ~3e-3
+CONTROLNET_MIN_REL = 1e-4
+#: serial batch-1 CFG against the batched generation: relative max abs of
+#: the latents (bf16 products at batch 1 and 2 may round differently)
+BATCH_ONE_REL_ERR = 1e-3
+
+
+def build_controlnet(cfg, seed: int):
+    """A full-width ControlNet of the UNet config ``cfg`` in bf16 on the card
+    with speed weights from ``seed``: its zero convs are N(0, 0.02) too, so
+    the residuals move the latents.  Its conditioning channels are (16, 32,
+    96, 256), those of lllyasviel/control_v11p_sd15_canny and
+    diffusers/controlnet-canny-sdxl-1.0 (named, not downloaded)."""
+    from ml_stable_diffusion_torch.models.controlnet import ControlNetModel
+
+    with torch.device("meta"):
+        net = ControlNetModel(cfg)
+    return materialize(net, torch.Generator(device="cuda").manual_seed(seed),
+                       torch.bfloat16).eval()
+
+
+def control_image(hw, seed: int):
+    """A seeded (1, H, W, 3) float32 edge-map-like image of 0s and 1s."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((1, *hw, 3), generator=gen) > 0.9).float().numpy()
+
+
+def with_modules(pipe, **attrs):
+    """The same pipeline over the same modules, with ``attrs`` set."""
+    out = copy.copy(pipe)
+    for name, value in attrs.items():
+        setattr(out, name, value)
+    return out
+
+
+def latents_rel(got, ref) -> float:
+    return float(abs(got - ref).max() / max(abs(ref).max(), 1e-12))
+
+
+def check_windows(tokenizer, prompt, want: int):
+    from ml_stable_diffusion_torch.tokenizer.prompt_weights import weighted_token_chunks
+
+    ids, _, weighted = weighted_token_chunks(tokenizer, prompt)
+    if ids.shape[0] != want or not weighted:
+        fail(f"the prompt spans {ids.shape[0]} windows (weighted: {weighted}), want {want}, "
+             "weighted")
+
+
+def run_controlnet_paths(pipe, counters, report, sd15_results):
+    """Phase 15 on phase 11's SD-1.5 pipeline: one ControlNet (warm-up,
+    median of 3, one generation forced plain), two ControlNets (one
+    generation), and the one-net latents against phase 11's generation of
+    the same prompt and seed without a net."""
+    from ml_stable_diffusion_torch.models.unet import UNetConfig
+
+    nets = [build_controlnet(UNetConfig.sd15(), 150), build_controlnet(UNetConfig.sd15(), 151)]
+    conds = [control_image((512, 512), 152), control_image((512, 512), 153)]
+    out, results = {}, []
+    out["sd15_controlnet"] = run_main_path(with_modules(pipe, controlnets=nets[:1]),
+                                           "sd15_controlnet", counters, results=results,
+                                           extra=dict(controlnet_inputs=conds[:1]))
+    report("sd15_controlnet", out["sd15_controlnet"])
+    out["sd15_controlnet2"] = run_main_path(with_modules(pipe, controlnets=nets),
+                                            "sd15_controlnet2", counters, timed=1, plain=False,
+                                            warmup=False, extra=dict(controlnet_inputs=conds))
+    report("sd15_controlnet2", out["sd15_controlnet2"])
+    rel = latents_rel(results[0].latents, sd15_results[0].latents)
+    log(f"sd15 ControlNet: latents with the net differ from those without by {rel:.4g} (rel)")
+    if not rel > CONTROLNET_MIN_REL:
+        fail(f"the ControlNet did not move the latents: rel {rel} <= {CONTROLNET_MIN_REL}")
+    return out, dict(with_vs_without_latents_rel=rel)
+
+
+def host_embedder(text: str):
+    """A deterministic stand-in for an external multilingual embedding model:
+    text -> (len(text) rows, at most 64, 512)."""
+    rng = torch.Generator().manual_seed(sum(map(ord, text)) % 2 ** 31)
+    return torch.randn((max(1, min(len(text), 64)), 512), generator=rng).numpy()
+
+
+def run_handler_path(pipe, counters):
+    """One generation with a progress handler that renders a latent preview
+    of each step's denoised latents and stops after step STOP_AFTER."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+    from ml_stable_diffusion_torch.utils.latent_preview import latent_to_rgb_preview
+
+    seen = []
+
+    def handler(progress):
+        preview = latent_to_rgb_preview(progress.denoised)
+        seen.append((progress.step, progress.step_count, preview.shape,
+                     bool(np.isfinite(preview).all())))
+        return progress.step < STOP_AFTER
+
+    spec = PATHS["sd15_stop10"]
+    cfg = PipelineConfiguration(prompt=PROMPTS[0], step_count=STEPS, guidance_scale=7.5,
+                                seed=1000, scheduler="PNDM", rng="numpy", disable_safety=True,
+                                use_denoised_intermediates=True)
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    res = pipe.generate_images(cfg, progress_handler=handler, image_hw=(512, 512))
+    seconds = time.perf_counter() - t0
+    launched = {name: fn.launches for name, fn in counters.items()}
+    if launched != spec["per_generation"]:
+        fail(f"sd15_stop10: the generation launched {launched}, want {spec['per_generation']}")
+    want = [(i, SD15_CALLS, (1, 64, 64, 3), True) for i in range(1, STOP_AFTER + 1)]
+    if seen != want:
+        fail(f"sd15_stop10: the handler saw {seen}, want {want}")
+    if res.images.shape != (1, 512, 512, 3) or not np.isfinite(res.latents).all():
+        fail(f"sd15_stop10: images {res.images.shape}, latents finite: "
+             f"{np.isfinite(res.latents).all()}")
+    return dict(seconds_per_step=res.seconds_per_step, iter_per_s=1.0 / res.seconds_per_step,
+                seconds_per_image=seconds, launches=launched, steps_seen=len(seen))
+
+
+def run_feature_paths(pipe, counters, report, sd15_results):
+    """Phase 16 on phase 11's SD-1.5 pipeline, one generation each: a
+    weighted 4-window prompt, the multilingual projection, DeepCache, serial
+    CFG (its latents held against phase 11's batched generation of the same
+    prompt and seed), a progress handler that stops early, and the safety
+    checker (its ms per image and flags)."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.models.multilingual import MultilingualProjection
+    from ml_stable_diffusion_torch.models.safety import (
+        SafetyChecker,
+        SafetyCheckerConfig,
+        check_images,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    one = dict(timed=1, plain=False, warmup=False)
+    out, checks = {}, {}
+    check_windows(pipe.tokenizer, LONG_PROMPT, 4)
+    out["sd15_long_prompt"] = run_main_path(pipe, "sd15_long_prompt", counters,
+                                            extra=dict(prompt=LONG_PROMPT), **one)
+    with torch.device("meta"):
+        proj = MultilingualProjection(pipe.unet.config.cross_attention_dim)
+    ml = with_modules(pipe, multilingual_encoder=(materialize(proj, gen).eval(), host_embedder))
+    out["sd15_multilingual"] = run_main_path(ml, "sd15_multilingual", counters, **one)
+    out["sd15_deepcache"] = run_main_path(pipe, "sd15_deepcache", counters,
+                                          extra=dict(deepcache_interval=DEEPCACHE_INTERVAL), **one)
+    results = []
+    out["sd15_batch_one"] = run_main_path(pipe, "sd15_batch_one", counters, results=results,
+                                          extra=dict(unet_batch_one=True), **one)
+    rel = latents_rel(results[0].latents, sd15_results[0].latents)
+    if not rel <= BATCH_ONE_REL_ERR:
+        fail(f"serial CFG latents differ from the batched ones by {rel} (rel) > "
+             f"{BATCH_ONE_REL_ERR}")
+    checks["batch_one_vs_batched_latents_rel"] = rel
+    out["sd15_stop10"] = run_handler_path(pipe, counters)
+    with torch.device("meta"):
+        checker = SafetyChecker(SafetyCheckerConfig())
+    checker = materialize(checker, gen).eval()
+    results = []
+    out["sd15_safety"] = run_main_path(with_modules(pipe, safety_checker=checker), "sd15_safety",
+                                       counters, results=results,
+                                       extra=dict(disable_safety=False), **one)
+    res = results[0]
+    flagged = [bool(res.images[i].max() == 0) for i in range(len(res.nsfw_flags))]
+    if [f for f, z in zip(res.nsfw_flags, flagged) if f and not z]:
+        fail(f"the safety checker flagged {res.nsfw_flags} but left an image unblanked")
+    images = sd15_results[0].images
+    check_images(checker, images)  # warm-up
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        check_images(checker, images)  # ends in a host copy of the flags
+        times.append(time.perf_counter() - t0)
+    checks["safety"] = dict(ms_per_image=1e3 * statistics.median(times) / len(images),
+                            flags=res.nsfw_flags)
+    log(f"safety checker (ViT-L/14, f32, plain attention): "
+        f"{checks['safety']['ms_per_image']:.2f} ms per 512x512 image, flags {res.nsfw_flags}; "
+        f"serial CFG vs batched latents {rel:.3g} (rel)")
+    for path, res in out.items():
+        report(path, res)
+    return out, checks
+
+
+def run_sdxl_controlnet_path(pipe, counters, report):
+    """Phase 17 on phase 7's SDXL base pipeline: one generation with one
+    SDXL ControlNet and a weighted 2-window dual-encoder prompt."""
+    from ml_stable_diffusion_torch.models.unet import UNetConfig
+
+    check_windows(pipe.tokenizer2, XL_PROMPT, 2)
+    net = build_controlnet(UNetConfig.sdxl(), 170)
+    res = run_main_path(with_modules(pipe, controlnets=[net]), "sdxl_controlnet", counters,
+                        timed=1, plain=False, warmup=False,
+                        extra=dict(prompt=XL_PROMPT,
+                                   controlnet_inputs=[control_image((1024, 1024), 171)]))
+    report("sdxl_controlnet", res)
+    return res
 
 
 # -- phases 9 and 10 ----------------------------------------------------------------
@@ -1876,6 +2201,9 @@ def main():
         extra=dict(starting_image=starting_image((1024, 1024), 17), strength=STRENGTH))
     report("sdxl_img2img", main_paths["sdxl_img2img"])
     torch.cuda.empty_cache()
+    # phase 17: one SDXL ControlNet beside the base, before the refiner joins
+    main_paths["sdxl_controlnet"] = run_sdxl_controlnet_path(pipe, counters, report)
+    torch.cuda.empty_cache()
     pipe = sdxl_with_refiner(pipe)
     main_paths["sdxl_refiner"] = run_main_path(pipe, "sdxl_refiner", counters, timed=1,
                                                plain=False)
@@ -1891,13 +2219,20 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tokdir:
         pipe = build_sd15_pipeline(Path(tokdir))
-    main_paths["sd15"] = run_main_path(pipe, "sd15", counters)
+    sd15_results = []
+    main_paths["sd15"] = run_main_path(pipe, "sd15", counters, results=sd15_results)
     report("sd15", main_paths["sd15"])
+    # phases 15 and 16: ControlNet and the other features on its modules
+    paths, controlnet = run_controlnet_paths(pipe, counters, report, sd15_results)
+    main_paths.update(paths)
+    torch.cuda.empty_cache()
+    paths, features = run_feature_paths(pipe, counters, report, sd15_results)
+    main_paths.update(paths)
     del pipe
     torch.cuda.empty_cache()
     model_checks["sd15"] = check_sd15_flash_vs_plain(counters["flash_attention"])
     torch.cuda.empty_cache()
-    log(f"phases of sd15: {time.perf_counter() - t0:.1f} s")
+    log(f"phases of sd15 (11, 15, 16): {time.perf_counter() - t0:.1f} s")
 
     # phases 9 and 10: the palettized path and the fused op's witness
     t0 = time.perf_counter()
@@ -1931,7 +2266,8 @@ def main():
     ]
     log(json.dumps({"main_paths": main_paths, "in_model_checks": model_checks,
                     "palettized_path": palettized, "schedulers": schedulers,
-                    "inpainting": inpainting, "numerics": numerics_settings(),
+                    "inpainting": inpainting, "controlnet": controlnet, "features": features,
+                    "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
     log(json.dumps({"kernels": kernels}))
     log(card)

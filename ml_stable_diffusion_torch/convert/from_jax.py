@@ -5,7 +5,8 @@ caller runs ``np.asarray`` over the leaves; this module imports no JAX) or of
 torch tensors (``convert/artifacts.load_module``).  The output is a
 diffusers/transformers-keyed state dict of torch tensors that
 ``load_state_dict(strict=True)`` accepts for ``UNet2DConditionModel``,
-``VAEDecoder``, ``VAEEncoder``, ``CLIPTextEncoder`` and ``MMDiT``.
+``ControlNetModel``, ``VAEDecoder``, ``VAEEncoder``, ``CLIPTextEncoder``,
+``SafetyChecker`` and ``MMDiT``.
 
 Layouts: a conv kernel goes HWIO -> OIHW, a dense kernel is transposed,
 a norm ``scale`` becomes ``weight``, an embedding table stays as it is.
@@ -99,6 +100,13 @@ def unet_state_dict(params) -> dict[str, torch.Tensor]:
     return _unet_vae_state_dict(params, lambda name: name)
 
 
+def controlnet_state_dict(params) -> dict[str, torch.Tensor]:
+    """Flax ``ControlNetModel`` params -> port ``ControlNetModel`` state dict
+    (diffusers ``ControlNetModel`` keys)."""
+    return _unet_vae_state_dict(
+        params, lambda n: n.replace("cond_embedding.blocks_", "cond_embedding.blocks."))
+
+
 def vae_decoder_state_dict(params) -> dict[str, torch.Tensor]:
     """Flax ``VAEDecoder`` params -> port ``VAEDecoder`` state dict."""
     return _unet_vae_state_dict(
@@ -140,6 +148,44 @@ def clip_text_state_dict(params) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected CLIP parameter {'/'.join(path)}")
         sd[f"{name}.{leaf}"] = tensor
+    return sd
+
+
+_SAFETY_VISION = {
+    "patch_embedding": "embeddings.patch_embedding",
+    "pre_layernorm": "pre_layrnorm",  # HF's spelling
+    "post_layernorm": "post_layernorm",
+}
+_SAFETY_BANKS = ("concept_embeds", "concept_embeds_weights", "special_care_embeds",
+                 "special_care_embeds_weights")
+
+
+def safety_checker_state_dict(params) -> dict[str, torch.Tensor]:
+    """Flax ``SafetyChecker`` params -> port ``SafetyChecker`` state dict
+    (HF ``StableDiffusionSafetyChecker`` keys: the inverse of the JAX
+    package's ``convert/safety.py``)."""
+    vm = "vision_model.vision_model"
+    sd = {}
+    for path, value in _leaves(params):
+        head = path[0]
+        if head in _SAFETY_BANKS:
+            sd[head] = value.contiguous()
+        elif head == "class_embedding":
+            sd[f"{vm}.embeddings.class_embedding"] = value.contiguous()
+        elif head == "position_embedding":
+            sd[f"{vm}.embeddings.position_embedding.weight"] = value.contiguous()
+        else:
+            leaf, tensor = _tensor(path[-1], value)
+            m = re.fullmatch(r"layers_(\d+)", head)
+            if m:
+                name = f"{vm}.encoder.layers.{m.group(1)}.{_CLIP_LAYER[path[1]]}"
+            elif head in _SAFETY_VISION:
+                name = f"{vm}.{_SAFETY_VISION[head]}"
+            elif head == "visual_projection":
+                name = head
+            else:
+                raise KeyError(f"unexpected safety checker parameter {'/'.join(path)}")
+            sd[f"{name}.{leaf}"] = tensor
     return sd
 
 

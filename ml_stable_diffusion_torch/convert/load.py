@@ -16,11 +16,12 @@ default install mode (host dequantization to ``compute_dtype``), and the
 other modules are dequantized to float32 as they load.  (The JAX function's
 docstring speaks of program mode; its code installs with the default.)
 
-A bundle's VAE encoder is loaded in float32 like the decoder.  Its safety
-checker or ControlNets (SD and SD3; the SDXL branch passes none, as in JAX)
-reach the pipeline constructor by name, and it raises
-``NotImplementedError`` naming the ROADMAP.md item that ports them; so does
-the loader for a T5 encoder (ROADMAP Queue 1 item 14).
+A bundle's VAE encoder and safety checker are loaded in float32 like the
+decoder, its ControlNets (``bundle.json``'s ``"controlnets"``: module names;
+SD and SD3 bundles, the SDXL branch takes none, as in JAX) in
+``compute_dtype``.  An SD3 ControlNet (manifest ``config_class``
+``SD3ControlNetConfig``) and a T5 encoder raise ``NotImplementedError``
+(ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ from pathlib import Path
 import torch
 
 from ..models.clip import CLIPTextConfig, CLIPTextEncoder
+from ..models.controlnet import ControlNetModel
 from ..models.mmdit import MMDiT, MMDiTConfig
+from ..models.safety import SafetyChecker, SafetyCheckerConfig
 from ..models.unet import UNet2DConditionModel, UNetConfig
 from ..models.vae import VAEConfig, VAEDecoder, VAEEncoder
 from ..schedulers.base import BetaSchedule, PredictionType, SchedulerConfig, TimestepSpacing
@@ -40,7 +43,9 @@ from ..tokenizer import CLIPTokenizer
 from .artifacts import load_module
 from .from_jax import (
     clip_text_state_dict,
+    controlnet_state_dict,
     mmdit_state_dict,
+    safety_checker_state_dict,
     unet_state_dict,
     vae_decoder_state_dict,
     vae_encoder_state_dict,
@@ -129,10 +134,16 @@ def load_pipeline_from_artifacts(artifact_dir: str | Path, compute_dtype=torch.b
                 pipe.install_palettized(key, pal, dtype=compute_dtype)
         return pipe
 
-    # modules the port has no pipeline support for yet go to the constructor
-    # by name, and it raises
-    safety = "SafetyChecker" if has("SafetyChecker") else None
-    controlnets = list(bundle.get("controlnets", ()))
+    def controlnet(name):
+        manifest = json.loads((root / f"{name}.json").read_text())
+        if manifest.get("config_class") == "SD3ControlNetConfig":
+            raise NotImplementedError("SD3 ControlNet: ROADMAP Queue 1 item 14")
+        return module(name, ControlNetModel, UNetConfig, controlnet_state_dict,
+                      compute_dtype)[0]
+
+    safety = (module("SafetyChecker", SafetyChecker, SafetyCheckerConfig,
+                     safety_checker_state_dict, torch.float32)[0]
+              if has("SafetyChecker") else None)
     dec = module("VAEDecoder", VAEDecoder, VAEConfig, vae_decoder_state_dict, torch.float32)[0]
     enc = (module("VAEEncoder", VAEEncoder, VAEConfig, vae_encoder_state_dict,
                   torch.float32)[0] if has("VAEEncoder") else None)
@@ -164,7 +175,7 @@ def load_pipeline_from_artifacts(artifact_dir: str | Path, compute_dtype=torch.b
             tokenizer=tok, tokenizer2=tok2, text_encoder=text_encoder("TextEncoder"),
             text_encoder2=text_encoder("TextEncoder2"), mmdit=mmdit, vae_decoder=dec,
             vae_encoder=enc, safety_checker=safety, scheduler_config=sched_cfg,
-            controlnets=controlnets, device=device)
+            controlnets=[controlnet(n) for n in bundle.get("controlnets", ())], device=device)
         return finish(pipe, {"unet": mmdit_pal})
 
     tok = CLIPTokenizer.from_pretrained_dir(root)
@@ -172,5 +183,5 @@ def load_pipeline_from_artifacts(artifact_dir: str | Path, compute_dtype=torch.b
     pipe = StableDiffusionPipeline(
         tokenizer=tok, text_encoder=text_encoder("TextEncoder"), unet=unet, vae_decoder=dec,
         vae_encoder=enc, safety_checker=safety, scheduler_config=sched_cfg,
-        controlnets=controlnets, device=device)
+        controlnets=[controlnet(n) for n in bundle.get("controlnets", ())], device=device)
     return finish(pipe, {"unet": unet_pal})

@@ -1,1 +1,2 @@
-"""Models of the SD-2.1 txt2img path: CLIP text encoder, UNet, VAE decoder."""
+"""Models: the CLIP text encoder, the UNet and its ControlNet, the MMDiT, the
+VAE, the safety checker and the multilingual projection."""

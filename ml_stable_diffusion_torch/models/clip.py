@@ -62,10 +62,11 @@ def _activation(name: str):
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
         C = cfg.hidden_size
         self.heads = cfg.num_attention_heads
+        self.causal = causal
         self.q_proj = nn.Linear(C, C)
         self.k_proj = nn.Linear(C, C)
         self.v_proj = nn.Linear(C, C)
@@ -77,7 +78,7 @@ class _SelfAttention(nn.Module):
         q = self.q_proj(x).view(B, S, H, C // H)
         k = self.k_proj(x).view(B, S, H, C // H)
         v = self.v_proj(x).view(B, S, H, C // H)
-        attn = dot_product_attention(q, k, v, causal=True, impl="plain")
+        attn = dot_product_attention(q, k, v, causal=self.causal, impl="plain")
         return self.out_proj(attn.reshape(B, S, C))
 
 
@@ -93,10 +94,16 @@ class _MLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    """Pre-LN transformer layer, causal for the text encoder.  ``cfg``
+    needs ``hidden_size``, ``num_attention_heads``, ``intermediate_size``,
+    ``hidden_act`` and ``layer_norm_eps`` (the safety checker's vision tower
+    passes its own config, non-causal).  Attention is always the plain
+    path."""
+
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.self_attn = _SelfAttention(cfg)
+        self.self_attn = _SelfAttention(cfg, causal)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = _MLP(cfg)
 

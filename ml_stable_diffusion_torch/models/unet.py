@@ -28,8 +28,16 @@ diffusers checkpoint keys (``down_blocks.0.attentions.0.transformer_blocks.0
   do not depend on the flag.  The transformer GroupNorm and
   ``conv_norm_out`` stay plain, as in the JAX package.
 
-ControlNet residuals, IP-Adapter tokens, DeepCache and fused qkv raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+- ControlNet residuals (``models/controlnet.py``): each down residual is
+  added to its skip, the mid residual after the mid block;
+- DeepCache: ``return_deep_feature`` also returns the tensor entering the
+  last up block; ``deep_feature`` runs the shallow pass (conv_in, down
+  block 0 and the last up block) on a cached one.
+
+The down and mid blocks are built and run by ``down_and_mid_blocks``,
+``run_down`` and ``run_mid``, which the ControlNet shares.  IP-Adapter
+tokens and fused qkv raise ``NotImplementedError`` naming the ROADMAP.md
+item that ports them.
 """
 
 from __future__ import annotations
@@ -353,6 +361,86 @@ def _check_supported(cfg: UNetConfig):
                                   "ROADMAP Queue 1 item 17 is not ported yet")
 
 
+def down_and_mid_blocks(cfg: UNetConfig, gn: str = "plain", fast_gelu: bool = False):
+    """The diffusers down and mid blocks of ``cfg``, shared by the UNet and
+    the ControlNet -> (down blocks, mid block, skip channels: conv_in's,
+    then one per residual ``run_down`` returns).  ``gn``: the resnets'
+    GroupNorm+SiLU (``ResnetBlock2D``)."""
+    ch = cfg.block_out_channels
+    G, eps, temb = cfg.norm_num_groups, cfg.norm_eps, cfg.time_embed_dim
+
+    def transformer(c, bi):
+        return SpatialTransformer(c, cfg.num_attention_heads[bi],
+                                  cfg.transformer_layers_per_block[bi],
+                                  cfg.cross_attention_dim, G, fast_gelu=fast_gelu)
+
+    skip_ch = [ch[0]]
+    down = []
+    c_in = ch[0]
+    for bi, btype in enumerate(cfg.down_block_types):
+        out = ch[bi]
+        resnets, attns = [], []
+        for li in range(cfg.layers_per_block):
+            resnets.append(ResnetBlock2D(c_in if li == 0 else out, out, temb, G, eps, gn))
+            if btype == "CrossAttnDownBlock2D":
+                attns.append(transformer(out, bi))
+            skip_ch.append(out)
+        final = bi == len(cfg.down_block_types) - 1
+        if not final:
+            skip_ch.append(out)
+        down.append(_Block(resnets, attns, downsamplers=[] if final else [Downsample2D(out)]))
+        c_in = out
+    mid = ch[-1]
+    mid_block = _Block([ResnetBlock2D(mid, mid, temb, G, eps, gn) for _ in range(2)],
+                       [transformer(mid, len(ch) - 1)])
+    return nn.ModuleList(down), mid_block, skip_ch
+
+
+def run_down(blocks, h, emb, context, shallow: bool = False):
+    """The down blocks on conv_in's output ``h`` -> (h, the skip residuals,
+    conv_in's output first).  ``shallow`` (DeepCache): down block 0 without
+    its downsampler."""
+    residuals = [h]
+    for block in blocks[:1] if shallow else blocks:
+        for li, resnet in enumerate(block.resnets):
+            h = resnet(h, emb)
+            if hasattr(block, "attentions"):
+                h = block.attentions[li](h, context)
+            residuals.append(h)
+        if hasattr(block, "downsamplers") and not shallow:
+            h = block.downsamplers[0](h)
+            residuals.append(h)
+    return h, residuals
+
+
+def run_mid(block, h, emb, context):
+    h = block.resnets[0](h, emb)
+    h = block.attentions[0](h, context)
+    return block.resnets[1](h, emb)
+
+
+def time_and_added_embedding(cfg: UNetConfig, time_embedding, add_embedding, timesteps,
+                             batch: int, dtype, added_cond=None, timestep_cond=None):
+    """The timestep embedding (float32 sinusoid, the MLP in ``dtype``) plus,
+    for ``addition_embed_type="text_time"``, the added embedding of the
+    pooled text vector and the time ids."""
+    if timesteps.ndim == 0:
+        timesteps = timesteps.expand(batch)
+    t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                   cfg.flip_sin_to_cos, cfg.freq_shift)
+    emb = time_embedding(t_emb.to(dtype), timestep_cond)
+    if cfg.addition_embed_type == "text_time":
+        if added_cond is None:
+            raise ValueError("an SDXL UNet or ControlNet needs added_cond")
+        time_ids = added_cond["time_ids"].reshape(-1)
+        id_emb = get_timestep_embedding(time_ids, cfg.addition_time_embed_dim,
+                                        cfg.flip_sin_to_cos, cfg.freq_shift)
+        id_emb = id_emb.reshape(batch, -1)
+        add = torch.cat([added_cond["text_embeds"].float(), id_emb], dim=-1)
+        emb = emb + add_embedding(add.to(dtype))
+    return emb
+
+
 class UNet2DConditionModel(nn.Module):
     """Denoiser for SD 1.x/2.x and SDXL.  ``forward(sample (B, C, H, W),
     timesteps (B,) or scalar, encoder_hidden_states (B, S, C_ctx),
@@ -384,35 +472,11 @@ class UNet2DConditionModel(nn.Module):
             self.add_embedding = TimestepEmbedding(
                 cfg.projection_class_embeddings_input_dim, temb)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
-
-        skip_ch = [ch[0]]
-        down = []
-        c_in = ch[0]
-        for bi, btype in enumerate(cfg.down_block_types):
-            out = ch[bi]
-            cross = btype == "CrossAttnDownBlock2D"
-            resnets, attns = [], []
-            for li in range(L):
-                resnets.append(resnet(c_in if li == 0 else out, out))
-                if cross:
-                    attns.append(transformer(out, bi))
-                skip_ch.append(out)
-            final = bi == len(cfg.down_block_types) - 1
-            downs = [] if final else [Downsample2D(out)]
-            if not final:
-                skip_ch.append(out)
-            down.append(_Block(resnets, attns, downsamplers=downs))
-            c_in = out
-        self.down_blocks = nn.ModuleList(down)
-
-        mid = ch[-1]
-        self.mid_block = _Block(
-            [resnet(mid, mid), resnet(mid, mid)],
-            [transformer(mid, len(ch) - 1)])
+        self.down_blocks, self.mid_block, skip_ch = down_and_mid_blocks(cfg, gn, cfg.fast_gelu)
 
         up = []
         rev = list(reversed(ch))
-        h_ch = mid
+        h_ch = ch[-1]
         for bi, btype in enumerate(cfg.up_block_types):
             out = rev[bi]
             cross = btype == "CrossAttnUpBlock2D"
@@ -435,54 +499,49 @@ class UNet2DConditionModel(nn.Module):
                 down_block_residuals=None, mid_block_residual=None,
                 ip_context=None, deep_feature=None, return_deep_feature=False,
                 timestep_cond=None):
-        if down_block_residuals is not None or mid_block_residual is not None:
-            raise NotImplementedError("ControlNet residuals: ROADMAP Queue 1 item 12")
+        """``down_block_residuals`` / ``mid_block_residual``: a ControlNet's
+        (float32; added in the compute dtype).  ``return_deep_feature``:
+        -> (output, the tensor entering the last up block).  ``deep_feature``:
+        the shallow pass on such a tensor; only the first skips take their
+        residuals and the mid residual is skipped.  With a feature from a
+        full pass on the same inputs it gives that pass's output bit for
+        bit."""
         if ip_context is not None:
             raise NotImplementedError("IP-Adapter tokens: ROADMAP Queue 1 item 15")
-        if deep_feature is not None or return_deep_feature:
-            raise NotImplementedError("DeepCache: ROADMAP Queue 1 item 12")
         cfg = self.config
+        shallow = deep_feature is not None
+        if shallow or return_deep_feature:
+            if shallow and return_deep_feature:
+                raise ValueError("deep_feature and return_deep_feature exclude each other")
+            if len(cfg.up_block_types) < 2:
+                raise ValueError("DeepCache needs at least two up blocks")
         dtype = self.conv_in.weight.dtype
-        if timesteps.ndim == 0:
-            timesteps = timesteps.expand(sample.shape[0])
-
         if cfg.time_cond_proj_dim is not None and timestep_cond is None:
             raise ValueError(
                 f"this UNet is guidance-embedded (time_cond_proj_dim={cfg.time_cond_proj_dim}); "
                 "pass timestep_cond (get_guidance_scale_embedding(w, dim))")
-        t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
-                                       cfg.flip_sin_to_cos, cfg.freq_shift)
-        emb = self.time_embedding(
-            t_emb.to(dtype), timestep_cond if cfg.time_cond_proj_dim is not None else None)
-        if cfg.addition_embed_type == "text_time":
-            if added_cond is None:
-                raise ValueError("an SDXL UNet needs added_cond")
-            time_ids = added_cond["time_ids"].reshape(-1)
-            id_emb = get_timestep_embedding(time_ids, cfg.addition_time_embed_dim,
-                                            cfg.flip_sin_to_cos, cfg.freq_shift)
-            id_emb = id_emb.reshape(sample.shape[0], -1)
-            add = torch.cat([added_cond["text_embeds"].float(), id_emb], dim=-1)
-            emb = emb + self.add_embedding(add.to(dtype))
+        emb = time_and_added_embedding(
+            cfg, self.time_embedding, getattr(self, "add_embedding", None), timesteps,
+            sample.shape[0], dtype, added_cond,
+            timestep_cond if cfg.time_cond_proj_dim is not None else None)
         context = encoder_hidden_states.to(dtype)
 
-        h = self.conv_in(sample.to(dtype))
-        residuals = [h]
-        for block in self.down_blocks:
-            for li, resnet in enumerate(block.resnets):
-                h = resnet(h, emb)
-                if hasattr(block, "attentions"):
-                    h = block.attentions[li](h, context)
-                residuals.append(h)
-            if hasattr(block, "downsamplers"):
-                h = block.downsamplers[0](h)
-                residuals.append(h)
+        h, residuals = run_down(self.down_blocks, self.conv_in(sample.to(dtype)), emb, context,
+                                shallow)
+        if down_block_residuals is not None:
+            # on the shallow pass zip stops at the shallow skips, the list's head
+            residuals = [r + c.to(r.dtype) for r, c in zip(residuals, down_block_residuals)]
+        if shallow:
+            h = deep_feature.to(dtype)
+        else:
+            h = run_mid(self.mid_block, h, emb, context)
+            if mid_block_residual is not None:
+                h = h + mid_block_residual.to(h.dtype)
 
-        mb = self.mid_block
-        h = mb.resnets[0](h, emb)
-        h = mb.attentions[0](h, context)
-        h = mb.resnets[1](h, emb)
-
-        for block in self.up_blocks:
+        deep_out = None
+        for block in self.up_blocks[-1:] if shallow else self.up_blocks:
+            if return_deep_feature and block is self.up_blocks[-1]:
+                deep_out = h
             for li, resnet in enumerate(block.resnets):
                 h = resnet(torch.cat([h, residuals.pop().to(h.dtype)], dim=1), emb)
                 if hasattr(block, "attentions"):
@@ -491,4 +550,4 @@ class UNet2DConditionModel(nn.Module):
                 h = block.upsamplers[0](h)
 
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
-        return h.float()
+        return (h.float(), deep_out) if return_deep_feature else h.float()

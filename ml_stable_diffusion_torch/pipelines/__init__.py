@@ -1,9 +1,9 @@
 """Generation pipelines."""
 
 from .config import PipelineConfiguration
-from .sd import GenerationResult, StableDiffusionPipeline
+from .sd import GenerationResult, PipelineProgress, StableDiffusionPipeline
 from .sd3 import StableDiffusion3Pipeline
 from .sdxl import StableDiffusionXLPipeline
 
-__all__ = ["PipelineConfiguration", "GenerationResult", "StableDiffusionPipeline",
-           "StableDiffusion3Pipeline", "StableDiffusionXLPipeline"]
+__all__ = ["PipelineConfiguration", "GenerationResult", "PipelineProgress",
+           "StableDiffusionPipeline", "StableDiffusion3Pipeline", "StableDiffusionXLPipeline"]

@@ -39,7 +39,7 @@ class PipelineConfiguration:
     #: SDXL base -> refiner handoff (0..1 fraction of steps)
     refiner_start: float = 0.8
 
-    #: per-ControlNet conditioning images (not ported yet)
+    #: per-ControlNet conditioning images (NHWC arrays or PIL images)
     controlnet_inputs: Sequence[Any] = ()
 
     #: IP-Adapter reference image and weight (not ported yet)
@@ -49,7 +49,7 @@ class PipelineConfiguration:
     disable_safety: bool = False
     #: per-stage weight staging (not ported yet)
     reduce_memory: bool = False
-    #: denoised-x0 previews for progress callbacks (not ported yet)
+    #: denoised-x0 previews for progress callbacks
     use_denoised_intermediates: bool = False
 
     #: scheduler key from schedulers.SCHEDULER_MAP
@@ -63,13 +63,13 @@ class PipelineConfiguration:
     #: noise as the JAX package's modes of the same names
     rng: str = "numpy"
 
-    #: serial batch-1 CFG (not ported yet)
+    #: serial batch-1 CFG: two UNet calls of batch N for one of 2N
     unet_batch_one: bool = False
 
     #: "auto" | "plain" | "flash" (ops/attention.py)
     attention_implementation: str = "auto"
 
-    #: DeepCache interval; 1 = off (not ported yet)
+    #: DeepCache interval; 1 = off
     deepcache_interval: int = 1
 
     #: latent scale/shift; None -> per-family defaults

@@ -4,7 +4,14 @@
 The JAX package compiles the whole generation into one XLA program; here
 the same steps run eagerly on the card:
 
-1. tokenize the negative and positive prompts, encode them with CLIP;
+1. tokenize the negative and positive prompts, with the prompt-weight
+   syntax (``tokenizer/prompt_weights.py``) and windows of 75 tokens for
+   longer prompts (up to 4; the windows' hidden states are concatenated
+   along the sequence), and encode them with CLIP; weighted tokens scale
+   their hidden states, the mean of each prompt's kept
+   (``apply_prompt_weights``).  A ``multilingual_encoder=(projection,
+   embed_fn)`` takes the text encoder's place: the host ``embed_fn``'s
+   rows, cut or zero-padded to 256, through the projection;
 2. draw the initial noise on the host (numpy, torch or Philox streams, NCHW
    then NHWC, as the JAX package does) and scale it by ``init_noise_sigma``.
    A scheduler that needs noise at every step (Euler ancestral, LCM) takes
@@ -14,22 +21,32 @@ the same steps run eagerly on the card:
    encoder, ``z0 = sample_diagonal_gaussian(moments, noise) * scale`` with
    the same host draw as the noise, and start from ``add_noise(plan, z0,
    noise)`` on the strength-sliced plan;
-4. each step: ``scale_model_input``, the UNet on ``cat([lat, lat])`` with
-   ``cat([ctx_neg, ctx_pos])``, the guidance ``neg + g * (pos - neg)``, the
-   scheduler step.  Inpainting (``mask_image``, 1 = repaint): the pixel mask
-   area-pooled to the latents; a 4-channel UNet has the known region
-   replaced after every step by ``z0`` re-noised to the next step's level
-   (clean after the last); a 9-channel inpainting UNet takes ``[latents,
-   mask, masked-image latents]`` as its input instead.  A guidance-embedded
-   (LCM) UNet runs without CFG and takes ``w = guidance_scale - 1`` as its
-   ``timestep_cond``;
-5. decode with the VAE to uint8 pixels.
+4. each step: ``scale_model_input``; the ControlNets (one per
+   ``controlnet_inputs`` image) on those latents with the positive context,
+   their residuals summed in order; the UNet on ``cat([lat, lat])`` with
+   ``cat([ctx_neg, ctx_pos])`` and the residuals ``[r, r]`` (or, with
+   ``unet_batch_one``, two calls of batch N), the guidance ``neg + g * (pos -
+   neg)``, the scheduler step.  DeepCache (``deepcache_interval`` dc > 1):
+   step i of a phase starting at step lo runs the full UNet iff (i - lo) %
+   dc == 0, and the shallow pass on the cached deep feature otherwise.
+   Inpainting (``mask_image``, 1 = repaint): the pixel mask area-pooled to
+   the latents; a 4-channel UNet has the known region replaced after every
+   step by ``z0`` re-noised to the next step's level (clean after the
+   last); a 9-channel inpainting UNet takes ``[latents, mask, masked-image
+   latents]`` as its input instead (its ControlNets see the 4 channels).  A
+   guidance-embedded (LCM) UNet runs without CFG and takes ``w =
+   guidance_scale - 1`` as its ``timestep_cond``.  A ``progress_handler``
+   gets a ``PipelineProgress`` after every step and stops the loop by
+   returning False;
+5. decode with the VAE to uint8 pixels; the safety checker, if any and not
+   ``disable_safety``, zeroes the images it flags.
 
 ``seconds_per_step`` is measured as in the JAX package: text encoding plus
 the denoise loop, ended by fetching the latents to the host, divided by the
-step count.  Images come back as one (N, H, W, 3) uint8 array
-(``utils.image.to_pil`` converts).  Features not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+step count of the plan (also when a handler stopped the loop early).
+Images come back as one (N, H, W, 3) uint8 array (``utils.image.to_pil``
+converts).  Features not ported yet raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 
 Palettized weights (``install_palettized``) are served as the JAX package
 serves them: dequantized once on the host (``mode="install"``), or kept on
@@ -42,16 +59,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Any
 
 import numpy as np
 import torch
 
 from ..compress.palettize import PalettizedTensor
-from ..ops.attention import set_attention_implementation
-from ..schedulers import SCHEDULER_MAP
+from ..models.multilingual import EMBED_DIM, MAX_SEQUENCE_LENGTH
+from ..models.safety import check_images
 from ..models.unet import get_guidance_scale_embedding
 from ..models.vae import sample_diagonal_gaussian
+from ..ops.attention import set_attention_implementation
+from ..schedulers import SCHEDULER_MAP
 from ..schedulers.base import Scheduler, SchedulerConfig, TimestepSpacing
+from ..tokenizer.prompt_weights import empty_chunk_row, weighted_token_chunks
 from ..utils.image import nchw_to_nhwc, pil_to_tensor
 from ..utils.numerics import apply_numerics
 from ..utils.rng import make_random_source
@@ -59,8 +80,85 @@ from .config import PipelineConfiguration
 
 TEXT_LEN = 77
 
-#: prompt-weight syntax the JAX package parses (tokenizer/prompt_weights.py)
-_WEIGHT_SYNTAX = set("()[]\\")
+
+def _tokenize_chunked(tokenizer, texts, max_length=TEXT_LEN):
+    """Batch tokenization with prompt weights and long-prompt windows ->
+    (ids, weights, any_weighted): ids (B, max_length) when every prompt
+    fits one window (the rows ``tokenize`` gives a prompt without the
+    syntax), else (B, k, max_length) for the longest prompt's k windows,
+    shorter prompts padded with BOS+EOS rows."""
+    per = [weighted_token_chunks(tokenizer, t, max_length) for t in texts]
+    k = max(ids.shape[0] for ids, _, _ in per)
+    any_w = any(aw for _, _, aw in per)
+    if k == 1:
+        return (np.stack([ids[0] for ids, _, _ in per]),
+                np.stack([w[0] for _, w, _ in per]), any_w)
+    empty = empty_chunk_row(tokenizer, max_length)
+    rows, wrows = [], []
+    for ids, w, _ in per:
+        pad = k - ids.shape[0]
+        rows.append(np.concatenate([ids, np.tile(empty, (pad, 1))]))
+        wrows.append(np.concatenate([w, np.ones((pad, max_length), np.float32)]))
+    return np.stack(rows), np.stack(wrows), any_w
+
+
+def encode_text_chunked(encode, ids: torch.Tensor):
+    """Run a CLIP encoder over possibly windowed ids: (B, k, L) windows run
+    as one (B*k, L) batch -> (encoder outputs, (B, k, L) or None)."""
+    if ids.ndim == 2:
+        return encode(ids), None
+    B, k, L = ids.shape
+    return encode(ids.reshape(B * k, L)), (B, k, L)
+
+
+def _reseq(x, shape3):
+    """(B*k, L, C) hidden states -> (B, k*L, C)."""
+    B, k, L = shape3
+    return x.reshape(B, k * L, x.shape[-1])
+
+
+def apply_prompt_weights(ctx, weights):
+    """Scale each token's hidden state by its prompt weight, then restore
+    each prompt row's mean (the a1111 'original' renormalisation), in the
+    context's dtype.  ``weights``: (B, S) matching ``ctx`` (B, S, C)."""
+    w = weights[..., None].to(ctx.dtype)
+    mean_before = ctx.mean(dim=(1, 2), keepdim=True)
+    scaled = ctx * w
+    return scaled * (mean_before / scaled.mean(dim=(1, 2), keepdim=True))
+
+
+def _host_nhwc(x: torch.Tensor) -> np.ndarray:
+    """NCHW device latents -> NHWC float32 on the host."""
+    return x.permute(0, 2, 3, 1).float().cpu().numpy()
+
+
+def _multilingual_rows(embed_fn, text: str) -> np.ndarray:
+    """``embed_fn(text)`` cut or zero-padded to (MAX_SEQUENCE_LENGTH,
+    EMBED_DIM) float32."""
+    e = np.asarray(embed_fn(text), np.float32)[:MAX_SEQUENCE_LENGTH]
+    if e.shape[-1] != EMBED_DIM:
+        raise ValueError(f"multilingual embed_fn must return (S, {EMBED_DIM}), got {e.shape}")
+    return np.pad(e, ((0, MAX_SEQUENCE_LENGTH - e.shape[0]), (0, 0)))
+
+
+@dataclasses.dataclass
+class PipelineProgress:
+    """What a progress handler gets after each step: ``step`` of
+    ``step_count`` (the plan's), the latents (N, h, w, C) NHWC and, with
+    ``use_denoised_intermediates``, the step's predicted clean latents."""
+
+    pipeline: Any
+    step: int
+    step_count: int
+    latents: np.ndarray
+    denoised: np.ndarray | None = None
+
+    @property
+    def current_images(self) -> np.ndarray:
+        """The denoised (else the current) latents decoded to (N, H, W, 3)
+        uint8; runs the VAE decoder."""
+        return self.pipeline.decode_latents(
+            self.denoised if self.denoised is not None else self.latents)
 
 
 @dataclasses.dataclass
@@ -78,10 +176,6 @@ class GenerationResult:
 #: SD3 pipelines ignore the first, and every scheduler but DiscreteFlow the
 #: second, and so does the port
 _UNPORTED_FIELDS = {
-    "controlnet_inputs": "ControlNet: ROADMAP Queue 1 item 12",
-    "deepcache_interval": "DeepCache: ROADMAP Queue 1 item 12",
-    "unet_batch_one": "serial batch-1 CFG: ROADMAP Queue 1 item 12",
-    "use_denoised_intermediates": "denoised previews (progress callbacks): ROADMAP Queue 1 item 12",
     "ip_adapter_image": "IP-Adapter: ROADMAP Queue 1 item 15",
     "ip_adapter_scale": "IP-Adapter: ROADMAP Queue 1 item 15",
     "reduce_memory": "reduce_memory staging: ROADMAP Queue 1 item 17",
@@ -120,8 +214,12 @@ class StableDiffusionPipeline:
 
     Model arguments are ``nn.Module``s (``CLIPTextEncoder``,
     ``UNet2DConditionModel``, ``VAEDecoder``, and ``VAEEncoder`` for img2img
-    and inpainting) in the dtypes they should compute in; they are moved to
-    ``device``.
+    and inpainting; ``SafetyChecker``; ``ControlNetModel``s, one per
+    ``controlnet_inputs`` image at generation time) in the dtypes they
+    should compute in; they are moved to ``device``.
+    ``multilingual_encoder``: ``(MultilingualProjection, embed_fn)``, where
+    the host ``embed_fn(text)`` returns (S, 512) embeddings; it replaces
+    the CLIP text encoder.
     """
 
     default_latent_scale = 0.18215
@@ -136,20 +234,24 @@ class StableDiffusionPipeline:
                  vae_encoder=None, safety_checker=None, controlnets=(),
                  scheduler_config: SchedulerConfig | None = None,
                  text_embedding_key: str = "last_hidden_state",
+                 multilingual_encoder=None,
                  device: str | torch.device = "cuda"):
-        if safety_checker is not None:
-            raise NotImplementedError("the safety checker: ROADMAP Queue 1 item 12")
-        if controlnets:
-            raise NotImplementedError("ControlNet: ROADMAP Queue 1 item 12")
         apply_numerics()
         self.device = torch.device(device)
+
+        def on_device(module):
+            return None if module is None else module.to(self.device).eval()
+
         self.tokenizer = tokenizer
-        self.text_encoder = (None if text_encoder is None
-                             else text_encoder.to(self.device).eval())
-        self.unet = unet.to(self.device).eval()
-        self.vae_decoder = vae_decoder.to(self.device).eval()
-        self.vae_encoder = (None if vae_encoder is None
-                            else vae_encoder.to(self.device).eval())
+        self.text_encoder = on_device(text_encoder)
+        self.unet = on_device(unet)
+        self.vae_decoder = on_device(vae_decoder)
+        self.vae_encoder = on_device(vae_encoder)
+        self.safety_checker = on_device(safety_checker)
+        self.controlnets = [on_device(net) for net in controlnets]
+        self.multilingual_encoder = (
+            None if multilingual_encoder is None
+            else (on_device(multilingual_encoder[0]), multilingual_encoder[1]))
         self.scheduler_config = scheduler_config or SchedulerConfig()
         self.text_embedding_key = text_embedding_key
         #: program mode: module key -> ({parameter key: PalettizedTensor on
@@ -265,34 +367,48 @@ class StableDiffusionPipeline:
             raise ValueError("negative_prompt list length must match prompt")
         return neg, pos
 
-    @staticmethod
-    def _token_rows(tokenizer, texts) -> np.ndarray:
-        """(len(texts), 77) int32 ids; prompt weights and prompts longer
-        than one window raise."""
-        rows = []
-        for text in texts:
-            if _WEIGHT_SYNTAX & set(text):
-                raise NotImplementedError(
-                    f"prompt weight syntax in {text!r}: ROADMAP Queue 1 item 12")
-            if len(tokenizer.encode(text)) > TEXT_LEN - 2:
-                raise NotImplementedError(
-                    "prompts longer than one 77-token window: ROADMAP Queue 1 item 12")
-            rows.append(tokenizer.tokenize(text, TEXT_LEN)[0])
-        return np.stack(rows)
-
     def _tokenize(self, cfg: PipelineConfiguration) -> dict:
-        """-> {"ids": (2N or 2, 77) int32}, negatives first."""
+        """-> {"ids": (2N or 2, 77) or (2N or 2, k, 77) int32, negatives
+        first, and "weights" of the same shape when any prompt is weighted}
+        or, with a multilingual encoder, {"ml_embeds": (2N or 2, 256,
+        512)}."""
         neg, pos = self._prompt_lists(cfg)
-        return {"ids": self._token_rows(self.tokenizer, neg + pos)}
+        if self.multilingual_encoder is not None:
+            embed_fn = self.multilingual_encoder[1]
+            return {"ml_embeds": np.stack([_multilingual_rows(embed_fn, t) for t in neg + pos])}
+        ids, weights, any_w = _tokenize_chunked(self.tokenizer, neg + pos)
+        out = {"ids": ids}
+        if any_w:  # only weighted prompts take the scaling, so the others
+            # stay bit-identical to plain tokenization
+            out["weights"] = weights
+        return out
 
     def _ids(self, token_inputs: dict, key: str) -> torch.Tensor:
         return torch.from_numpy(token_inputs[key]).long().to(self.device)
 
+    def _hidden(self, encoder, token_inputs: dict, key: str, out_key: str, weights_key: str):
+        """-> (``out_key`` of ``encoder`` over the ids ``key``, windows
+        concatenated and ``weights_key`` applied; the encoder's outputs;
+        (B, k, L) or None)."""
+        out, shape3 = encode_text_chunked(encoder, self._ids(token_inputs, key))
+        ctx = out[out_key]
+        if shape3 is not None:
+            ctx = _reseq(ctx, shape3)
+        if weights_key in token_inputs:
+            w = token_inputs[weights_key]
+            ctx = apply_prompt_weights(
+                ctx, torch.from_numpy(w.reshape(w.shape[0], -1)).to(self.device))
+        return ctx, out, shape3
+
     def _encode_text(self, token_inputs: dict) -> dict:
-        """-> {"context": (2N or 2, 77, C), ...}: what the denoiser is
+        """-> {"context": (2N or 2, S, C), ...}: what the denoiser is
         conditioned on (SD3 adds the pooled vector)."""
-        return {"context": self.text_encoder(self._ids(token_inputs, "ids"))[
-            self.text_embedding_key]}
+        if "ml_embeds" in token_inputs:
+            proj = self.multilingual_encoder[0]
+            return {"context": proj(torch.from_numpy(token_inputs["ml_embeds"]).to(self.device))}
+        ctx, _, _ = self._hidden(self.text_encoder, token_inputs, "ids",
+                                 self.text_embedding_key, "weights")
+        return {"context": ctx}
 
     @staticmethod
     def _split_neg_pos(t, N: int):
@@ -318,8 +434,81 @@ class StableDiffusionPipeline:
         ctx_neg, ctx_pos = self._split_neg_pos(text["context"], N)
         return ctx_neg, ctx_pos, None, None
 
-    def _call_unet(self, phase: str, latents, t, context, added_cond, timestep_cond=None):
-        return self.unet(latents, t, context, timestep_cond=timestep_cond)
+    def _phase_unet(self, phase: str):
+        """The denoiser of ``phase`` (SDXL maps "refiner" to its refiner)."""
+        return self.unet
+
+    def _call_unet(self, phase: str, latents, t, context, added_cond, down_res=None,
+                   mid_res=None, **unet_kw):
+        """One denoiser call: ``down_res`` / ``mid_res`` the ControlNets'
+        residuals; ``unet_kw`` the guidance embedding and DeepCache's
+        arguments."""
+        return self._phase_unet(phase)(latents, t, context, added_cond,
+                                       down_block_residuals=down_res,
+                                       mid_block_residual=mid_res, **unet_kw)
+
+    def _call_unet_cached(self, cache: dict | None, full: bool, *args, **kw):
+        """``_call_unet`` under DeepCache (``cache`` not None): a full pass
+        that stores the deep feature in ``cache["feat"]``, or the shallow
+        pass on it."""
+        if cache is None:
+            return self._call_unet(*args, **kw)
+        if full:
+            out, cache["feat"] = self._call_unet(*args, return_deep_feature=True, **kw)
+            return out
+        return self._call_unet(*args, deep_feature=cache["feat"], **kw)
+
+    def _controlnet_stage(self, latents_in, t, ctx_pos, added_pos, ctrl_images):
+        """The ControlNets on the scaled latents with the positive
+        conditioning, one per control image -> (down residuals, mid
+        residual), summed over the nets in order; (None, None) without
+        control images."""
+        down = mid = None
+        for net, image in zip(self.controlnets, ctrl_images):
+            kw = {}
+            if net.config.addition_embed_type is not None:
+                kw["added_cond"] = added_pos  # SDXL micro-conditioning
+            d, m = net(latents_in, t, ctx_pos, image, **kw)
+            if down is None:
+                down, mid = d, m
+            else:
+                down = [a + b for a, b in zip(down, d)]
+                mid = mid + m
+        return down, mid
+
+    def _ctrl_images(self, cfg: PipelineConfiguration, N: int):
+        """``controlnet_inputs`` (NHWC arrays, taken as they are, or PIL
+        images, read into [0, 1]) -> one (N, 3, H, W) float32 tensor each."""
+        out = []
+        for im in cfg.controlnet_inputs:
+            if not isinstance(im, np.ndarray):
+                im = pil_to_tensor(im, value_range=(0.0, 1.0))
+            out.append(self._nchw(np.broadcast_to(im, (N,) + tuple(im.shape[-3:]))))
+        return out
+
+    def _check_deepcache(self, cfg: PipelineConfiguration, num_steps: int):
+        """The JAX pipeline's guards on ``deepcache_interval`` dc > 1: a
+        denoiser with a shallow/deep split, no serial CFG, and dc below the
+        longest phase.  A single phase is measured by min(step_count,
+        plan.num_steps): PNDM's plan has one call more than the steps, and
+        img2img's strength slice fewer."""
+        dc = cfg.deepcache_interval
+        if dc == 1:
+            return
+        if not self.supports_deepcache:
+            raise ValueError("deepcache_interval > 1 is not supported for this model family "
+                             "(no shallow/deep UNet split)")
+        if cfg.unet_batch_one:
+            raise ValueError("deepcache_interval > 1 is incompatible with unet_batch_one "
+                             "(serial CFG parity)")
+        phases = self._denoise_phases(cfg, num_steps)
+        longest = (min(cfg.step_count, num_steps) if len(phases) == 1
+                   else max(end - start for start, end, _ in phases))
+        if longest > 1 and dc >= longest:
+            raise ValueError(
+                f"deepcache_interval ({dc}) must be < step_count (longest denoise phase: "
+                f"{longest} steps): at interval >= phase length only the phase's first step "
+                "runs the deep UNet and every later step reuses its stale deep features")
 
     # -- latents ---------------------------------------------------------------
 
@@ -384,16 +573,21 @@ class StableDiffusionPipeline:
         return latents, {"mask": mask, "z0": z0, "noise": noise}
 
     def _denoise(self, cfg, latents, text, N, plan, scheduler, guidance_on, g,
-                 step_noises=None, inpaint=None, timestep_cond=None):
+                 step_noises=None, inpaint=None, timestep_cond=None, ctrl_images=(),
+                 progress_handler=None):
         """The denoise loop on NCHW float32 latents: the phases in turn over
         one scheduler state, as the JAX package's consecutive scans.
         ``step_noises`` (steps, N, h, w, C) host noise for a scheduler that
         needs it; ``inpaint`` the inpainting state of ``_start``;
         ``timestep_cond`` the guidance embedding of a guidance-embedded UNet
-        (its base phase only)."""
+        (its base phase only); ``ctrl_images`` one per ControlNet, which run
+        in every phase; ``progress_handler`` called after every step, the
+        loop ending when it returns False."""
         timesteps = torch.from_numpy(plan.timesteps).to(self.device)
         state = scheduler.initial_state(plan, latents)
         inpaint = inpaint or {}
+        dc = cfg.deepcache_interval
+        serial = guidance_on and cfg.unet_batch_one
         for start, end, phase in self._denoise_phases(cfg, plan.num_steps):
             ctx_neg, ctx_pos, added_neg, added_pos = self._phase_conditioning(
                 cfg, text, N, phase)
@@ -403,22 +597,42 @@ class StableDiffusionPipeline:
             extras9 = inpaint.get("extras9") if base else None
             tc_kw = {"timestep_cond": timestep_cond} if base and timestep_cond is not None else {}
             ctx2 = added2 = None
-            if guidance_on:
+            if guidance_on and not serial:
                 ctx2 = torch.cat([ctx_neg, ctx_pos])
                 if added_pos is not None:
                     added2 = {key: torch.cat([added_neg[key], added_pos[key]])
                               for key in added_pos}
+            # the deep-feature cache starts empty with each phase: its first
+            # step is a full pass (the JAX scan's zero feature is never read)
+            cache = {} if dc > 1 else None
             for i in range(start, end):
                 t = timesteps[i]
+                full = (i - start) % dc == 0
                 lat_in = scheduler.scale_model_input(plan, state, latents, i)
+                down_res, mid_res = self._controlnet_stage(lat_in, t, ctx_pos, added_pos,
+                                                               ctrl_images)
                 if extras9 is not None:
                     lat_in = torch.cat([lat_in, extras9.to(lat_in.dtype)], dim=1)
-                if guidance_on:
-                    out = self._call_unet(phase, torch.cat([lat_in, lat_in]), t, ctx2, added2)
-                    out_neg, out_pos = out.chunk(2)
-                    noise_pred = out_neg + g * (out_pos - out_neg)
+                if not guidance_on:
+                    noise_pred = self._call_unet_cached(cache, full, phase, lat_in, t, ctx_pos,
+                                                        added_pos, down_res, mid_res, **tc_kw)
                 else:
-                    noise_pred = self._call_unet(phase, lat_in, t, ctx_pos, added_pos, **tc_kw)
+                    if serial:
+                        out_neg = self._call_unet(phase, lat_in, t, ctx_neg, added_neg,
+                                                  down_res, mid_res)
+                        out_pos = self._call_unet(phase, lat_in, t, ctx_pos, added_pos,
+                                                  down_res, mid_res)
+                    else:
+                        dr2 = None if down_res is None else [torch.cat([r, r]) for r in down_res]
+                        mr2 = None if mid_res is None else torch.cat([mid_res, mid_res])
+                        out = self._call_unet_cached(cache, full, phase,
+                                                     torch.cat([lat_in, lat_in]), t, ctx2,
+                                                     added2, dr2, mr2)
+                        out_neg, out_pos = out.chunk(2)
+                    noise_pred = out_neg + g * (out_pos - out_neg)
+                denoised = None
+                if progress_handler is not None and cfg.use_denoised_intermediates:
+                    denoised = scheduler.pred_x0(plan, state, noise_pred, i, latents)
                 noise = None
                 if scheduler.needs_noise:
                     noise = self._nchw(step_noises[i])
@@ -429,6 +643,12 @@ class StableDiffusionPipeline:
                     known = (z0 if i + 1 >= plan.num_steps else
                              scheduler.add_noise(plan, z0, inpaint["noise"], i + 1))
                     latents = m * latents + (1.0 - m) * known
+                if progress_handler is not None:
+                    progress = PipelineProgress(
+                        self, i + 1, plan.num_steps, _host_nhwc(latents),
+                        None if denoised is None else _host_nhwc(denoised))
+                    if progress_handler(progress) is False:
+                        return latents
         return latents
 
     # -- decode ----------------------------------------------------------------
@@ -449,15 +669,19 @@ class StableDiffusionPipeline:
 
     # -- public API ----------------------------------------------------------------
 
+    def run_safety_checker(self, images: np.ndarray):
+        """-> (images with the flagged ones zeroed, nsfw flags)."""
+        if self.safety_checker is None:
+            return images, [False] * len(images)
+        return check_images(self.safety_checker, images)
+
     def generate_images(self, cfg: PipelineConfiguration, progress_handler=None,
                         image_hw: tuple[int, int] = (512, 512)) -> GenerationResult:
+        """``progress_handler(PipelineProgress) -> bool | None``: called after
+        every step; returning False ends the loop, and what the latents are
+        then is decoded."""
         cfg.validate()
-        if cfg.deepcache_interval > 1 and not self.supports_deepcache:
-            raise ValueError("deepcache_interval > 1 is not supported for this model family "
-                             "(no shallow/deep UNet split)")
         _unported(cfg)
-        if progress_handler is not None:
-            raise NotImplementedError("progress callbacks: ROADMAP Queue 1 item 12")
         N = cfg.image_count
         h, w = image_hw[0] // self.vae_downscale, image_hw[1] // self.vae_downscale
         scheduler = self._make_scheduler(cfg)
@@ -475,7 +699,14 @@ class StableDiffusionPipeline:
         # a guidance-embedded (LCM) UNet never runs CFG: the scale is an input
         tcp = getattr(self.unet.config, "time_cond_proj_dim", None)
         guidance_on = cfg.guidance_scale > 1.0 and not tcp
+        n_ctrl = len(cfg.controlnet_inputs)
+        if n_ctrl and n_ctrl != len(self.controlnets):
+            raise ValueError("controlnet_inputs count must match loaded controlnets")
         set_attention_implementation(cfg.attention_implementation)
+        if cfg.deepcache_interval > 1 and progress_handler is not None:
+            raise ValueError("deepcache_interval > 1 is incompatible with a progress_handler "
+                             "(the deep-feature cache lives in the one-program scan carry)")
+        self._check_deepcache(cfg, plan.num_steps)
 
         token_inputs = self._tokenize(cfg)
         noise, step_noises = self._noise(cfg, N, h, w,
@@ -495,13 +726,17 @@ class StableDiffusionPipeline:
                                                      img2img, inpaint, unet9)
                 latents = self._denoise(cfg, latents, text, N, plan, scheduler, guidance_on,
                                         float(cfg.guidance_scale), step_noises,
-                                        inpaint_state, w_emb)
+                                        inpaint_state, w_emb, self._ctrl_images(cfg, N),
+                                        progress_handler)
                 # the host fetch waits for the device
-                latents = latents.permute(0, 2, 3, 1).cpu().numpy()
+                latents = _host_nhwc(latents)
         finally:
             self._release_palettized()
         dt = (time.perf_counter() - t0) / plan.num_steps
 
         images = self.decode_latents(latents, cfg)
+        nsfw = [False] * N
+        if not cfg.disable_safety:
+            images, nsfw = self.run_safety_checker(images)
         return GenerationResult(images=images, latents=latents,
-                                nsfw_flags=[False] * N, seconds_per_step=dt)
+                                nsfw_flags=nsfw, seconds_per_step=dt)

@@ -91,5 +91,8 @@ class StableDiffusion3Pipeline(StableDiffusionPipeline):
         pooled_neg, pooled_pos = self._split_neg_pos(text["pooled"], N)
         return ctx_neg, ctx_pos, {"pooled": pooled_neg}, {"pooled": pooled_pos}
 
-    def _call_unet(self, phase: str, latents, t, context, added_cond, timestep_cond=None):
+    def _call_unet(self, phase: str, latents, t, context, added_cond, down_res=None,
+                   mid_res=None, **unet_kw):
+        # no ControlNet residuals (the constructor refuses SD3 ControlNets)
+        # and no DeepCache (supports_deepcache)
         return self.unet(latents, t, context, added_cond["pooled"])

@@ -20,19 +20,43 @@ What differs from the SD-2.x pipeline it extends:
   min(n, max(0, int(refiner_start * n)))``;
 - latent scale 0.13025.
 
-img2img and inpainting come through the inherited ``generate_images``, as in
-the JAX package: the base -> refiner cut splits the strength-sliced plan.
-Prompt weights and prompts longer than one 77-token window raise
-``NotImplementedError`` as in the SD pipeline; so do SDXL ControlNet and
-``reduce_memory`` staging, naming their ROADMAP.md items.
+- prompt weights and long prompts over both encoders: they run over the
+  same window count (the shorter tokenization padded with BOS+EOS windows),
+  each encoder's states weighted with its own tokenization's weights; the
+  pooled vector comes from bigG's first window;
+- SDXL ControlNets (``addition_embed_type="text_time"``) take the base
+  phase's ``added_cond``.  As in the JAX pipeline the nets run in every
+  phase with that phase's conditioning, so a base net beside a refiner
+  fails in the refiner phase (its 5 time ids).
+
+img2img, inpainting, progress callbacks, serial CFG, DeepCache and the
+safety checker come through the inherited ``generate_images``, as in the
+JAX package: the base -> refiner cut splits the strength-sliced plan.
+``reduce_memory`` staging raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..tokenizer.prompt_weights import empty_chunk_row
 from .config import PipelineConfiguration
-from .sd import StableDiffusionPipeline
+from .sd import TEXT_LEN, StableDiffusionPipeline, _tokenize_chunked
+
+
+def _to_windows(ids, w, k: int, tokenizer):
+    """(B, L) or (B, k', L) ids and weights -> (B, k, L), padded with
+    BOS+EOS windows of weight 1."""
+    if ids.ndim == 2:
+        ids, w = ids[:, None], w[:, None]
+    pad = k - ids.shape[1]
+    B = ids.shape[0]
+    ids = np.concatenate([ids, np.tile(empty_chunk_row(tokenizer, TEXT_LEN), (B, pad, 1))],
+                         axis=1)
+    w = np.concatenate([w, np.ones((B, pad, TEXT_LEN), np.float32)], axis=1)
+    return ids, w
 
 
 class StableDiffusionXLPipeline(StableDiffusionPipeline):
@@ -42,13 +66,11 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
                  refiner_unet=None, vae_decoder, vae_encoder=None, safety_checker=None,
                  controlnets=(), scheduler_config=None, force_zeros_for_empty_prompt=True,
                  device: str | torch.device = "cuda"):
-        if controlnets:
-            raise NotImplementedError("SDXL ControlNet: ROADMAP Queue 1 item 13")
         # text_encoder (CLIP-L) is optional: refiner-only setups omit it
         super().__init__(tokenizer=tokenizer, text_encoder=text_encoder, unet=unet,
                          vae_decoder=vae_decoder, vae_encoder=vae_encoder,
-                         safety_checker=safety_checker, scheduler_config=scheduler_config,
-                         device=device)
+                         safety_checker=safety_checker, controlnets=controlnets,
+                         scheduler_config=scheduler_config, device=device)
         self.tokenizer2 = tokenizer2
         self.text_encoder2 = text_encoder2.to(self.device).eval()
         self.refiner_unet = (None if refiner_unet is None
@@ -59,20 +81,35 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
 
     def _tokenize(self, cfg: PipelineConfiguration) -> dict:
         neg, pos = self._prompt_lists(cfg)
-        out = {"ids2": self._token_rows(self.tokenizer2, neg + pos)}
+        ids2, w2, any_w2 = _tokenize_chunked(self.tokenizer2, neg + pos)
+        out = {}
         if self.text_encoder is not None:
-            out["ids"] = self._token_rows(self.tokenizer, neg + pos)
+            ids1, w1, any_w1 = _tokenize_chunked(self.tokenizer, neg + pos)
+            # the two encoders' states concatenate window by window
+            k = max(ids1.shape[1] if ids1.ndim == 3 else 1, ids2.shape[1] if ids2.ndim == 3 else 1)
+            if k > 1:
+                ids1, w1 = _to_windows(ids1, w1, k, self.tokenizer)
+                ids2, w2 = _to_windows(ids2, w2, k, self.tokenizer2)
+            out["ids"] = ids1
+            if any_w1:
+                out["weights"] = w1
+        out["ids2"] = ids2
+        if any_w2:
+            out["weights2"] = w2
         out["zero_negative"] = self.force_zeros_for_empty_prompt and all(t == "" for t in neg)
         return out
 
     def _encode_text(self, token_inputs: dict) -> dict:
-        out2 = self.text_encoder2(self._ids(token_inputs, "ids2"))
-        ctx2 = out2["penultimate_hidden_state"]
+        ctx2, out2, shape3 = self._hidden(self.text_encoder2, token_inputs, "ids2",
+                                          "penultimate_hidden_state", "weights2")
         pooled = out2["pooled_output"]
+        if shape3 is not None:  # the pooled vector of the first window
+            pooled = pooled.reshape(shape3[0], shape3[1], -1)[:, 0]
         ctx = ctx2
         if self.text_encoder is not None:
-            out1 = self.text_encoder(self._ids(token_inputs, "ids"))
-            ctx = torch.cat([out1["penultimate_hidden_state"], ctx2], dim=-1)
+            ctx1, _, _ = self._hidden(self.text_encoder, token_inputs, "ids",
+                                      "penultimate_hidden_state", "weights")
+            ctx = torch.cat([ctx1, ctx2], dim=-1)
         if token_inputs["zero_negative"]:
             half = ctx.shape[0] // 2  # the negative rows come first
             ctx = torch.cat([ctx[:half] * 0.0, ctx[half:]])
@@ -113,6 +150,5 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
         return (ctx_neg, ctx_pos, {"text_embeds": pooled_neg, "time_ids": time_ids(ids_neg)},
                 {"text_embeds": pooled_pos, "time_ids": time_ids(ids_pos)})
 
-    def _call_unet(self, phase: str, latents, t, context, added_cond, timestep_cond=None):
-        unet = self.refiner_unet if phase == "refiner" else self.unet
-        return unet(latents, t, context, added_cond, timestep_cond=timestep_cond)
+    def _phase_unet(self, phase: str):
+        return self.refiner_unet if phase == "refiner" else self.unet

@@ -465,7 +465,6 @@ def test_load_pipeline_from_jax_bundle(pair, palettized_generation, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"controlnets": ["ControlNet-x"]}, "ControlNet"),
     ({"family": "StableDiffusion3Pipeline"}, "T5"),
 ])
 def test_load_pipeline_unported_modules_raise(pair, palettized_generation, tmp_path, extra,

@@ -91,6 +91,33 @@ def test_flash_kernel_matches_plain(shape, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,D", [
+    # SD-1.5 cross-attention over a prompt of four 77-token windows: 308 =
+    # 2 x 128 + 52 keys, the last tile ragged, at every chunked width
+    (2, 4096, 308, 40), (2, 1024, 308, 80), (2, 256, 308, 160),
+    # and over the multilingual projection's 256 rows
+    (2, 4096, 256, 40), (2, 1024, 256, 80), (2, 256, 256, 160),
+    # batch 1 (serial CFG, ControlNet)
+    (1, 4096, 308, 40), (1, 256, 308, 160),
+])
+def test_flash_kernel_cross_attention(B, Sq, Sk, D, cuda_device):
+    """Sq != Sk on the single-stream entry; k and v fresh projections of
+    the context, as ``Attention`` makes them."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    H = 8
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda_device).to(torch.bfloat16)
+    ctx = torch.randn(B, Sk, 96, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    wk, wv = (torch.randn(H * D, 96, generator=g, device=cuda_device,
+                          dtype=torch.bfloat16) / 10 for _ in range(2))
+    k, v = ((ctx @ w.t()).view(B, Sk, H, D) for w in (wk, wv))
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert_matches_plain(got, q, k, v)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pad", [0, 8])
 def test_flash_kernel_reads_strided_views(pad, cuda_device):
     """q, k, v as head slices of one (B, S, 3, H, D + pad) projection: the

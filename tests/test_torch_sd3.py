@@ -159,7 +159,6 @@ def test_timestep_shift_is_read(pair):
     (dict(t5_encoder=object()), "T5"),
     (dict(t5_tokenizer=object()), "T5"),
     (dict(controlnets=[object()]), "SD3 ControlNet"),
-    (dict(safety_checker=object()), "safety checker"),
 ])
 def test_unported_parts_raise(pair, kw, match):
     _, port_pipe = pair

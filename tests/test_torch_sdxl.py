@@ -12,7 +12,8 @@
   ``refiner_start=0.6`` and without a refiner: latents within atol 1e-3 and
   uint8 images within 1, as for the SD-2.1 and SD3 pipelines.
 - force_zeros_for_empty_prompt, the time ids of both phases, the phase
-  split, and the fields and parts that still raise.
+  split, the features of ROADMAP item 12 through both phases, and the
+  field that still raises.
 - The SDXL branch of ``load_pipeline_from_artifacts``: a JAX-written bundle
   with both UNets palettized (8 bits) generates the JAX loader's latents
   (atol 1e-3, as above).
@@ -264,30 +265,32 @@ def test_denoise_phases_match_jax(pair, refiner_start, steps):
         (0, steps, "unet")]
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(prompt="a (cat:1.5)"), "prompt weight"),
-    (dict(negative_prompt="a " * 80), "77-token"),
-    (dict(use_denoised_intermediates=True), "denoised previews"),
-    (dict(reduce_memory=True), "reduce_memory"),
-    (dict(deepcache_interval=2), "DeepCache"),
-    (dict(unet_batch_one=True), "batch-1"),
+@pytest.mark.parametrize("kw", [
+    dict(prompt="a (cat:1.5) [sat]"),
+    # the negative spans two windows of CLIP-L and of CLIP-G
+    dict(negative_prompt="a " * 80),
+    # four windows (360 tokens cut to 300), weighted
+    dict(prompt="(" + "cat dog " * 60 + ":1.2)"),
+    dict(use_denoised_intermediates=True),
+    dict(deepcache_interval=2),
+    dict(unet_batch_one=True),
 ])
-def test_unported_fields_raise(pair, kw, match):
-    _, port_pipes = pair
-    with pytest.raises(NotImplementedError, match=match):
-        port_pipes["refiner"].generate_images(PipelineConfiguration(**_kw(**kw)), image_hw=HW)
+def test_features_match_jax(pair, kw):
+    """Base and refiner (4 + 1 of 5 steps): dual-encoder prompt weights and
+    long prompts, denoised previews (a no-op without a handler), DeepCache
+    (each phase restarts with a full pass) and serial CFG."""
+    jax_pipe, port_pipes = pair
+    args = _kw(step_count=5, refiner_start=0.8, **kw)
+    ref = jax_pipe.generate_images(JaxConfig(**args), image_hw=HW)
+    got = port_pipes["refiner"].generate_images(PipelineConfiguration(**args), image_hw=HW)
+    np.testing.assert_allclose(got.latents, ref.latents, atol=1e-3)
 
 
-def test_unported_parts_raise(pair):
+def test_unported_fields_raise(pair):
     _, port_pipes = pair
-    p = port_pipes["base"]
-    args = dict(tokenizer=p.tokenizer, tokenizer2=p.tokenizer2, text_encoder=p.text_encoder,
-                text_encoder2=p.text_encoder2, unet=p.unet, vae_decoder=p.vae_decoder,
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="SDXL ControlNet"):
-        StableDiffusionXLPipeline(**args, controlnets=[object()])
-    with pytest.raises(NotImplementedError, match="safety checker"):
-        StableDiffusionXLPipeline(**args, safety_checker=object())
+    with pytest.raises(NotImplementedError, match="reduce_memory"):
+        port_pipes["refiner"].generate_images(
+            PipelineConfiguration(**_kw(reduce_memory=True)), image_hw=HW)
 
 
 def test_sdxl_pipeline_constants_are_the_jax_ones():
@@ -370,3 +373,32 @@ def test_img2img_with_refiner_matches_jax(pair, case):
     np.testing.assert_allclose(got.latents, ref.latents, atol=1e-3)
     ref_images = np.stack([np.asarray(im) for im in ref.images])
     assert np.abs(got.images.astype(int) - ref_images.astype(int)).max() <= 1
+
+
+def test_controlnet_runs_in_the_refiner_phase_as_in_jax(pair):
+    """Both pipelines run their ControlNets in every phase with that phase's
+    conditioning: a base SDXL net beside a refiner gets the refiner's 5 time
+    ids (and its narrower context) and fails in both, at its added
+    embedding."""
+    import copy
+
+    from ml_stable_diffusion_tpu.models.controlnet import ControlNetModel as JaxControlNet
+
+    from torch_helpers import port_controlnet
+
+    jax_pipe, port_pipes = pair
+    cfg = dataclasses.replace(tiny_unet(cross_dim=XL_CTX, xl=True)[0].config, up_block_types=())
+    net = JaxControlNet(cfg)
+    added = {"text_embeds": jnp.zeros((1, POOLED)), "time_ids": jnp.zeros((1, 6))}
+    params = jax.jit(lambda k: net.init(k, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
+                                        jnp.zeros((1, 77, XL_CTX)), jnp.zeros((1, 64, 64, 3)),
+                                        added_cond=added))(jax.random.key(5))["params"]
+    jax_pipe, port_pipe = copy.copy(jax_pipe), copy.copy(port_pipes["refiner"])
+    jax_pipe._programs = {}
+    jax_pipe.controlnets = [(net, params)]
+    port_pipe.controlnets = [port_controlnet(net, params)]
+    kw = _kw(refiner_start=0.6, controlnet_inputs=[np.zeros((1, 64, 64, 3), np.float32)])
+    with pytest.raises(Exception, match="add_embedding/linear_1"):
+        jax_pipe.generate_images(JaxConfig(**kw), image_hw=HW)
+    with pytest.raises(RuntimeError, match="shapes cannot be multiplied .1x72 and 80x64."):
+        port_pipe.generate_images(PipelineConfiguration(**kw), image_hw=HW)
