@@ -109,11 +109,33 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    and a weighted dual-encoder prompt of two windows: one generation, 2081
    flash launches (70 + 34 a UNet call, + 1) and 680 GroupNorm (the net's
    GroupNorms are plain, as in the JAX package).
+18. SD3-medium 1024x1024 on phase 5's pipeline plus the full-width T5-XXL
+   encoder (``T5Config.xxl()``, 4.76 B parameters in bf16, its
+   relative-position table float32, N(0, 0.02) weights) and a synthetic
+   unigram ``tokenizer.json`` written here: warm-up and median of 3, 480
+   multi-stream launches a generation as without T5, the latents moved from
+   phase 5's of the same prompt and seed; the T5 encode's device ms beside
+   its bound (the weights read once).
+19. SD3-medium with one full-width ``SD3ControlNetConfig.sd3_medium()`` net
+   (12 joint blocks, ~1.1 B parameters, bf16) and a 16-channel VAE encoder:
+   its control image VAE-encoded once a generation, the net's joint
+   attention at batch 1 on the multi-stream kernel.  Warm-up and median of
+   3 (720 multi-stream launches, 2 f32 D = 512 VAE heads: the decode's and
+   the control encode's), then two nets for one generation (960, 3); the
+   net moves the latents from phase 5's.
+20. The loader on the card: phase 3's SD-2.1 modules (plus a VAE encoder, a
+   diffusers VAE holds both) saved as a diffusers-layout directory in the
+   dtypes they run in (UNet bf16, CLIP and VAE float32; the port's
+   ``save_file``), ``convert.load.load_pipeline`` on it, and one generation
+   whose latents must equal phase 3's of the same prompt and seed bit for
+   bit; the directory is removed.
+
+Phase 2 holds the multi-stream kernel at SD3 ControlNet's batch-1 shape too.
 
 Every kernel launch counter is set to 0 just before each main path (phases
 3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, each
-path of 15, 16 and 17, and phase 10 for the fused dequant-matmul, whose main
-path it is) and read just after it; phase 13 reads them around each
+path of 15, 16, 17, 18, 19 and 20, and phase 10 for the fused
+dequant-matmul, whose main path it is) and read just after it; phase 13 reads them around each
 generation.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -305,6 +327,32 @@ PATHS.update({
 })
 #: the SD-1.5 paths at 512x512, each with the VAE decoder's head
 SD15_PATHS = [p for p in PATHS if p.startswith("sd15")]
+#: phases 18 and 19: SD3-medium 1024x1024 with T5-XXL, and with SD3
+#: ControlNets: a net runs its 12 joint blocks at batch 1 (the positive
+#: conditioning) a denoiser call, and its control image is VAE-encoded once
+#: a generation (one more f32 D = 512 head)
+SD3_NET_BLOCKS = 12
+
+
+def _sd3_path(label, nets):
+    heads = {name: 1 + nets for name in VAE_ATTENTION}
+    return dict(label=f"SD3-medium 1024x1024, 20 steps DiscreteFlow, CFG batch 2: {label}",
+                image_hw=(1024, 1024), latents=(1, 128, 128, 16), guidance=4.5,
+                scheduler="DiscreteFlow",
+                per_generation={"flash_attention": 1 + nets,
+                                "flash_attention_multi_q": (24 + SD3_NET_BLOCKS * nets) * STEPS,
+                                **heads, "group_norm_silu": 0, "palettized_dense_fused": 0})
+
+
+PATHS.update({
+    "sd3_t5": _sd3_path("the T5-XXL encoder", 0),
+    "sd3_controlnet": _sd3_path("one SD3 ControlNet (12 joint blocks)", 1),
+    "sd3_controlnet2": _sd3_path("two SD3 ControlNets", 2),
+    #: phase 20: phase 3's path on its modules reloaded from a diffusers
+    #: directory
+    "sd21_diffusers": dict(PATHS["sd21"], label="SD-2.1-base 512x512 loaded from a "
+                           "diffusers directory, 20 steps DPM++ 2M, CFG batch 2"),
+})
 
 
 def sd15_self(tokens: int):
@@ -499,7 +547,7 @@ def timings(kernel, plain, library, bound_s):
 def sd21_all(n, img2img=None):
     """Launches per generation of the SD-2.1 path and its palettized runs,
     and ``img2img`` of its img2img and inpainting runs."""
-    out = {"sd21": n, "sd21_pal_install": n, "sd21_pal_program": n}
+    out = {"sd21": n, "sd21_pal_install": n, "sd21_pal_program": n, "sd21_diffusers": n}
     if img2img:
         out.update(sd21_img2img=img2img, sd21_inpaint=img2img)
     return out
@@ -515,7 +563,7 @@ FLASH_SHAPES = [
      {**sd21_all(1, 2), **{p: 1 for p in SD15_PATHS}}),
     ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32,
      {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1, "sd3_img2img": 2, "sdxl_img2img": 2,
-      "sdxl_controlnet": 1}),
+      "sdxl_controlnet": 1, "sd3_t5": 1, "sd3_controlnet": 2, "sd3_controlnet2": 3}),
     ("sd15 64x64", (4096,), 4096, 2, 8, 40, torch.bfloat16, sd15_self(4096)),
     ("sd15 32x32", (1024,), 1024, 2, 8, 80, torch.bfloat16, sd15_self(1024)),
     ("sd15 16x16", (256,), 256, 2, 8, 160, torch.bfloat16, sd15_self(256)),
@@ -562,7 +610,11 @@ FLASH_SHAPES = [
 ]
 MULTI_Q_SHAPES = [
     ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16,
-     {"sd3": 480, "sd3_img2img": 24 * 15}),
+     {"sd3": 480, "sd3_img2img": 24 * 15, "sd3_t5": 480, "sd3_controlnet": 480,
+      "sd3_controlnet2": 480}),
+    # the SD3 ControlNets' joint blocks, at batch 1
+    ("sd3 cn joint 1024", (4096, 154), 4250, 1, 24, 64, torch.bfloat16,
+     {"sd3_controlnet": SD3_NET_BLOCKS * STEPS, "sd3_controlnet2": 2 * SD3_NET_BLOCKS * STEPS}),
     ("ragged f32", (384, 77), 461, 2, 3, 64, torch.float32, {}),
     ("ragged f32 512", (384, 77), 461, 1, 3, 512, torch.float32, {}),
     ("ragged bf16", (384, 77), 461, 2, 3, 64, torch.bfloat16, {}),
@@ -1678,6 +1730,265 @@ def run_sdxl_controlnet_path(pipe, counters, report):
     return res
 
 
+# -- phases 18 to 20 ----------------------------------------------------------------
+
+#: a path's latents against phase 5's of the same prompt and seed (relative
+#: max abs): the T5 context and a net's residuals must move them
+SD3_MIN_REL = 1e-4
+
+
+def t5_tokenizer_json(path: Path) -> Path:
+    """A synthetic unigram ``tokenizer.json`` in T5's layout (<pad> 0, </s> 1,
+    <unk> 2; the SpmConverter normalizer without a character map; Metaspace)
+    over the prompts' letters and words."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    words = sorted({w for p in PROMPTS for w in p.split()})
+    vocab = [["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0], ["\u2581", -3.0]]
+    vocab += [[c, -3.0] for c in letters] + [["\u2581" + c, -3.5] for c in letters]
+    vocab += [["\u2581" + w, -4.0] for w in words]
+    special = [{"id": i, "content": c, "single_word": False, "lstrip": False, "rstrip": False,
+                "normalized": False, "special": True}
+               for i, c in enumerate(("<pad>", "</s>", "<unk>"))]
+    path.write_text(json.dumps({
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": special,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "\u2581"}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "\u2581",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": None, "decoder": None,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab, "byte_fallback": False}}))
+    return path
+
+
+def build_t5(seed: int):
+    """The full-width T5-XXL encoder on the card: bf16 weights N(0, 0.02)
+    from ``seed``, allocated once in bf16, the relative-position table
+    float32."""
+    from ml_stable_diffusion_torch.models.init import init_random_
+    from ml_stable_diffusion_torch.models.t5 import T5Config, T5Encoder
+
+    with torch.device("meta"):
+        t5 = T5Encoder(T5Config.xxl())
+    t5 = t5.to(torch.bfloat16).to_empty(device="cuda")
+    init_random_(t5, torch.Generator(device="cuda").manual_seed(seed), std=0.02)
+    table = t5.encoder.block[0].layer[0].SelfAttention.relative_attention_bias.weight
+    if table.dtype != torch.float32:
+        fail(f"the T5 relative-position table is {table.dtype}, want float32")
+    return t5.eval()
+
+
+def time_t5_encode(t5, tokenizer):
+    """The T5 encode of one CFG pair (the negative "" and a prompt, 77
+    tokens each) on the card: CUDA-event ms, and the device's busy ms and
+    kernel launches per encode from the profiler over 3 encodes, beside its
+    bound, the larger of (the weights it reads once, the rows it gathers,
+    its output) / 3.35 TB/s and its matrix products' operations / the bf16
+    peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    rows = [tokenizer.tokenize(t, 77) for t in ("", PROMPTS[0])]
+    ids = torch.from_numpy(np.stack([r[0] for r in rows])).long().cuda()
+    mask = torch.from_numpy(np.stack([r[1] for r in rows])).long().cuda()
+
+    @torch.inference_mode()
+    def encode():
+        return t5(ids, mask)["encoder_hidden_states"]
+
+    cfg = t5.config
+    B, S = ids.shape
+    shared = t5.shared.weight
+    weight_bytes = sum(p.numel() * p.element_size() for p in t5.parameters()
+                       if p is not shared)
+    nbytes = weight_bytes + 2 * B * S * cfg.d_model * shared.element_size()
+    linear = sum(m.weight.numel() for m in t5.modules() if isinstance(m, torch.nn.Linear))
+    ops = 2 * linear * B * S + 4 * B * cfg.num_heads * S * S * cfg.d_kv * cfg.num_layers
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[torch.bfloat16]
+    ms = time_ms(encode, reps=3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            encode()
+        torch.cuda.synchronize()
+    busy_us, _, names = _device_time(prof)
+    out = dict(ms=ms, device_ms=busy_us / 1e3 / 3,
+               launches=sum(n for n, _ in names.values()) / 3,
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               weight_bytes=weight_bytes, operations=ops, tokens=[B, S])
+    log(f"T5-XXL encode of (2, 77) tokens: {out['ms']:.3f} ms (device busy "
+        f"{out['device_ms']:.3f} ms, {out['launches']:.0f} kernel launches) against a "
+        f"bound of {out['bound_ms']:.3f} ms ({out['bound_by']}: {weight_bytes / 1e9:.2f} GB "
+        "of weights)")
+    return out
+
+
+def run_t5_path(pipe, counters, report, sd3_results):
+    """Phase 18 on phase 5's SD3 pipeline: the T5-XXL encoder and a T5
+    tokenizer joined to it."""
+    from ml_stable_diffusion_torch.tokenizer.t5 import T5Tokenizer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tokenizer = T5Tokenizer(t5_tokenizer_json(Path(tmp) / "tokenizer.json"))
+    t5 = build_t5(18)
+    n = sum(p.numel() for p in t5.parameters())
+    log(f"T5-XXL: {n / 1e9:.3f} B parameters on the card")
+    results = []
+    res = run_main_path(with_modules(pipe, t5_encoder=t5, t5_tokenizer=tokenizer), "sd3_t5",
+                        counters, plain=False, results=results)
+    report("sd3_t5", res)
+    rel = latents_rel(results[0].latents, sd3_results[0].latents)
+    log(f"sd3 T5: latents with the T5 context differ from those with the zero block by "
+        f"{rel:.4g} (rel)")
+    if not rel > SD3_MIN_REL:
+        fail(f"the T5 context did not move the latents: rel {rel} <= {SD3_MIN_REL}")
+    encode = time_t5_encode(t5, tokenizer)
+    del t5
+    torch.cuda.empty_cache()
+    return res, dict(parameters=n, with_vs_without_latents_rel=rel, encode=encode)
+
+
+def build_sd3_controlnet(seed: int):
+    """A full-width ``SD3ControlNetConfig.sd3_medium()`` net (12 joint
+    blocks) in bf16 with speed weights from ``seed``: its zero-initialised
+    patch embedding and projections are N(0, 0.02) too, so it moves the
+    latents."""
+    from ml_stable_diffusion_torch.models.controlnet_sd3 import (
+        SD3ControlNetConfig,
+        SD3ControlNetModel,
+    )
+
+    with torch.device("meta"):
+        net = SD3ControlNetModel(SD3ControlNetConfig.sd3_medium())
+    return materialize(net, torch.Generator(device="cuda").manual_seed(seed),
+                       torch.bfloat16).eval()
+
+
+def run_sd3_controlnet_paths(pipe, counters, report, sd3_results):
+    """Phase 19 on phase 5's SD3 pipeline plus a VAE encoder: one SD3
+    ControlNet (warm-up, median of 3), then two (one generation)."""
+    nets = [build_sd3_controlnet(190), build_sd3_controlnet(191)]
+    n = sum(p.numel() for p in nets[0].parameters())
+    log(f"SD3 ControlNet: {n / 1e9:.3f} B parameters a net")
+    conds = [control_image((1024, 1024), 192), control_image((1024, 1024), 193)]
+    enc_pipe = with_encoder(pipe, 19)
+    out, results = {}, []
+    out["sd3_controlnet"] = run_main_path(with_modules(enc_pipe, controlnets=nets[:1]),
+                                          "sd3_controlnet", counters, plain=False,
+                                          results=results,
+                                          extra=dict(controlnet_inputs=conds[:1]))
+    report("sd3_controlnet", out["sd3_controlnet"])
+    out["sd3_controlnet2"] = run_main_path(with_modules(enc_pipe, controlnets=nets),
+                                           "sd3_controlnet2", counters, timed=1, plain=False,
+                                           warmup=False, extra=dict(controlnet_inputs=conds))
+    report("sd3_controlnet2", out["sd3_controlnet2"])
+    rel = latents_rel(results[0].latents, sd3_results[0].latents)
+    log(f"sd3 ControlNet: latents with the net differ from those without by {rel:.4g} (rel)")
+    if not rel > SD3_MIN_REL:
+        fail(f"the SD3 ControlNet did not move the latents: rel {rel} <= {SD3_MIN_REL}")
+    del nets, enc_pipe
+    torch.cuda.empty_cache()
+    return out, dict(parameters_a_net=n, with_vs_without_latents_rel=rel)
+
+
+def _save_diffusers_module(d: Path, config: dict, state_dict, filename: str):
+    from ml_stable_diffusion_torch.convert.native_io import save_file
+
+    d.mkdir(parents=True)
+    (d / "config.json").write_text(json.dumps(config))
+    save_file(state_dict, d / filename)
+
+
+def save_diffusers_sd21(root: Path, pipe, encoder):
+    """Phase 3's modules as a diffusers-layout SD-2.1 directory, each in the
+    dtype it runs in; the VAE directory holds the decoder and ``encoder``."""
+    root.mkdir()
+    (root / "model_index.json").write_text(json.dumps(
+        {"_class_name": "StableDiffusionPipeline"}))
+    (root / "tokenizer").mkdir()
+    letters_tokenizer(root / "tokenizer")
+    te = pipe.text_encoder.config
+    _save_diffusers_module(
+        root / "text_encoder",
+        {"architectures": ["CLIPTextModel"],
+         **{k: getattr(te, k) for k in ("vocab_size", "hidden_size", "intermediate_size",
+                                        "num_hidden_layers", "num_attention_heads",
+                                        "max_position_embeddings", "hidden_act",
+                                        "eos_token_id", "projection_dim")}},
+        pipe.text_encoder.state_dict(), "model.safetensors")
+    u = pipe.unet.config
+    _save_diffusers_module(
+        root / "unet",
+        {"in_channels": u.in_channels, "out_channels": u.out_channels,
+         "block_out_channels": list(u.block_out_channels),
+         "down_block_types": list(u.down_block_types), "up_block_types": list(u.up_block_types),
+         "layers_per_block": u.layers_per_block,
+         "transformer_layers_per_block": list(u.transformer_layers_per_block),
+         "attention_head_dim": list(u.num_attention_heads),
+         "cross_attention_dim": u.cross_attention_dim, "norm_num_groups": u.norm_num_groups,
+         "flip_sin_to_cos": u.flip_sin_to_cos, "freq_shift": u.freq_shift},
+        pipe.unet.state_dict(), "diffusion_pytorch_model.safetensors")
+    v = pipe.vae_decoder.config
+    _save_diffusers_module(
+        root / "vae",
+        {"in_channels": v.in_channels, "out_channels": v.out_channels,
+         "latent_channels": v.latent_channels, "block_out_channels": list(v.block_out_channels),
+         "layers_per_block": v.layers_per_block, "norm_num_groups": v.norm_num_groups,
+         "use_quant_conv": v.use_quant_conv},
+        {**pipe.vae_decoder.state_dict(), **encoder.state_dict()},
+        "diffusion_pytorch_model.safetensors")
+    (root / "scheduler").mkdir()
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(
+        {k: getattr(v, "value", v) for k, v in dataclasses.asdict(pipe.scheduler_config).items()}))
+
+
+def run_diffusers_path(pipe, counters, report, sd21_results):
+    """Phase 20: phase 3's modules through a diffusers directory and
+    ``load_pipeline``; the same prompt and seed give phase 3's latents bit
+    for bit."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.convert.load import load_pipeline
+
+    encoder = with_encoder(pipe, 20).vae_encoder
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "sd21"
+        t0 = time.perf_counter()
+        save_diffusers_sd21(root, pipe, encoder)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in root.rglob("*.safetensors"))
+        del encoder
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = load_pipeline(root, compute_dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    log(f"diffusers directory: {nbytes / 1e9:.3f} GB saved in {save_s:.2f} s, "
+        f"load_pipeline in {load_s:.2f} s")
+    for name in ("text_encoder", "unet", "vae_decoder"):
+        got, want = getattr(loaded, name), getattr(pipe, name)
+        if got.config != want.config:
+            fail(f"load_pipeline: {name} config {got.config} != {want.config}")
+        if next(got.parameters()).dtype != next(want.parameters()).dtype:
+            fail(f"load_pipeline: {name} loads in {next(got.parameters()).dtype}")
+    if loaded.scheduler_config != pipe.scheduler_config:
+        fail(f"load_pipeline: scheduler {loaded.scheduler_config} != {pipe.scheduler_config}")
+    results = []
+    res = run_main_path(loaded, "sd21_diffusers", counters, timed=1, plain=False, warmup=False,
+                        results=results)
+    report("sd21_diffusers", res)
+    same = bool(np.array_equal(results[0].latents, sd21_results[0].latents))
+    log(f"load_pipeline: latents {'equal' if same else 'NOT equal'} to phase 3's bit for bit")
+    if not same:
+        fail("the diffusers-loaded pipeline's latents differ from phase 3's: max abs "
+             f"{float(np.abs(results[0].latents - sd21_results[0].latents).max())}")
+    del loaded
+    torch.cuda.empty_cache()
+    return res, dict(directory_bytes=nbytes, save_s=save_s, load_s=load_s,
+                     latents_bit_equal=same)
+
+
 # -- phases 9 and 10 ----------------------------------------------------------------
 
 def fixed_latents(pipe):
@@ -2157,21 +2468,32 @@ def main():
 
     check_unet_calls()
     schedulers = inpainting = None
+    #: phases 18 to 20's checks; phases 3 and 5's generations
+    sd3_checks, results = {}, {"sd21": [], "sd3": []}
 
     def sd21_more(pipe):
-        """Phases 12 and 13 on phase 3's pipeline."""
+        """Phases 12, 13 and 20 on phase 3's pipeline."""
         nonlocal schedulers, inpainting
         paths, inpainting = run_img2img_paths(pipe, counters, report)
         main_paths.update(paths)
         schedulers = run_scheduler_sweep(pipe, counters)
+        main_paths["sd21_diffusers"], sd3_checks["diffusers_loader"] = run_diffusers_path(
+            pipe, counters, report, results["sd21"])
 
     def sd3_more(pipe):
-        """Phase 14's SD3 img2img on phase 5's pipeline."""
+        """Phase 14's SD3 img2img, then phases 18 and 19, on phase 5's
+        pipeline."""
         main_paths["sd3_img2img"] = run_main_path(
             with_encoder(pipe, 14), "sd3_img2img", counters, timed=1, plain=False,
             warmup=False, extra=dict(starting_image=starting_image((1024, 1024), 14),
                                      strength=STRENGTH))
         report("sd3_img2img", main_paths["sd3_img2img"])
+        torch.cuda.empty_cache()
+        main_paths["sd3_t5"], sd3_checks["t5"] = run_t5_path(pipe, counters, report,
+                                                             results["sd3"])
+        paths, sd3_checks["controlnet"] = run_sd3_controlnet_paths(pipe, counters, report,
+                                                                   results["sd3"])
+        main_paths.update(paths)
 
     for path, build, check, more in (
             ("sd21", build_sd21_pipeline, check_unet_flash_vs_plain, sd21_more),
@@ -2179,7 +2501,7 @@ def main():
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tokdir:
             pipe = build(Path(tokdir))
-        main_paths[path] = run_main_path(pipe, path, counters)
+        main_paths[path] = run_main_path(pipe, path, counters, results=results[path])
         report(path, main_paths[path])
         more(pipe)
         del pipe
@@ -2267,6 +2589,7 @@ def main():
     log(json.dumps({"main_paths": main_paths, "in_model_checks": model_checks,
                     "palettized_path": palettized, "schedulers": schedulers,
                     "inpainting": inpainting, "controlnet": controlnet, "features": features,
+                    "sd3_t5_controlnet_loader": sd3_checks,
                     "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
     log(json.dumps({"kernels": kernels}))

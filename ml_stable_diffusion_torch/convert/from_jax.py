@@ -6,7 +6,7 @@ torch tensors (``convert/artifacts.load_module``).  The output is a
 diffusers/transformers-keyed state dict of torch tensors that
 ``load_state_dict(strict=True)`` accepts for ``UNet2DConditionModel``,
 ``ControlNetModel``, ``VAEDecoder``, ``VAEEncoder``, ``CLIPTextEncoder``,
-``SafetyChecker`` and ``MMDiT``.
+``SafetyChecker``, ``MMDiT``, ``SD3ControlNetModel`` and ``T5Encoder``.
 
 Layouts: a conv kernel goes HWIO -> OIHW, a dense kernel is transposed,
 a norm ``scale`` becomes ``weight``, an embedding table stays as it is.
@@ -230,5 +230,59 @@ def mmdit_state_dict(params) -> dict[str, torch.Tensor]:
             name = ".".join([_MMDIT_TOP[head], *path[1:-1]])
         else:
             raise KeyError(f"unexpected MMDiT parameter {'/'.join(path)}")
+        sd[f"{name}.{leaf}"] = tensor
+    return sd
+
+
+# flax T5Block module name -> transformers T5 block path
+_T5_BLOCK = {
+    "attn_layer_norm": "layer.0.layer_norm",
+    "q": "layer.0.SelfAttention.q", "k": "layer.0.SelfAttention.k",
+    "v": "layer.0.SelfAttention.v", "o": "layer.0.SelfAttention.o",
+    "ff_layer_norm": "layer.1.layer_norm",
+    "wi_0": "layer.1.DenseReluDense.wi_0", "wi_1": "layer.1.DenseReluDense.wi_1",
+    "wo": "layer.1.DenseReluDense.wo",
+}
+
+
+def t5_state_dict(params) -> dict[str, torch.Tensor]:
+    """Flax ``T5Encoder`` params -> port ``T5Encoder`` state dict
+    (transformers ``T5EncoderModel`` keys; the inverse of the JAX package's
+    ``convert/t5.py``)."""
+    sd = {}
+    for path, value in _leaves(params):
+        head = path[0]
+        if head == "relative_attention_bias":
+            sd["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = (
+                value.contiguous())
+            continue
+        leaf, tensor = _tensor(path[-1], value)
+        m = re.fullmatch(r"block_(\d+)", head)
+        if m:
+            name = f"encoder.block.{m.group(1)}.{_T5_BLOCK[path[1]]}"
+        elif head == "shared":
+            name = "shared"
+        elif head == "final_layer_norm":
+            name = "encoder.final_layer_norm"
+        else:
+            raise KeyError(f"unexpected T5 parameter {'/'.join(path)}")
+        sd[f"{name}.{leaf}"] = tensor
+    return sd
+
+
+def sd3_controlnet_state_dict(params) -> dict[str, torch.Tensor]:
+    """Flax ``SD3ControlNetModel`` params -> port ``SD3ControlNetModel``
+    state dict (diffusers ``SD3ControlNetModel`` keys): the MMDiT stem and
+    blocks as ``mmdit_state_dict`` maps them, the zero patch embedding of
+    the control latents as ``pos_embed_input.proj`` and the per-block
+    projections as ``controlnet_blocks.{i}``."""
+    stem = {k: v for k, v in params.items()
+            if k != "patch_proj_input" and not k.startswith("controlnet_blocks_")}
+    sd = mmdit_state_dict(stem)
+    for path, value in _leaves({k: v for k, v in params.items() if k not in stem}):
+        leaf, tensor = _tensor(path[-1], value)
+        head = path[0]
+        name = ("pos_embed_input.proj" if head == "patch_proj_input"
+                else "controlnet_blocks." + head[len("controlnet_blocks_"):])
         sd[f"{name}.{leaf}"] = tensor
     return sd

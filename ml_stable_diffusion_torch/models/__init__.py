@@ -1,2 +1,3 @@
-"""Models: the CLIP text encoder, the UNet and its ControlNet, the MMDiT, the
-VAE, the safety checker and the multilingual projection."""
+"""Models: the CLIP and T5 text encoders, the UNet and its ControlNet, the
+MMDiT and its SD3 ControlNet, the VAE, the safety checker and the
+multilingual projection."""

@@ -20,7 +20,9 @@ dtype of its parameters.  Parameter names are the diffusers
 - the learned positional table is centre-cropped from its M x M grid;
 - the latent and context streams attend jointly over their concatenated
   keys (ops/attention.py:joint_dot_product_attention): on the card one
-  launch of the multi-stream flash kernel per block.
+  launch of the multi-stream flash kernel per block;
+- SD3 ControlNet residuals (models/controlnet_sd3.py) add to the latent
+  stream after the blocks.
 """
 
 from __future__ import annotations
@@ -231,8 +233,11 @@ class MMDiT(nn.Module):
         self.proj_out = nn.Linear(D, config.patch_size ** 2 * config.out_channels)
 
     def forward(self, latents, timesteps, context, pooled, controlnet_residuals=None):
-        if controlnet_residuals is not None:
-            raise NotImplementedError("SD3 ControlNet residuals: ROADMAP Queue 1 item 14")
+        """``controlnet_residuals``: the SD3 ControlNets' (B, hp*wp, D)
+        residuals; block i adds residual i // ceil(depth / n), cast to the
+        stream's dtype, and the last block (``context_pre_only``) adds none,
+        as in the JAX module (so 18 residuals serve 24 blocks two a
+        residual)."""
         cfg = self.config
         P, C = cfg.patch_size, cfg.out_channels
         B, _, H, W = latents.shape
@@ -244,8 +249,11 @@ class MMDiT(nn.Module):
         t_emb = get_timestep_embedding(timesteps, 256, flip_sin_to_cos=True, freq_shift=0)
         c = self.time_text_embed(t_emb.to(dtype), pooled.to(dtype))
         ctx = self.context_embedder(context.to(dtype))
-        for block in self.transformer_blocks:
+        for i, block in enumerate(self.transformer_blocks):
             x, ctx = block(x, ctx, c)
+            if controlnet_residuals and not block.context_pre_only:
+                interval = -(-cfg.depth // len(controlnet_residuals))
+                x = x + controlnet_residuals[i // interval].to(x.dtype)
 
         scale, shift = self.norm_out(c).chunk(2, dim=-1)
         x = self.proj_out(_modulate(_layer_norm(x), shift, scale))

@@ -458,22 +458,35 @@ class StableDiffusionPipeline:
             return out
         return self._call_unet(*args, deep_feature=cache["feat"], **kw)
 
-    def _controlnet_stage(self, latents_in, t, ctx_pos, added_pos, ctrl_images):
+    def _call_controlnet(self, ci: int, latents_in, t, ctx_pos, added_pos, ctrl_input):
+        """ControlNet ``ci``'s (down residuals, mid residual).  The UNet
+        families condition on the RGB control image (SD3 overrides: the
+        pooled vector and VAE-encoded control latents, no mid residual)."""
+        net = self.controlnets[ci]
+        kw = {}
+        if net.config.addition_embed_type is not None:
+            kw["added_cond"] = added_pos  # SDXL micro-conditioning
+        return net(latents_in, t, ctx_pos, ctrl_input, **kw)
+
+    def _prepare_control_inputs(self, cfg: PipelineConfiguration, ctrl_images):
+        """What the nets take from the control images, once per generation:
+        the images themselves here (SD3 VAE-encodes them)."""
+        return ctrl_images
+
+    def _controlnet_stage(self, latents_in, t, ctx_pos, added_pos, ctrl_inputs):
         """The ControlNets on the scaled latents with the positive
-        conditioning, one per control image -> (down residuals, mid
-        residual), summed over the nets in order; (None, None) without
-        control images."""
+        conditioning, one per control input -> (down residuals, mid
+        residual), summed over the nets in order (the mid residuals when
+        there are any); (None, None) without control inputs."""
         down = mid = None
-        for net, image in zip(self.controlnets, ctrl_images):
-            kw = {}
-            if net.config.addition_embed_type is not None:
-                kw["added_cond"] = added_pos  # SDXL micro-conditioning
-            d, m = net(latents_in, t, ctx_pos, image, **kw)
+        for ci, ctrl in enumerate(ctrl_inputs):
+            d, m = self._call_controlnet(ci, latents_in, t, ctx_pos, added_pos, ctrl)
             if down is None:
-                down, mid = d, m
+                down, mid = list(d), m
             else:
                 down = [a + b for a, b in zip(down, d)]
-                mid = mid + m
+                if m is not None:
+                    mid = mid + m
         return down, mid
 
     def _ctrl_images(self, cfg: PipelineConfiguration, N: int):
@@ -573,16 +586,17 @@ class StableDiffusionPipeline:
         return latents, {"mask": mask, "z0": z0, "noise": noise}
 
     def _denoise(self, cfg, latents, text, N, plan, scheduler, guidance_on, g,
-                 step_noises=None, inpaint=None, timestep_cond=None, ctrl_images=(),
+                 step_noises=None, inpaint=None, timestep_cond=None, ctrl_inputs=(),
                  progress_handler=None):
         """The denoise loop on NCHW float32 latents: the phases in turn over
         one scheduler state, as the JAX package's consecutive scans.
         ``step_noises`` (steps, N, h, w, C) host noise for a scheduler that
         needs it; ``inpaint`` the inpainting state of ``_start``;
         ``timestep_cond`` the guidance embedding of a guidance-embedded UNet
-        (its base phase only); ``ctrl_images`` one per ControlNet, which run
-        in every phase; ``progress_handler`` called after every step, the
-        loop ending when it returns False."""
+        (its base phase only); ``ctrl_inputs`` one per ControlNet (the
+        control images, or what ``_prepare_control_inputs`` made of them),
+        the nets running in every phase; ``progress_handler`` called after
+        every step, the loop ending when it returns False."""
         timesteps = torch.from_numpy(plan.timesteps).to(self.device)
         state = scheduler.initial_state(plan, latents)
         inpaint = inpaint or {}
@@ -610,7 +624,7 @@ class StableDiffusionPipeline:
                 full = (i - start) % dc == 0
                 lat_in = scheduler.scale_model_input(plan, state, latents, i)
                 down_res, mid_res = self._controlnet_stage(lat_in, t, ctx_pos, added_pos,
-                                                               ctrl_images)
+                                                           ctrl_inputs)
                 if extras9 is not None:
                     lat_in = torch.cat([lat_in, extras9.to(lat_in.dtype)], dim=1)
                 if not guidance_on:
@@ -724,10 +738,12 @@ class StableDiffusionPipeline:
                                    dtype=torch.float32, device=self.device), tcp)
                 latents, inpaint_state = self._start(cfg, plan, scheduler, noise, N, (h, w),
                                                      img2img, inpaint, unet9)
+                ctrl = self._ctrl_images(cfg, N)
+                if ctrl:
+                    ctrl = self._prepare_control_inputs(cfg, ctrl)
                 latents = self._denoise(cfg, latents, text, N, plan, scheduler, guidance_on,
                                         float(cfg.guidance_scale), step_noises,
-                                        inpaint_state, w_emb, self._ctrl_images(cfg, N),
-                                        progress_handler)
+                                        inpaint_state, w_emb, ctrl, progress_handler)
                 # the host fetch waits for the device
                 latents = _host_nhwc(latents)
         finally:

@@ -1,4 +1,4 @@
-"""CLIP BPE tokenizer."""
+"""CLIP BPE tokenizer; the T5 unigram tokenizer is ``tokenizer/t5.py``."""
 
 from .bpe import CLIPTokenizer
 

@@ -228,8 +228,18 @@ def test_mmdit_scalar_timestep_and_unported_controlnet():
         a = port(x, torch.tensor(500.0), ctx, pooled)
         b = port(x, torch.tensor([500.0, 500.0]), ctx, pooled)
     torch.testing.assert_close(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        port(x, torch.tensor(500.0), ctx, pooled, controlnet_residuals=[x])
+    # SD3 ControlNet residuals (no longer refused): one residual for every
+    # block but the last, against Flax (tests/test_torch_controlnet_sd3.py
+    # holds the interval scheme at 3 to 5 residuals)
+    res = rng.randn(2, 16, 32).astype(np.float32)
+    ref = np.asarray(model.apply({"params": params}, x.permute(0, 2, 3, 1).numpy(),
+                                 np.full((2,), 500.0, np.float32), ctx.numpy(), pooled.numpy(),
+                                 controlnet_residuals=(res,)))
+    with torch.no_grad():
+        got = port(x, torch.tensor(500.0), ctx, pooled,
+                   controlnet_residuals=[torch.from_numpy(res)])
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, atol=2e-4)
+    assert np.abs(got.numpy() - a.numpy()).max() > 1e-2
 
 
 # -- SD3 configurations at full size ---------------------------------------------------

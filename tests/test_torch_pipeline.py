@@ -139,13 +139,15 @@ def test_import_pulls_in_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'ml_stable_diffusion_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'ml_stable_diffusion_tpu',\n"
+        "                              'tokenizers', 'transformers')]\n"
         "assert not bad, bad\n"
         "need = {'models.mmdit', 'pipelines.sd3', 'schedulers.flow', 'ops.flash_attention',\n"
         "        'pipelines.sdxl', 'ops.groupnorm', 'ops.palettized', 'compress.palettize',\n"
         "        'compress.mixed_bit', 'convert.artifacts', 'convert.native_io',\n"
         "        'convert.load', 'convert.report', 'models.controlnet', 'models.safety',\n"
-        "        'models.multilingual', 'tokenizer.prompt_weights', 'utils.latent_preview'}\n"
+        "        'models.multilingual', 'tokenizer.prompt_weights', 'utils.latent_preview',\n"
+        "        'tokenizer.t5', 'models.t5', 'models.controlnet_sd3'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

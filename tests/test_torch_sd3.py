@@ -1,4 +1,4 @@
-"""The port's SD3 txt2img pipeline (no T5) against the JAX
+"""The port's SD3 txt2img pipeline against the JAX
 ``StableDiffusion3Pipeline``, on the CPU.
 
 Tiny CLIP-L (unprojected pooled output) and CLIP-G (projected), a tiny MMDiT
@@ -7,8 +7,9 @@ N(0, 0.2) weights, go through both ``generate_images`` with rng="numpy":
 latents within atol 1e-3 and uint8 images within 1, as for the SD-2.1
 pipeline (tests/test_torch_pipeline.py).  Also: the context assembly (two
 penultimate states, zero channel pad, zero T5 block, pooled concat), the
-scheduler rule (DiscreteFlow only, "PNDM" mapping to it) and
-``timestep_shift``.
+scheduler rule (DiscreteFlow only, "PNDM" mapping to it),
+``timestep_shift``, and the T5 and SD3 ControlNet parts against the JAX
+pipeline's (their generations: tests/test_torch_controlnet_sd3.py).
 """
 
 import numpy as np
@@ -155,19 +156,111 @@ def test_timestep_shift_is_read(pair):
     assert np.abs(a.latents - b.latents).max() > 1e-6
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(t5_encoder=object()), "T5"),
-    (dict(t5_tokenizer=object()), "T5"),
-    (dict(controlnets=[object()]), "SD3 ControlNet"),
-])
-def test_unported_parts_raise(pair, kw, match):
-    _, port_pipe = pair
-    args = dict(tokenizer=port_pipe.tokenizer, tokenizer2=port_pipe.tokenizer2,
-                text_encoder=port_pipe.text_encoder, text_encoder2=port_pipe.text_encoder2,
-                mmdit=port_pipe.unet, vae_decoder=port_pipe.vae_decoder, device="cpu")
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match=match):
-        StableDiffusion3Pipeline(**args)
+def test_unported_parts_raise(pair):
+    """The T5 encoder and tokenizer and SD3 ControlNets are ported
+    (test_t5_and_controlnet_parts_match_jax below); what still raises is
+    what the JAX pipeline refuses: ControlNets without a ``vae_encoder``,
+    with the JAX ``ValueError`` and its message."""
+    jax_pipe, port_pipe = pair
+    with pytest.raises(ValueError, match="pass vae_encoder") as ref:
+        JaxSD3(tokenizer=jax_pipe.tokenizer, tokenizer2=jax_pipe.tokenizer2,
+               text_encoder=(jax_pipe.text_encoder, jax_pipe.text_encoder_params),
+               text_encoder2=(jax_pipe.text_encoder2, jax_pipe.text_encoder2_params),
+               mmdit=(jax_pipe.unet, jax_pipe.unet_params),
+               vae_decoder=(jax_pipe.vae_decoder, jax_pipe.vae_decoder_params),
+               controlnets=[object()])
+    with pytest.raises(ValueError, match="pass vae_encoder") as got:
+        StableDiffusion3Pipeline(
+            tokenizer=port_pipe.tokenizer, tokenizer2=port_pipe.tokenizer2,
+            text_encoder=port_pipe.text_encoder, text_encoder2=port_pipe.text_encoder2,
+            mmdit=port_pipe.unet, vae_decoder=port_pipe.vae_decoder,
+            controlnets=[object()], device="cpu")
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.fixture(scope="module")
+def t5_parts(tmp_path_factory):
+    """A tiny T5 (d_model = the MMDiT's context width) with seeded weights,
+    both packages' tokenizers on tests/test_native_t5.py's unigram file."""
+    from ml_stable_diffusion_tpu.models.t5 import T5Config as JaxT5Config
+    from ml_stable_diffusion_tpu.models.t5 import T5Encoder as JaxT5Encoder
+    from ml_stable_diffusion_tpu.tokenizer.t5 import T5Tokenizer as JaxT5Tokenizer
+
+    from ml_stable_diffusion_torch.convert.from_jax import t5_state_dict
+    from ml_stable_diffusion_torch.models.t5 import T5Config, T5Encoder
+    from ml_stable_diffusion_torch.tokenizer.t5 import T5Tokenizer
+
+    from test_native_t5 import _unigram_json
+
+    tok_json = _unigram_json(tmp_path_factory.mktemp("t5tok"))
+    cfg = dict(vocab_size=256, d_model=MM_CTX, d_kv=16, d_ff=64, num_layers=2, num_heads=4)
+    t5 = JaxT5Encoder(JaxT5Config(**cfg))
+    ids = jnp.ones((1, T5_LEN), jnp.int32)
+    params = randomize_params(jax.jit(t5.init)(jax.random.key(6), ids, ids)["params"], 37)
+    port = T5Encoder(T5Config(**cfg))
+    port.load_state_dict(t5_state_dict(jax.tree.map(np.asarray, params)), strict=True)
+    return ((t5, params), JaxT5Tokenizer(tok_json)), (port.eval(), T5Tokenizer(tok_json))
+
+
+@pytest.mark.parametrize("part", ["t5_tokenizer", "t5_encoder", "controlnets"])
+def test_t5_and_controlnet_parts_match_jax(pair, t5_parts, part):
+    """Each part the port used to refuse, against the JAX pipeline's: the T5
+    ids and mask at t5_sequence_length (equal), the context with T5 states
+    as its last T5_LEN rows (atol 1e-4), and the control latents each net
+    gets, VAE-encoded once (``(mean - shift) * scale`` or, for a
+    ``force_zeros`` net, ``mean * scale``; atol 1e-5)."""
+    import copy
+
+    jax_pipe, port_pipe = (copy.copy(p) for p in pair)
+    cfg = _kw(prompt="hello world, a cat", negative_prompt="the horse")
+    if part != "controlnets":
+        (jax_pipe.t5_encoder, jax_pipe.t5_encoder_params), jax_pipe.t5_tokenizer = t5_parts[0]
+        port_pipe.t5_encoder, port_pipe.t5_tokenizer = t5_parts[1]
+        tokens = jax_pipe._tokenize(JaxConfig(**cfg))
+        got_tokens = port_pipe._tokenize(PipelineConfiguration(**cfg))
+        assert set(got_tokens) == set(tokens) == {"ids", "ids2", "ids_t5", "mask_t5"}
+        for key in tokens:
+            np.testing.assert_array_equal(got_tokens[key], tokens[key])
+        if part == "t5_tokenizer":
+            assert tokens["mask_t5"].sum(axis=1).min() > 1
+            return
+        ref = jax_pipe._encode_text(JaxConfig(**cfg),
+                                    {k: jnp.asarray(v) for k, v in tokens.items()},
+                                    jax_pipe._params_bundle())["context"]
+        with torch.no_grad():
+            got = port_pipe._encode_text(got_tokens)["context"].numpy()
+        assert got.shape == (2, 77 + T5_LEN, MM_CTX) and np.abs(got[:, 77:]).max() > 0
+        np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4)
+        return
+    from ml_stable_diffusion_tpu.models.controlnet_sd3 import SD3ControlNetConfig as JaxCNConfig
+    from ml_stable_diffusion_tpu.models.vae import VAEEncoder as JaxVAEEncoder
+
+    from ml_stable_diffusion_torch.models.controlnet_sd3 import SD3ControlNetConfig
+
+    from torch_helpers import port_vae_encoder
+
+    vcfg = JaxVAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
+                        norm_num_groups=4, latent_channels=16, use_quant_conv=False)
+    enc = JaxVAEEncoder(vcfg)
+    ep = randomize_params(jax.jit(enc.init)(jax.random.key(5), jnp.zeros((1, 64, 64, 3)))[
+        "params"], 38)
+    # only the nets' configurations are read when the inputs are prepared
+    jax_pipe.controlnets = [(type("Net", (), {"config": JaxCNConfig(
+        force_zeros_for_pooled_projection=fz)}), None) for fz in (True, False)]
+    port_pipe.controlnets = [type("Net", (), {"config": SD3ControlNetConfig(
+        force_zeros_for_pooled_projection=fz)}) for fz in (True, False)]
+    jax_pipe.vae_encoder, port_pipe.vae_encoder = enc, port_vae_encoder(enc, ep)
+    images = np.random.RandomState(9).uniform(0, 1, (2, 1, 64, 64, 3)).astype(np.float32)
+    cfg = JaxConfig(**_kw(encoder_scale_factor=1.25))
+    ref = jax_pipe._prepare_control_inputs({"vae_encoder": ep}, cfg, list(images))
+    with torch.no_grad():
+        got = port_pipe._prepare_control_inputs(
+            PipelineConfiguration(**_kw(encoder_scale_factor=1.25)),
+            [torch.from_numpy(im).permute(0, 3, 1, 2) for im in images])
+    for g, r in zip(got, ref):
+        assert g.shape == (1, 16, 8, 8)
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), np.asarray(r), atol=1e-5)
+    assert np.abs(np.asarray(ref[0]) - np.asarray(ref[1])).max() > 0
 
 
 def test_deepcache_raises_value_error_as_in_jax(pair):
