@@ -129,12 +129,36 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    ``save_file``), ``convert.load.load_pipeline`` on it, and one generation
    whose latents must equal phase 3's of the same prompt and seed bit for
    bit; the directory is removed.
+21. The adapters on phase 11's SD-1.5 pipeline, with seeded random weights
+   in the published layouts and geometries, written to and read from files:
+   a kohya LoRA (rank 16, alpha 8, fp16) over every UNet attention and FF
+   projection and every CLIP-L q/k/v/out/fc1/fc2, stacked with a PEFT one
+   on the cross attentions' to_k/to_v, one generation (the latents moved),
+   ``clear_loras`` (every tensor back byte for byte) and one more
+   generation bit-equal to phase 11's of the same prompt and seed; a
+   textual-inversion placeholder whose two vectors are the token rows of
+   the two-token word "on" (its latents bit-equal to the word's);
+   IP-Adapter BASE in ip-adapter_sd15's geometry (ViT-H/14: hidden 1280, 32
+   layers, 16 heads, MLP 5120, projection 1024; 4 tokens over 768) at
+   ``ip_adapter_scale`` 0 (bit-equal) and 1 (warm-up, median of 3), and
+   PLUS (the resampler: dim 768, depth 4, 12 heads, 16 queries, ff x4,
+   from a torch .bin), warm-up and median of 3.  Every generation launches
+   phase 11's 316 flash; the vision encoder's ms at batch 1 and 2 beside
+   its bound, and one UNet call with and without the IP tokens.
+22. The adapters on SDXL and SD3: on phase 7's base pipeline a kohya-sgm
+   LoRA (UNet, ``lora_te1_``, ``lora_te2_``), generated from and cleared; a
+   ``clip_l``/``clip_g`` placeholder of the same word, bit-equal to phase
+   7's latents; IP-Adapter in ip-adapter_sdxl's geometry (ViT-bigG/14:
+   hidden 1664, 48 layers, 16 heads, MLP 8192, projection 1280; 4 tokens
+   over 2048): 1401 flash and 680 GroupNorm each.  On phase 5's pipeline
+   a PEFT ``transformer.`` LoRA over every joint-attention projection,
+   generated from and cleared: 480 multi-stream launches.
 
 Phase 2 holds the multi-stream kernel at SD3 ControlNet's batch-1 shape too.
 
 Every kernel launch counter is set to 0 just before each main path (phases
 3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, each
-path of 15, 16, 17, 18, 19 and 20, and phase 10 for the fused
+path of 15, 16, 17, 18, 19, 20, 21 and 22, and phase 10 for the fused
 dequant-matmul, whose main path it is) and read just after it; phase 13 reads them around each
 generation.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
@@ -156,6 +180,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -325,6 +350,32 @@ PATHS.update({
                         **VAE_ATTENTION, "group_norm_silu": 34 * STEPS,
                         "palettized_dense_fused": 0}),
 })
+#: phase 21: the adapters on phase 11's SD-1.5 pipeline; each launches what
+#: the path without it launches (the IP-Adapter's attention over 4 or 16
+#: keys, its resampler and the vision tower stay plain, as in the JAX package)
+PATHS.update({
+    "sd15_lora": _sd15_path("a kohya LoRA (every UNet attention and FF projection, CLIP-L) "
+                            "stacked with a PEFT one", 15 * SD15_CALLS + 1),
+    "sd15_lora_cleared": _sd15_path("after clear_loras", 15 * SD15_CALLS + 1),
+    "sd15_ti": _sd15_path("a textual-inversion placeholder", 15 * SD15_CALLS + 1),
+    "sd15_ip_scale0": _sd15_path("IP-Adapter BASE at ip_adapter_scale 0", 15 * SD15_CALLS + 1),
+    "sd15_ip_base": _sd15_path("IP-Adapter BASE (ViT-H/14, 4 tokens)", 15 * SD15_CALLS + 1),
+    "sd15_ip_plus": _sd15_path("IP-Adapter PLUS (ViT-H/14 penultimate states, the resampler, "
+                               "16 tokens)", 15 * SD15_CALLS + 1),
+})
+#: phase 22: the adapters on phase 7's SDXL base pipeline and phase 5's SD3
+#: pipeline, each with its path's counts
+SDXL_ADAPTER_PATHS = ("sdxl_lora", "sdxl_ti", "sdxl_ip")
+PATHS.update({
+    "sdxl_lora": dict(PATHS["sdxl"], label="SDXL-base 1024x1024, a kohya-sgm LoRA (UNet, "
+                                           "lora_te1_, lora_te2_), 20 steps DPM++ 2M, CFG batch 2"),
+    "sdxl_ti": dict(PATHS["sdxl"], label="SDXL-base 1024x1024, a clip_l/clip_g "
+                                         "textual-inversion placeholder, 20 steps DPM++ 2M"),
+    "sdxl_ip": dict(PATHS["sdxl"], label="SDXL-base 1024x1024, IP-Adapter (ViT-bigG/14, 4 "
+                                         "tokens over 2048), 20 steps DPM++ 2M, CFG batch 2"),
+    "sd3_lora": dict(PATHS["sd3"], label="SD3-medium 1024x1024 (no T5), a PEFT transformer. "
+                                         "LoRA, 20 steps DiscreteFlow, CFG batch 2"),
+})
 #: the SD-1.5 paths at 512x512, each with the VAE decoder's head
 SD15_PATHS = [p for p in PATHS if p.startswith("sd15")]
 #: phases 18 and 19: SD3-medium 1024x1024 with T5-XXL, and with SD3
@@ -374,7 +425,7 @@ for _mode in ("install", "program"):
                              "mode, 20 steps DPM++ 2M, CFG batch 2")
 #: steps of each UNet in one generation of a path: (base, refiner)
 UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4), "sdxl_img2img": (15, 0),
-              "sdxl_controlnet": (STEPS, 0)}
+              "sdxl_controlnet": (STEPS, 0), **{p: (STEPS, 0) for p in SDXL_ADAPTER_PATHS}}
 #: the known half of an inpainted generation's latents against the starting
 #: image's latents z0 (max abs, relative to z0's peak): after the last step
 #: the known region is z0 itself, recomputed here by the same encoder
@@ -563,7 +614,8 @@ FLASH_SHAPES = [
      {**sd21_all(1, 2), **{p: 1 for p in SD15_PATHS}}),
     ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32,
      {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1, "sd3_img2img": 2, "sdxl_img2img": 2,
-      "sdxl_controlnet": 1, "sd3_t5": 1, "sd3_controlnet": 2, "sd3_controlnet2": 3}),
+      "sdxl_controlnet": 1, "sd3_t5": 1, "sd3_controlnet": 2, "sd3_controlnet2": 3,
+      "sd3_lora": 1, **{p: 1 for p in SDXL_ADAPTER_PATHS}}),
     ("sd15 64x64", (4096,), 4096, 2, 8, 40, torch.bfloat16, sd15_self(4096)),
     ("sd15 32x32", (1024,), 1024, 2, 8, 80, torch.bfloat16, sd15_self(1024)),
     ("sd15 16x16", (256,), 256, 2, 8, 160, torch.bfloat16, sd15_self(256)),
@@ -594,10 +646,10 @@ FLASH_SHAPES = [
     ("ragged D80", (330,), 330, 2, 3, 80, torch.bfloat16, {}),
     ("sdxl 64x64", (4096,), 4096, 2, 10, 64, torch.bfloat16,
      {"sdxl": 10 * 20, "sdxl_refiner": 10 * 16, "sdxl_img2img": 10 * 15,
-      "sdxl_controlnet": 10 * 20}),
+      "sdxl_controlnet": 10 * 20, **{p: 10 * 20 for p in SDXL_ADAPTER_PATHS}}),
     ("sdxl 32x32", (1024,), 1024, 2, 20, 64, torch.bfloat16,
      {"sdxl": 60 * 20, "sdxl_refiner": 60 * 16, "sdxl_img2img": 60 * 15,
-      "sdxl_controlnet": 60 * 20}),
+      "sdxl_controlnet": 60 * 20, **{p: 60 * 20 for p in SDXL_ADAPTER_PATHS}}),
     # the SDXL ControlNet at batch 1: 4 heads at 4096 tokens, 30 at 1024
     ("sdxl cn 64x64", (4096,), 4096, 1, 10, 64, torch.bfloat16, {"sdxl_controlnet": 4 * 20}),
     ("sdxl cn 32x32", (1024,), 1024, 1, 20, 64, torch.bfloat16, {"sdxl_controlnet": 30 * 20}),
@@ -611,7 +663,7 @@ FLASH_SHAPES = [
 MULTI_Q_SHAPES = [
     ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16,
      {"sd3": 480, "sd3_img2img": 24 * 15, "sd3_t5": 480, "sd3_controlnet": 480,
-      "sd3_controlnet2": 480}),
+      "sd3_controlnet2": 480, "sd3_lora": 480}),
     # the SD3 ControlNets' joint blocks, at batch 1
     ("sd3 cn joint 1024", (4096, 154), 4250, 1, 24, 64, torch.bfloat16,
      {"sd3_controlnet": SD3_NET_BLOCKS * STEPS, "sd3_controlnet2": 2 * SD3_NET_BLOCKS * STEPS}),
@@ -1989,6 +2041,456 @@ def run_diffusers_path(pipe, counters, report, sd21_results):
                      latents_bit_equal=same)
 
 
+# -- phases 21 and 22 ----------------------------------------------------------------
+
+#: the synthetic LoRA adapters: rank, alpha (a factor alpha / rank = 0.5), and
+#: factors N(0, 0.02) from a seeded generator, as the weights are drawn: each
+#: delta is a few per cent of its weight
+LORA_RANK, LORA_ALPHA, LORA_STD = 16, 8.0, 0.02
+#: the modules the adapters cover: every UNet attention and FF projection,
+#: every CLIP layer's q/k/v/out and fc1/fc2, every MMDiT joint-attention
+#: projection
+UNET_LORA_RE = re.compile(
+    r"transformer_blocks\.\d+\.(attn[12]\.(to_q|to_k|to_v|to_out\.0)|ff\.net\.(0\.proj|2))$")
+CLIP_LORA_RE = re.compile(r"^text_model\.encoder\.layers\.\d+\.(self_attn\.(q|k|v|out)_proj|"
+                          r"mlp\.fc[12])$")
+MMDIT_LORA_RE = re.compile(r"^transformer_blocks\.\d+\.attn\.(to_q|to_k|to_v|add_q_proj|"
+                           r"add_k_proj|add_v_proj|to_out\.0|to_add_out)$")
+#: an adapter must move a generation's latents from those without it
+#: (relative max abs; N(0, 0.02) factors move them by ~1e-2)
+ADAPTER_MIN_REL = 1e-4
+#: the textual-inversion witness: a placeholder whose vectors are the token
+#: rows of PROMPTS[0]'s two-token word "on" in the letters vocabulary
+TI_WORD, TI_TOKEN = "on", "<on>"
+TI_PROMPT = PROMPTS[0].replace(f" {TI_WORD} ", f" {TI_TOKEN} ")
+#: the IP-Adapter reference image's seed; its size is the encoder's (224)
+IP_IMAGE_SEED = 210
+#: the IP-Adapter image encoders: OpenCLIP ViT-H/14 (h94/IP-Adapter's SD-1.5
+#: adapters) and ViT-bigG/14 (ip-adapter_sdxl), vision towers at 224x224
+VIT_H14 = dict(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+               num_attention_heads=16, projection_dim=1024)
+VIT_BIGG14 = dict(hidden_size=1664, intermediate_size=8192, num_hidden_layers=48,
+                  num_attention_heads=16, projection_dim=1280)
+
+
+def kohya_stem(prefix):
+    return lambda name: prefix + name.replace(".", "_")
+
+
+def sgm_stem(name: str) -> str:
+    """A diffusers SDXL UNet attention module name in kohya's sgm naming
+    (the inverse of the loader's block arithmetic at layers_per_block=2)."""
+    m = re.match(r"(down|up)_blocks\.(\d+)\.attentions\.(\d+)\.(.+)$", name)
+    if m:
+        side, b, layer, rest = m.group(1), int(m.group(2)), int(m.group(3)), m.group(4)
+        idx = f"input_blocks_{3 * b + layer + 1}" if side == "down" else f"output_blocks_{3 * b + layer}"
+        return f"lora_unet_{idx}_1_{rest.replace('.', '_')}"
+    rest = re.match(r"mid_block\.attentions\.0\.(.+)$", name).group(1)
+    return f"lora_unet_middle_block_1_{rest.replace('.', '_')}"
+
+
+def lora_state(model, pattern, stem, gen, peft=False, dtype=torch.float16):
+    """-> (a synthetic LoRA state dict over every module of ``model`` whose
+    name matches ``pattern``, its keys ``stem(name)``; the names).  kohya
+    keys carry an alpha; PEFT ones (``peft``) none (factor 1)."""
+    sd, names = {}, []
+    for name, module in model.named_modules():
+        if not pattern.search(name):
+            continue
+        out_ch, in_ch = module.weight.shape[:2]
+        down = (torch.randn(LORA_RANK, in_ch, generator=gen) * LORA_STD).to(dtype)
+        up = (torch.randn(out_ch, LORA_RANK, generator=gen) * LORA_STD).to(dtype)
+        key = stem(name)
+        if peft:
+            sd.update({f"{key}.lora_A.weight": down, f"{key}.lora_B.weight": up})
+        else:
+            sd.update({f"{key}.lora_down.weight": down, f"{key}.lora_up.weight": up,
+                       f"{key}.alpha": torch.tensor(LORA_ALPHA)})
+        names.append(name)
+    return sd, names
+
+
+def save_adapter(d: Path, name: str, sd: dict, want):
+    """Write a LoRA adapter file; its parsed modules must be ``want``
+    ({(target, module name)}): the demangling at full width."""
+    from ml_stable_diffusion_torch.convert.lora import load_lora
+    from ml_stable_diffusion_torch.convert.native_io import save_file
+
+    path = d / f"{name}.safetensors"
+    save_file(sd, path)
+    got = set(load_lora(path).modules)
+    if got != set(want):
+        fail(f"{name}: the adapter parses to {len(got)} modules, {len(got & set(want))} of "
+             f"the {len(want)} written (e.g. {sorted(got ^ set(want))[:3]})")
+    return path, path.stat().st_size
+
+
+def timed_host(fn):
+    """-> seconds of ``fn()`` by the host's clock, the card's work included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def state_snapshot(modules: dict):
+    return {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for name, m in modules.items()}
+
+
+def check_restored(modules: dict, before: dict, what: str):
+    """Every tensor of every module equal to its snapshot, byte for byte."""
+    for name, m in modules.items():
+        now = m.state_dict()
+        if set(now) != set(before[name]):
+            fail(f"{what}: {name}'s state dict keys changed")
+        bad = [k for k, v in now.items() if not torch.equal(v, before[name][k])]
+        if bad:
+            fail(f"{what}: {len(bad)} tensors of {name} differ from the originals, e.g. {bad[:3]}")
+
+
+def check_same_latents(res, ref, what: str):
+    import numpy as np
+
+    if not np.array_equal(res.latents, ref.latents):
+        fail(f"{what}: latents differ from the adapter-free generation's by "
+             f"{latents_rel(res.latents, ref.latents)} (rel), not bit for bit")
+    log(f"{what}: latents bit-equal to the adapter-free generation of the same prompt and seed")
+
+
+def check_moved(res, ref, what: str) -> float:
+    rel = latents_rel(res.latents, ref.latents)
+    if not rel > ADAPTER_MIN_REL:
+        fail(f"{what} did not move the latents: rel {rel} <= {ADAPTER_MIN_REL}")
+    return rel
+
+
+def build_vision(cfg, seed: int):
+    """A CLIP vision encoder of ``cfg`` in bf16 on the card, speed weights."""
+    from ml_stable_diffusion_torch.models.clip_vision import CLIPVisionEncoder
+
+    with torch.device("meta"):
+        enc = CLIPVisionEncoder(cfg)
+    return materialize(enc, torch.Generator(device="cuda").manual_seed(seed),
+                       torch.bfloat16).eval()
+
+
+def ip_image(size: int, seed: int):
+    """A seeded (size, size, 3) float32 reference image in [0, 1]."""
+    return torch.rand((size, size, 3), generator=torch.Generator().manual_seed(seed)).numpy()
+
+
+def ip_adapter_groups(unet, kind: str, embed_dim: int, gen, tokens: int = 4):
+    """Synthetic h94 groups for ``unet``: ``ip_adapter`` (to_k_ip / to_v_ip
+    of every cross attention at index 2i+1) and a BASE (``tokens`` tokens)
+    or PLUS (ip-adapter-plus_sd15's resampler: dim 768, depth 4, 12 heads of
+    64, 16 queries, ff x4) ``image_proj``; N(0, 0.02) weights, LayerNorms at
+    1 and 0."""
+    from ml_stable_diffusion_torch.convert.ip_adapter import cross_attention_paths
+    from ml_stable_diffusion_torch.models.ip_adapter import IPImageProjection, IPResampler
+
+    cross = unet.config.cross_attention_dim
+    groups = {"ip_adapter": {}}
+    for i, name in enumerate(cross_attention_paths(unet.config)):
+        inner = unet.get_submodule(name).to_q.weight.shape[0]
+        for kv in ("to_k_ip", "to_v_ip"):
+            groups["ip_adapter"][f"{2 * i + 1}.{kv}.weight"] = (
+                torch.randn(inner, cross, generator=gen) * LORA_STD).half()
+    proj = (IPImageProjection(embed_dim, cross, tokens) if kind == "base" else
+            IPResampler(output_dim=cross, dim=768, depth=4, heads=12, dim_head=64,
+                        num_queries=16, ff_mult=4, embedding_dim=embed_dim))
+    sd = proj.state_dict()  # LayerNorms at 1 and 0 as built
+    for key, value in sd.items():
+        if "norm" in key or re.search(r"\.1\.0\.", key):
+            continue
+        if key == "latents":
+            sd[key] = torch.randn(value.shape, generator=gen)
+        elif key.endswith(".weight"):
+            sd[key] = torch.randn(value.shape, generator=gen) * LORA_STD
+        else:
+            sd[key] = torch.zeros_like(value)
+    groups["image_proj"] = {k: v.half() for k, v in sd.items()}
+    return groups
+
+
+def save_ip_adapter(d: Path, name: str, groups: dict, fmt: str):
+    """The h94 layouts: flat ``image_proj.*`` / ``ip_adapter.*`` safetensors,
+    or the torch-pickled nested .bin."""
+    from ml_stable_diffusion_torch.convert.native_io import save_file
+
+    if fmt == "safetensors":
+        path = d / f"{name}.safetensors"
+        save_file({f"{g}.{k}": v for g, sd in groups.items() for k, v in sd.items()}, path)
+    else:
+        path = d / f"{name}.bin"
+        torch.save(groups, path)
+    return path
+
+
+def vision_bound_ms(enc, batch: int) -> float:
+    """The least time of one encode: its weights read once against its
+    products at the bf16 peak (the patch conv, 4 projections and the MLP a
+    layer, q.k and p.v over all tokens, the visual projection)."""
+    c = enc.config
+    tokens = (c.image_size // c.patch_size) ** 2 + 1
+    C, inter = c.hidden_size, c.intermediate_size
+    flops = batch * (2 * (tokens - 1) * 3 * c.patch_size ** 2 * C
+                     + c.num_hidden_layers * (2 * tokens * (4 * C * C + 2 * C * inter)
+                                              + 4 * tokens * tokens * C)
+                     + 2 * C * c.projection_dim)
+    nbytes = sum(p.numel() * p.element_size() for p in enc.parameters())
+    return 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[torch.bfloat16])
+
+
+def device_busy(fn, calls: int = 3):
+    """-> (the device's busy ms per call of ``fn``, kernels per call) from
+    the profiler over ``calls`` calls after a warm-up, as phase 18 reads the
+    T5 encode; (None, None) when the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    if not any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        return None, None
+    busy_us, _, names = _device_time(prof)
+    return busy_us / 1e3 / calls, sum(n for n, _ in names.values()) / calls
+
+
+def time_vision(enc, label: str):
+    """The encoder at batch 1 and 2: ms by CUDA events around back-to-back
+    calls (the host's issue rate, on this eager path), the device's busy ms
+    and kernels per encode, and the bound."""
+    S = enc.config.image_size
+    out = {}
+    with torch.inference_mode():
+        for b in (1, 2):
+            fn = functools.partial(enc, torch.rand((b, 3, S, S), device="cuda"))
+            busy, kernels = device_busy(fn)
+            out[f"batch{b}"] = dict(ms=time_ms(fn, reps=3), device_ms=busy, kernels=kernels,
+                                    bound_ms=vision_bound_ms(enc, b))
+    log(f"{label} encode: " + "; ".join(
+        f"batch {b}: {r['ms']:.3f} ms (device busy {fmt_ms(r['device_ms'])}, "
+        f"{r['kernels'] or 0:.0f} kernels; bound {r['bound_ms']:.3f})"
+        for b, r in zip((1, 2), out.values())))
+    return out
+
+
+def time_decoupled_attention(unet, tokens):
+    """One SD-1.5 UNet call at CFG batch 2 (64x64 latents, 77 context rows)
+    without and with the IP tokens: ms by CUDA events, the device's busy ms
+    and kernels per call."""
+    gen = torch.Generator(device="cuda").manual_seed(211)
+    x = torch.randn(2, 4, 64, 64, generator=gen, device="cuda")
+    t = torch.tensor(500.0, device="cuda")
+    ctx = torch.randn(2, 77, unet.config.cross_attention_dim, generator=gen, device="cuda")
+    ip = torch.cat([tokens, tokens])
+    out = {}
+    with torch.inference_mode():
+        for key, fn in (("without", functools.partial(unet, x, t, ctx)),
+                        ("with", functools.partial(unet, x, t, ctx, ip_context=ip,
+                                                   ip_scale=1.0))):
+            busy, kernels = device_busy(fn)
+            out[key] = dict(ms=time_ms(fn, reps=3), device_ms=busy, kernels=kernels)
+    a, b = out["without"], out["with"]
+    log(f"sd15 UNet call, CFG batch 2, without / with the IP tokens: {a['ms']:.3f} / "
+        f"{b['ms']:.3f} ms (+{100 * (b['ms'] / a['ms'] - 1):.1f} %); device busy "
+        f"{fmt_ms(a['device_ms'])} / {fmt_ms(b['device_ms'])} ms, {a['kernels'] or 0:.0f} / "
+        f"{b['kernels'] or 0:.0f} kernels")
+    return out
+
+
+def run_sd15_adapter_paths(pipe, counters, report, sd15_results):
+    """Phase 21 on phase 11's SD-1.5 pipeline: a kohya LoRA stacked with a
+    PEFT one, generated from, then cleared (weights and latents back bit
+    for bit); the textual-inversion word witness; IP-Adapter BASE at scale 0
+    (bit-equal) and 1, and PLUS."""
+    from ml_stable_diffusion_torch.models.clip_vision import CLIPVisionConfig
+
+    gen = torch.Generator().manual_seed(21)
+    one = dict(timed=1, plain=False, warmup=False)
+    out, checks = {}, {}
+    base = sd15_results[0]  # PROMPTS[0], seed 1000: what every witness compares with
+    modules = {"unet": pipe.unet, "text_encoder": pipe.text_encoder}
+    before = state_snapshot(modules)
+    unet_sd, unet_names = lora_state(pipe.unet, UNET_LORA_RE, kohya_stem("lora_unet_"), gen)
+    te_sd, te_names = lora_state(pipe.text_encoder, CLIP_LORA_RE, kohya_stem("lora_te_"), gen)
+    peft_sd, peft_names = lora_state(pipe.unet, re.compile(r"attn2\.(to_k|to_v)$"),
+                                     lambda n: f"unet.{n}", gen, peft=True,
+                                     dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as d:
+        kohya, kohya_bytes = save_adapter(
+            Path(d), "kohya", {**unet_sd, **te_sd},
+            [("unet", n) for n in unet_names] + [("text_encoder", n) for n in te_names])
+        peft, _ = save_adapter(Path(d), "peft", peft_sd, [("unet", n) for n in peft_names])
+        merge_s = timed_host(lambda: pipe.apply_lora(kohya))
+        stack_s = timed_host(lambda: pipe.apply_lora(peft, 0.5))
+    results = []
+    out["sd15_lora"] = run_main_path(pipe, "sd15_lora", counters, results=results, **one)
+    rel = check_moved(results[0], base, "the LoRA adapters")
+    clear_s = timed_host(pipe.clear_loras)
+    check_restored(modules, before, "clear_loras")
+    del before
+    results = []
+    out["sd15_lora_cleared"] = run_main_path(pipe, "sd15_lora_cleared", counters,
+                                             results=results, **one)
+    check_same_latents(results[0], base, "sd15 after clear_loras")
+    checks["lora"] = dict(modules=len(unet_names) + len(te_names), peft_modules=len(peft_names),
+                          file_bytes=kohya_bytes, merge_s=merge_s, stack_s=stack_s,
+                          clear_s=clear_s, latents_rel_moved=rel)
+    log(f"sd15 LoRA: kohya rank {LORA_RANK} over {len(unet_names)} UNet and {len(te_names)} "
+        f"CLIP-L modules ({kohya_bytes / 1e6:.1f} MB) merged in {merge_s:.3f} s, the PEFT one "
+        f"({len(peft_names)} modules) stacked in {stack_s:.3f} s, cleared in {clear_s:.4f} s; "
+        f"latents moved {rel:.3g} (rel); weights and latents back bit for bit")
+
+    ids = pipe.tokenizer.encode(TI_WORD)
+    if len(ids) != 2:
+        fail(f"the witness word {TI_WORD!r} is {len(ids)} tokens, want 2")
+    table = pipe.text_encoder.text_model.embeddings.token_embedding.weight
+    rows = table[torch.tensor(ids, device=table.device)].detach().float().cpu().numpy()
+    new_ids = pipe.load_textual_inversion(rows, token=TI_TOKEN)
+    results = []
+    out["sd15_ti"] = run_main_path(pipe, "sd15_ti", counters, results=results,
+                                   extra=dict(prompt=TI_PROMPT), **one)
+    check_same_latents(results[0], base, f"sd15 textual inversion ({TI_PROMPT!r}, ids {new_ids})")
+
+    encoder = build_vision(CLIPVisionConfig(**VIT_H14), 212)
+    image = ip_image(encoder.config.image_size, IP_IMAGE_SEED)
+    with tempfile.TemporaryDirectory() as d:
+        path = save_ip_adapter(Path(d), "ip-adapter_sd15", ip_adapter_groups(
+            pipe.unet, "base", encoder.config.projection_dim, gen), "safetensors")
+        load_base_s = timed_host(lambda: pipe.load_ip_adapter(path, encoder))
+    results = []
+    out["sd15_ip_scale0"] = run_main_path(pipe, "sd15_ip_scale0", counters, results=results,
+                                          extra=dict(ip_adapter_image=image,
+                                                     ip_adapter_scale=0.0), **one)
+    check_same_latents(results[0], base, "sd15 IP-Adapter at ip_adapter_scale 0")
+    results = []
+    out["sd15_ip_base"] = run_main_path(pipe, "sd15_ip_base", counters, plain=False,
+                                        results=results, extra=dict(ip_adapter_image=image))
+    rel_base = check_moved(results[0], base, "IP-Adapter BASE")
+    checks["vision_h14"] = time_vision(encoder, "ViT-H/14 (bf16, 257 tokens)")
+    with torch.inference_mode():
+        S = encoder.config.image_size
+        tokens = pipe.ip_projection[0](encoder(torch.from_numpy(image).cuda().permute(
+            2, 0, 1)[None].contiguous())["image_embeds"])
+    checks["decoupled_attention"] = time_decoupled_attention(pipe.unet, tokens)
+    with tempfile.TemporaryDirectory() as d:
+        path = save_ip_adapter(Path(d), "ip-adapter-plus_sd15", ip_adapter_groups(
+            pipe.unet, "plus", encoder.config.hidden_size, gen), "bin")
+        load_plus_s = timed_host(lambda: pipe.load_ip_adapter(path, encoder))
+    results = []
+    out["sd15_ip_plus"] = run_main_path(pipe, "sd15_ip_plus", counters, plain=False,
+                                        results=results, extra=dict(ip_adapter_image=image))
+    rel_plus = check_moved(results[0], base, "IP-Adapter PLUS")
+    checks["ip_adapter"] = dict(load_base_s=load_base_s, load_plus_s=load_plus_s,
+                                latents_rel_moved_base=rel_base, latents_rel_moved_plus=rel_plus,
+                                image_size=S)
+    for p, res in out.items():
+        report(p, res)
+    return out, checks
+
+
+def run_sdxl_adapter_paths(pipe, counters, report, sdxl_results):
+    """Phase 22 on phase 7's SDXL base pipeline: a kohya-sgm LoRA on the UNet
+    and both CLIPs, generated from and cleared (weights back bit for bit);
+    a clip_l/clip_g placeholder of the witness word (latents bit-equal to
+    phase 7's); IP-Adapter with ViT-bigG/14."""
+    from ml_stable_diffusion_torch.models.clip_vision import CLIPVisionConfig
+
+    gen = torch.Generator().manual_seed(22)
+    one = dict(timed=1, plain=False, warmup=False)
+    out, checks = {}, {}
+    base = sdxl_results[0]
+    modules = {"unet": pipe.unet, "text_encoder": pipe.text_encoder,
+               "text_encoder2": pipe.text_encoder2}
+    before = state_snapshot(modules)
+    unet_sd, unet_names = lora_state(pipe.unet, UNET_LORA_RE, sgm_stem, gen)
+    te1_sd, te1_names = lora_state(pipe.text_encoder, CLIP_LORA_RE, kohya_stem("lora_te1_"), gen)
+    te2_sd, te2_names = lora_state(pipe.text_encoder2, CLIP_LORA_RE, kohya_stem("lora_te2_"),
+                                   gen)
+    with tempfile.TemporaryDirectory() as d:
+        path, nbytes = save_adapter(
+            Path(d), "kohya_sdxl", {**unet_sd, **te1_sd, **te2_sd},
+            [("unet", n) for n in unet_names] + [("text_encoder", n) for n in te1_names]
+            + [("text_encoder_2", n) for n in te2_names])
+        merge_s = timed_host(lambda: pipe.apply_lora(path))
+    results = []
+    out["sdxl_lora"] = run_main_path(pipe, "sdxl_lora", counters, results=results, **one)
+    rel = check_moved(results[0], base, "the SDXL LoRA")
+    clear_s = timed_host(pipe.clear_loras)
+    check_restored(modules, before, "SDXL clear_loras")
+    del before
+    checks["lora"] = dict(modules=len(unet_names) + len(te1_names) + len(te2_names),
+                          file_bytes=nbytes, merge_s=merge_s, clear_s=clear_s,
+                          latents_rel_moved=rel)
+    log(f"sdxl LoRA: kohya-sgm rank {LORA_RANK} over {len(unet_names)} UNet, {len(te1_names)} "
+        f"CLIP-L and {len(te2_names)} CLIP-G modules ({nbytes / 1e6:.1f} MB) merged in "
+        f"{merge_s:.3f} s, cleared in {clear_s:.4f} s; latents moved {rel:.3g} (rel); weights "
+        "back bit for bit")
+
+    ids = pipe.tokenizer.encode(TI_WORD)
+    if ids != pipe.tokenizer2.encode(TI_WORD) or len(ids) != 2:
+        fail(f"the witness word {TI_WORD!r}: ids {ids}, want 2 tokens in both tokenizers")
+    rows = {}
+    for key, enc in (("clip_l", pipe.text_encoder), ("clip_g", pipe.text_encoder2)):
+        table = enc.text_model.embeddings.token_embedding.weight
+        rows[key] = table[torch.tensor(ids, device=table.device)].detach().float().cpu().numpy()
+    pipe.load_textual_inversion(rows, token=TI_TOKEN)
+    results = []
+    out["sdxl_ti"] = run_main_path(pipe, "sdxl_ti", counters, results=results,
+                                   extra=dict(prompt=TI_PROMPT), **one)
+    check_same_latents(results[0], base, "sdxl clip_l/clip_g textual inversion (and the "
+                                         "weights after clear_loras)")
+
+    encoder = build_vision(CLIPVisionConfig(**VIT_BIGG14), 220)
+    with tempfile.TemporaryDirectory() as d:
+        path = save_ip_adapter(Path(d), "ip-adapter_sdxl", ip_adapter_groups(
+            pipe.unet, "base", encoder.config.projection_dim, gen), "safetensors")
+        load_s = timed_host(lambda: pipe.load_ip_adapter(path, encoder))
+    results = []
+    out["sdxl_ip"] = run_main_path(
+        pipe, "sdxl_ip", counters, results=results,
+        extra=dict(ip_adapter_image=ip_image(encoder.config.image_size, IP_IMAGE_SEED)), **one)
+    checks["ip_adapter"] = dict(load_s=load_s,
+                                latents_rel_moved=check_moved(results[0], base, "SDXL IP-Adapter"))
+    checks["vision_bigg14"] = time_vision(encoder, "ViT-bigG/14 (bf16, 257 tokens)")
+    for p, res in out.items():
+        report(p, res)
+    return out, checks
+
+
+def run_sd3_lora_path(pipe, counters, report, sd3_results):
+    """Phase 22 on phase 5's SD3 pipeline: a PEFT ``transformer.`` LoRA over
+    every joint-attention projection, one generation, cleared (weights back
+    bit for bit)."""
+    gen = torch.Generator().manual_seed(23)
+    modules = {"mmdit": pipe.unet}
+    before = state_snapshot(modules)
+    sd, names = lora_state(pipe.unet, MMDIT_LORA_RE, lambda n: f"transformer.{n}", gen,
+                           peft=True)
+    with tempfile.TemporaryDirectory() as d:
+        path, nbytes = save_adapter(Path(d), "peft_sd3", sd, [("transformer", n) for n in names])
+        merge_s = timed_host(lambda: pipe.apply_lora(path))
+    results = []
+    res = run_main_path(pipe, "sd3_lora", counters, timed=1, plain=False, warmup=False,
+                        results=results)
+    rel = check_moved(results[0], sd3_results[0], "the SD3 LoRA")
+    clear_s = timed_host(pipe.clear_loras)
+    check_restored(modules, before, "SD3 clear_loras")
+    log(f"sd3 LoRA: PEFT rank {LORA_RANK} over {len(names)} MMDiT modules ({nbytes / 1e6:.1f} "
+        f"MB) merged in {merge_s:.3f} s, cleared in {clear_s:.4f} s; latents moved {rel:.3g} "
+        "(rel); weights back bit for bit")
+    report("sd3_lora", res)
+    return res, dict(modules=len(names), file_bytes=nbytes, merge_s=merge_s, clear_s=clear_s,
+                     latents_rel_moved=rel)
+
+
 # -- phases 9 and 10 ----------------------------------------------------------------
 
 def fixed_latents(pipe):
@@ -2468,8 +2970,8 @@ def main():
 
     check_unet_calls()
     schedulers = inpainting = None
-    #: phases 18 to 20's checks; phases 3 and 5's generations
-    sd3_checks, results = {}, {"sd21": [], "sd3": []}
+    #: phases 18 to 20's checks; phases 21 and 22's; phases 3, 5 and 7's generations
+    sd3_checks, adapters, results = {}, {}, {"sd21": [], "sd3": [], "sdxl": []}
 
     def sd21_more(pipe):
         """Phases 12, 13 and 20 on phase 3's pipeline."""
@@ -2494,6 +2996,10 @@ def main():
         paths, sd3_checks["controlnet"] = run_sd3_controlnet_paths(pipe, counters, report,
                                                                    results["sd3"])
         main_paths.update(paths)
+        torch.cuda.empty_cache()
+        # phase 22's SD3 LoRA
+        main_paths["sd3_lora"], adapters["sd3"] = run_sd3_lora_path(pipe, counters, report,
+                                                                    results["sd3"])
 
     for path, build, check, more in (
             ("sd21", build_sd21_pipeline, check_unet_flash_vs_plain, sd21_more),
@@ -2515,7 +3021,7 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tokdir:
         pipe = build_sdxl_pipeline(Path(tokdir))
-    main_paths["sdxl"] = run_main_path(pipe, "sdxl", counters)
+    main_paths["sdxl"] = run_main_path(pipe, "sdxl", counters, results=results["sdxl"])
     report("sdxl", main_paths["sdxl"])
     # phase 14's SDXL-base img2img, before the refiner joins
     main_paths["sdxl_img2img"] = run_main_path(
@@ -2525,6 +3031,10 @@ def main():
     torch.cuda.empty_cache()
     # phase 17: one SDXL ControlNet beside the base, before the refiner joins
     main_paths["sdxl_controlnet"] = run_sdxl_controlnet_path(pipe, counters, report)
+    torch.cuda.empty_cache()
+    # phase 22: the adapters on the base, before the refiner joins
+    paths, adapters["sdxl"] = run_sdxl_adapter_paths(pipe, counters, report, results["sdxl"])
+    main_paths.update(paths)
     torch.cuda.empty_cache()
     pipe = sdxl_with_refiner(pipe)
     main_paths["sdxl_refiner"] = run_main_path(pipe, "sdxl_refiner", counters, timed=1,
@@ -2550,11 +3060,15 @@ def main():
     torch.cuda.empty_cache()
     paths, features = run_feature_paths(pipe, counters, report, sd15_results)
     main_paths.update(paths)
+    torch.cuda.empty_cache()
+    # phase 21: the adapters on its modules
+    paths, adapters["sd15"] = run_sd15_adapter_paths(pipe, counters, report, sd15_results)
+    main_paths.update(paths)
     del pipe
     torch.cuda.empty_cache()
     model_checks["sd15"] = check_sd15_flash_vs_plain(counters["flash_attention"])
     torch.cuda.empty_cache()
-    log(f"phases of sd15 (11, 15, 16): {time.perf_counter() - t0:.1f} s")
+    log(f"phases of sd15 (11, 15, 16, 21): {time.perf_counter() - t0:.1f} s")
 
     # phases 9 and 10: the palettized path and the fused op's witness
     t0 = time.perf_counter()
@@ -2589,7 +3103,7 @@ def main():
     log(json.dumps({"main_paths": main_paths, "in_model_checks": model_checks,
                     "palettized_path": palettized, "schedulers": schedulers,
                     "inpainting": inpainting, "controlnet": controlnet, "features": features,
-                    "sd3_t5_controlnet_loader": sd3_checks,
+                    "sd3_t5_controlnet_loader": sd3_checks, "adapters": adapters,
                     "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
     log(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ torch tensors (``convert/artifacts.load_module``).  The output is a
 diffusers/transformers-keyed state dict of torch tensors that
 ``load_state_dict(strict=True)`` accepts for ``UNet2DConditionModel``,
 ``ControlNetModel``, ``VAEDecoder``, ``VAEEncoder``, ``CLIPTextEncoder``,
-``SafetyChecker``, ``MMDiT``, ``SD3ControlNetModel`` and ``T5Encoder``.
+``SafetyChecker``, ``CLIPVisionEncoder``, ``MMDiT``, ``SD3ControlNetModel``
+and ``T5Encoder``.
 
 Layouts: a conv kernel goes HWIO -> OIHW, a dense kernel is transposed,
 a norm ``scale`` becomes ``weight``, an embedding table stays as it is.
@@ -164,7 +165,16 @@ def safety_checker_state_dict(params) -> dict[str, torch.Tensor]:
     """Flax ``SafetyChecker`` params -> port ``SafetyChecker`` state dict
     (HF ``StableDiffusionSafetyChecker`` keys: the inverse of the JAX
     package's ``convert/safety.py``)."""
-    vm = "vision_model.vision_model"
+    return _vision_tower_state_dict(params, "vision_model.vision_model")
+
+
+def clip_vision_state_dict(params) -> dict[str, torch.Tensor]:
+    """Flax ``CLIPVisionEncoder`` params -> port ``CLIPVisionEncoder`` state
+    dict (transformers ``CLIPVisionModelWithProjection`` keys)."""
+    return _vision_tower_state_dict(params, "vision_model")
+
+
+def _vision_tower_state_dict(params, vm: str) -> dict[str, torch.Tensor]:
     sd = {}
     for path, value in _leaves(params):
         head = path[0]
@@ -184,7 +194,7 @@ def safety_checker_state_dict(params) -> dict[str, torch.Tensor]:
             elif head == "visual_projection":
                 name = head
             else:
-                raise KeyError(f"unexpected safety checker parameter {'/'.join(path)}")
+                raise KeyError(f"unexpected vision tower parameter {'/'.join(path)}")
             sd[f"{name}.{leaf}"] = tensor
     return sd
 

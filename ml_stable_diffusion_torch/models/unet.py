@@ -34,10 +34,16 @@ diffusers checkpoint keys (``down_blocks.0.attentions.0.transformer_blocks.0
   last up block; ``deep_feature`` runs the shallow pass (conv_in, down
   block 0 and the last up block) on a cached one.
 
+- IP-Adapter: ``load_ip_adapter`` gives each cross attention (attn2)
+  ``to_k_ip``/``to_v_ip`` Linears over the image tokens; with
+  ``ip_context`` every attn2 adds ``ip_scale`` times the attention of its
+  queries over those tokens to its own before ``to_out``, as the JAX
+  ``Attention`` does (``ip_scale=0`` leaves the output as it is without
+  them, bit for bit).  Self attention and the ControlNet take no tokens.
+
 The down and mid blocks are built and run by ``down_and_mid_blocks``,
-``run_down`` and ``run_mid``, which the ControlNet shares.  IP-Adapter
-tokens and fused qkv raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+``run_down`` and ``run_mid``, which the ControlNet shares.  Fused qkv raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -229,7 +235,9 @@ class ResnetBlock2D(nn.Module):
 
 
 class Attention(nn.Module):
-    """QKV attention over (B, S, C) through the shared dispatch."""
+    """QKV attention over (B, S, C) through the shared dispatch.  ``ip``:
+    (IP-Adapter tokens (B, S_ip, C_ctx), scale) for a cross attention that
+    ``load_ip_adapter`` gave ``to_k_ip``/``to_v_ip``."""
 
     def __init__(self, query_dim: int, heads: int, context_dim: int | None = None):
         super().__init__()
@@ -240,7 +248,7 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(context_dim, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, ip=None):
         context = x if context is None else context
         B, Sq, C = x.shape
         Sk = context.shape[1]
@@ -249,6 +257,15 @@ class Attention(nn.Module):
         k = self.to_k(context).view(B, Sk, H, C // H)
         v = self.to_v(context).view(B, Sk, H, C // H)
         out = dot_product_attention(q, k, v)
+        if ip is not None:
+            tokens, scale = ip
+            if not hasattr(self, "to_k_ip"):
+                raise ValueError("IP-Adapter tokens reached a cross attention without "
+                                 "to_k_ip/to_v_ip: load_ip_adapter on this UNet first")
+            S_ip = tokens.shape[1]
+            k_ip = self.to_k_ip(tokens).view(B, S_ip, H, C // H)
+            v_ip = self.to_v_ip(tokens).view(B, S_ip, H, C // H)
+            out = out + scale * dot_product_attention(q, k_ip, v_ip)
         return self.to_out[0](out.reshape(B, Sq, C))
 
 
@@ -285,9 +302,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ff = FeedForward(dim, fast_gelu=fast_gelu)
 
-    def forward(self, x, context):
+    def forward(self, x, context, ip=None):
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, ip)
         return x + self.ff(self.norm3(x))
 
 
@@ -305,12 +322,12 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = nn.Linear(channels, channels)
 
-    def forward(self, x, context):
+    def forward(self, x, context, ip=None):
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         h = self.proj_in(h)
         for block in self.transformer_blocks:
-            h = block(h, context)
+            h = block(h, context, ip)
         h = self.proj_out(h)
         # x first: the sum takes x's contiguous NCHW layout, which the
         # GroupNorm kernel of the next resnet needs (the permuted h first
@@ -396,16 +413,17 @@ def down_and_mid_blocks(cfg: UNetConfig, gn: str = "plain", fast_gelu: bool = Fa
     return nn.ModuleList(down), mid_block, skip_ch
 
 
-def run_down(blocks, h, emb, context, shallow: bool = False):
+def run_down(blocks, h, emb, context, shallow: bool = False, ip=None):
     """The down blocks on conv_in's output ``h`` -> (h, the skip residuals,
     conv_in's output first).  ``shallow`` (DeepCache): down block 0 without
-    its downsampler."""
+    its downsampler.  ``ip``: IP-Adapter (tokens, scale) for the cross
+    attentions."""
     residuals = [h]
     for block in blocks[:1] if shallow else blocks:
         for li, resnet in enumerate(block.resnets):
             h = resnet(h, emb)
             if hasattr(block, "attentions"):
-                h = block.attentions[li](h, context)
+                h = block.attentions[li](h, context, ip)
             residuals.append(h)
         if hasattr(block, "downsamplers") and not shallow:
             h = block.downsamplers[0](h)
@@ -413,9 +431,9 @@ def run_down(blocks, h, emb, context, shallow: bool = False):
     return h, residuals
 
 
-def run_mid(block, h, emb, context):
+def run_mid(block, h, emb, context, ip=None):
     h = block.resnets[0](h, emb)
-    h = block.attentions[0](h, context)
+    h = block.attentions[0](h, context, ip)
     return block.resnets[1](h, emb)
 
 
@@ -446,7 +464,8 @@ class UNet2DConditionModel(nn.Module):
     timesteps (B,) or scalar, encoder_hidden_states (B, S, C_ctx),
     added_cond)`` -> float32 (B, C_out, H, W); computes in the dtype of its
     parameters.  ``added_cond`` (SDXL): ``{"text_embeds": (B, pooled),
-    "time_ids": (B, 5 or 6)}``."""
+    "time_ids": (B, 5 or 6)}``.  ``ip_context`` (B, S_ip, C_ctx) and
+    ``ip_scale``: IP-Adapter tokens for every cross attention."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -497,8 +516,8 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states, added_cond=None,
                 down_block_residuals=None, mid_block_residual=None,
-                ip_context=None, deep_feature=None, return_deep_feature=False,
-                timestep_cond=None):
+                ip_context=None, ip_scale: float = 1.0, deep_feature=None,
+                return_deep_feature=False, timestep_cond=None):
         """``down_block_residuals`` / ``mid_block_residual``: a ControlNet's
         (float32; added in the compute dtype).  ``return_deep_feature``:
         -> (output, the tensor entering the last up block).  ``deep_feature``:
@@ -506,8 +525,6 @@ class UNet2DConditionModel(nn.Module):
         residuals and the mid residual is skipped.  With a feature from a
         full pass on the same inputs it gives that pass's output bit for
         bit."""
-        if ip_context is not None:
-            raise NotImplementedError("IP-Adapter tokens: ROADMAP Queue 1 item 15")
         cfg = self.config
         shallow = deep_feature is not None
         if shallow or return_deep_feature:
@@ -525,16 +542,17 @@ class UNet2DConditionModel(nn.Module):
             sample.shape[0], dtype, added_cond,
             timestep_cond if cfg.time_cond_proj_dim is not None else None)
         context = encoder_hidden_states.to(dtype)
+        ip = None if ip_context is None else (ip_context.to(dtype), ip_scale)
 
         h, residuals = run_down(self.down_blocks, self.conv_in(sample.to(dtype)), emb, context,
-                                shallow)
+                                shallow, ip)
         if down_block_residuals is not None:
             # on the shallow pass zip stops at the shallow skips, the list's head
             residuals = [r + c.to(r.dtype) for r, c in zip(residuals, down_block_residuals)]
         if shallow:
             h = deep_feature.to(dtype)
         else:
-            h = run_mid(self.mid_block, h, emb, context)
+            h = run_mid(self.mid_block, h, emb, context, ip)
             if mid_block_residual is not None:
                 h = h + mid_block_residual.to(h.dtype)
 
@@ -545,7 +563,7 @@ class UNet2DConditionModel(nn.Module):
             for li, resnet in enumerate(block.resnets):
                 h = resnet(torch.cat([h, residuals.pop().to(h.dtype)], dim=1), emb)
                 if hasattr(block, "attentions"):
-                    h = block.attentions[li](h, context)
+                    h = block.attentions[li](h, context, ip)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 

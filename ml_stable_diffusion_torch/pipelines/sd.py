@@ -41,12 +41,24 @@ the same steps run eagerly on the card:
 5. decode with the VAE to uint8 pixels; the safety checker, if any and not
    ``disable_safety``, zeroes the images it flags.
 
-``seconds_per_step`` is measured as in the JAX package: text encoding plus
-the denoise loop, ended by fetching the latents to the host, divided by the
-step count of the plan (also when a handler stopped the loop early).
-Images come back as one (N, H, W, 3) uint8 array (``utils.image.to_pil``
-converts).  Features not ported yet raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+Adapters, as in the JAX package: ``apply_lora`` merges LoRA adapters into
+the weights (stacking; ``clear_loras`` restores them bit for bit),
+``load_textual_inversion`` grows the CLIP token tables and registers the
+placeholder with the tokenizers, and ``load_ip_adapter`` gives the UNet's
+cross attentions the decoupled IP-Adapter projections.  With an
+``ip_adapter_image`` the CLIP vision encoder and the adapter's projection
+make the image tokens once per generation (BASE: the projected image
+embedding, the negative branch from zeros; PLUS: the resampled penultimate
+patch states, the negative branch from an image at the CLIP mean); every
+call of the base UNet takes them, scaled by ``ip_adapter_scale``, and no
+ControlNet does.
+
+``seconds_per_step`` is measured as in the JAX package: text encoding (and
+the image tokens) plus the denoise loop, ended by fetching the latents to
+the host, divided by the step count of the plan (also when a handler
+stopped the loop early).  Images come back as one (N, H, W, 3) uint8 array
+(``utils.image.to_pil`` converts).  Features not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 Palettized weights (``install_palettized``) are served as the JAX package
 serves them: dequantized once on the host (``mode="install"``), or kept on
@@ -66,7 +78,7 @@ import torch
 
 from ..compress.palettize import PalettizedTensor
 from ..models.multilingual import EMBED_DIM, MAX_SEQUENCE_LENGTH
-from ..models.safety import check_images
+from ..models.safety import CLIP_IMAGE_MEAN, check_images
 from ..models.unet import get_guidance_scale_embedding
 from ..models.vae import sample_diagonal_gaussian
 from ..ops.attention import set_attention_implementation
@@ -176,8 +188,6 @@ class GenerationResult:
 #: SD3 pipelines ignore the first, and every scheduler but DiscreteFlow the
 #: second, and so does the port
 _UNPORTED_FIELDS = {
-    "ip_adapter_image": "IP-Adapter: ROADMAP Queue 1 item 15",
-    "ip_adapter_scale": "IP-Adapter: ROADMAP Queue 1 item 15",
     "reduce_memory": "reduce_memory staging: ROADMAP Queue 1 item 17",
 }
 
@@ -257,6 +267,170 @@ class StableDiffusionPipeline:
         #: program mode: module key -> ({parameter key: PalettizedTensor on
         #: the device}, install dtype)
         self.palettized_side: dict[str, tuple[dict[str, PalettizedTensor], torch.dtype]] = {}
+        #: set by load_ip_adapter: (IPImageProjection or IPResampler, the
+        #: vision encoder's output it takes) and the CLIPVisionEncoder
+        self.ip_projection = None
+        self.ip_image_encoder = None
+        #: apply_lora: pipeline attribute -> {module name: pristine weight}
+        self._lora_originals: dict[str, dict] = {}
+        self.applied_loras: list[tuple[str, float]] = []
+        #: load_textual_inversion: (token, vectors)
+        self.textual_inversions: list[tuple[str, int]] = []
+
+    # -- LoRA adapters -----------------------------------------------------------
+
+    #: the adapter target that addresses the denoiser (SD3: "transformer")
+    _LORA_DENOISER_TARGET = "unet"
+
+    def apply_lora(self, lora, scale: float = 1.0):
+        """Merge a LoRA adapter into the pipeline's weights: ``lora`` a
+        .safetensors path (kohya, SDXL's sgm names among them, or diffusers
+        PEFT) or a ``convert.lora.LoRAAdapter``; each weight gains ``scale *
+        (alpha / rank) * up @ down``.  Repeated calls stack.  Apply before
+        ``install_palettized``.  A target this pipeline has no component for
+        raises ``ValueError``."""
+        from ..convert.lora import TARGET_TE, TARGET_TE2, LoRAAdapter, load_lora, merge_lora
+
+        adapter = lora if isinstance(lora, LoRAAdapter) else load_lora(lora)
+        attr_map = {self._LORA_DENOISER_TARGET: "unet", TARGET_TE: "text_encoder"}
+        if hasattr(self, "text_encoder2"):
+            attr_map[TARGET_TE2] = "text_encoder2"
+        for target in sorted(adapter.targets()):
+            attr = attr_map.get(target)
+            if attr is None or getattr(self, attr) is None:
+                raise ValueError(f"LoRA {adapter.name!r} targets {target!r}, which this "
+                                 "pipeline has no component for")
+            merge_lora(getattr(self, attr), adapter, target, scale,
+                       self._lora_originals.setdefault(attr, {}))
+        self.applied_loras.append((adapter.name, scale))
+        return self
+
+    def clear_loras(self):
+        """Put back the weights every ``apply_lora`` changed, bit for bit."""
+        from ..convert.lora import restore_loras
+
+        for attr, originals in self._lora_originals.items():
+            restore_loras(getattr(self, attr), originals)
+        self._lora_originals = {}
+        self.applied_loras = []
+        return self
+
+    # -- IP-Adapter --------------------------------------------------------------
+
+    def load_ip_adapter(self, source, image_encoder):
+        """Load an IP-Adapter: ``source`` an h94-format checkpoint
+        (.safetensors or torch .bin, BASE or PLUS, told apart by its
+        ``latents``) or its nested dict; ``image_encoder`` a
+        ``CLIPVisionEncoder`` (used as it is) or a transformers
+        ``CLIPVisionModelWithProjection`` directory (loaded in the UNet's
+        dtype).  Each cross attention of the UNet gets its ``to_k_ip`` /
+        ``to_v_ip`` Linear and the projection is built, all in the UNet's
+        dtype on its device.  ``ValueError`` for a denoiser that is not a
+        UNet, a checkpoint of another UNet, or a PLUS resampler whose output
+        is not the UNet's cross-attention width."""
+        from ..convert.ip_adapter import (install_ip_projections, load_ip_adapter_state,
+                                          port_ip_adapter, resampler_geometry)
+        from ..models.ip_adapter import IPImageProjection, IPResampler
+        from ..models.unet import UNetConfig
+
+        if not isinstance(self.unet.config, UNetConfig):
+            raise ValueError("IP-Adapter checkpoints target UNet denoisers (SD/SDXL); "
+                             f"this pipeline's denoiser is {type(self.unet).__name__}")
+        image_proj, ip_layers = load_ip_adapter_state(source)
+        ported = port_ip_adapter(self.unet.config, ip_layers)
+        w = self.unet.conv_in.weight
+        cross = self.unet.config.cross_attention_dim
+        if "latents" in image_proj:  # PLUS: the resampler over patch states
+            geom = resampler_geometry(image_proj)
+            if geom["output_dim"] != cross:
+                raise ValueError(f"adapter output dim {geom['output_dim']} != UNet "
+                                 f"cross-attention dim {cross} — wrong base model?")
+            proj = IPResampler(**geom, embedding_dim=image_proj["proj_in.weight"].shape[1])
+            embed_key = "penultimate"
+        else:
+            proj = IPImageProjection(image_proj["proj.weight"].shape[1], cross,
+                                     image_proj["proj.weight"].shape[0] // cross)
+            embed_key = "image_embeds"
+        proj.load_state_dict(image_proj, strict=True)
+        install_ip_projections(self.unet, ported)
+        if not isinstance(image_encoder, torch.nn.Module):
+            from ..convert.clip_vision import load_clip_vision
+
+            image_encoder = load_clip_vision(image_encoder, dtype=w.dtype, device=self.device)
+        self.ip_projection = (proj.to(device=w.device, dtype=w.dtype).eval(), embed_key)
+        self.ip_image_encoder = image_encoder.to(self.device).eval()
+        return self
+
+    def _ip_tokens(self, cfg: PipelineConfiguration, N: int):
+        """(negative, positive) IP-Adapter tokens of ``ip_adapter_image``:
+        an (S, S, 3) or (N, S, S, 3) array in [0, 1], or a PIL image resized
+        to S.  BASE projects zeros for the negative branch, PLUS the
+        patch states of an image at the CLIP mean."""
+        proj, embed_key = self.ip_projection
+        enc = self.ip_image_encoder
+        S = enc.config.image_size
+        im = cfg.ip_adapter_image
+        if not isinstance(im, np.ndarray):
+            im = pil_to_tensor(im, size=(S, S), value_range=(0.0, 1.0))
+        im = np.asarray(im, np.float32)
+        if im.ndim == 3:
+            im = im[None]
+        image = self._nchw(np.broadcast_to(im, (N, S, S, 3)))
+        emb = enc(image)[embed_key]
+        if embed_key == "penultimate":
+            neutral = self._nchw(np.broadcast_to(CLIP_IMAGE_MEAN, (N, S, S, 3)))
+            emb_neg = enc(neutral)[embed_key]
+        else:
+            emb_neg = torch.zeros_like(emb)
+        return proj(emb_neg), proj(emb)
+
+    # -- textual inversion -------------------------------------------------------
+
+    def load_textual_inversion(self, source, token: str | None = None) -> list[int]:
+        """Load a textual-inversion embedding: ``source`` an a1111 ``.pt``, a
+        ``.safetensors`` (``emb_params``, SDXL ``clip_l``/``clip_g``, or the
+        diffusers ``{token: tensor}`` form), a dict of those, or an (n, dim)
+        array; ``token`` defaults to the name the file carries, else
+        ``<stem>``.  Each CLIP encoder's token table grows by the vectors
+        (every loaded encoder needs its own, and both must share a vocabulary
+        size) and the tokenizers expand ``token`` to their ids, which are
+        returned.  On SD3 only the CLIP tokenizers know the placeholder: T5
+        reads the text as it is."""
+        from pathlib import Path
+
+        from ..convert.textual_inversion import extend_token_embedding, load_ti_embedding
+
+        data, name = load_ti_embedding(source)
+        if token is None:
+            token = name
+            if token is None and isinstance(source, (str, Path)):
+                token = f"<{Path(source).stem}>"
+            if token is None:
+                raise ValueError("pass token= for array sources without an embedded name")
+        slots = []  # (key, encoder attribute)
+        if self.text_encoder is not None:
+            slots.append(("clip_l", "text_encoder"))
+        if getattr(self, "text_encoder2", None) is not None:
+            slots.append(("clip_g", "text_encoder2"))
+        missing = [k for k, _ in slots if k not in data]
+        if missing:
+            raise ValueError(f"this pipeline's encoders need {[k for k, _ in slots]} "
+                             f"vectors; the embedding lacks {missing}")
+        bases = {getattr(self, a).config.vocab_size for _, a in slots}
+        if len(bases) != 1:
+            raise ValueError(f"encoders disagree on vocab size ({bases}); textual "
+                             "inversion needs shared token ids")
+        base = bases.pop()
+        n = data[slots[0][0]].shape[0]
+        ids = list(range(base, base + n))
+        for key, attr in slots:
+            extend_token_embedding(getattr(self, attr), data[key])
+        self.tokenizer.add_placeholder(token, ids)
+        tok2 = getattr(self, "tokenizer2", None)
+        if tok2 is not None:
+            tok2.add_placeholder(token, ids)
+        self.textual_inversions.append((token, n))
+        return ids
 
     # -- compressed serving ------------------------------------------------------
 
@@ -441,8 +615,8 @@ class StableDiffusionPipeline:
     def _call_unet(self, phase: str, latents, t, context, added_cond, down_res=None,
                    mid_res=None, **unet_kw):
         """One denoiser call: ``down_res`` / ``mid_res`` the ControlNets'
-        residuals; ``unet_kw`` the guidance embedding and DeepCache's
-        arguments."""
+        residuals; ``unet_kw`` the guidance embedding, the IP-Adapter tokens
+        and DeepCache's arguments."""
         return self._phase_unet(phase)(latents, t, context, added_cond,
                                        down_block_residuals=down_res,
                                        mid_block_residual=mid_res, **unet_kw)
@@ -587,7 +761,7 @@ class StableDiffusionPipeline:
 
     def _denoise(self, cfg, latents, text, N, plan, scheduler, guidance_on, g,
                  step_noises=None, inpaint=None, timestep_cond=None, ctrl_inputs=(),
-                 progress_handler=None):
+                 progress_handler=None, ip_tokens=None):
         """The denoise loop on NCHW float32 latents: the phases in turn over
         one scheduler state, as the JAX package's consecutive scans.
         ``step_noises`` (steps, N, h, w, C) host noise for a scheduler that
@@ -596,7 +770,9 @@ class StableDiffusionPipeline:
         (its base phase only); ``ctrl_inputs`` one per ControlNet (the
         control images, or what ``_prepare_control_inputs`` made of them),
         the nets running in every phase; ``progress_handler`` called after
-        every step, the loop ending when it returns False."""
+        every step, the loop ending when it returns False; ``ip_tokens``
+        the IP-Adapter's (negative, positive) tokens, for the base UNet's
+        calls (the SDXL refiner has no IP projections)."""
         timesteps = torch.from_numpy(plan.timesteps).to(self.device)
         state = scheduler.initial_state(plan, latents)
         inpaint = inpaint or {}
@@ -610,6 +786,13 @@ class StableDiffusionPipeline:
             # only (the SDXL refiner has neither)
             extras9 = inpaint.get("extras9") if base else None
             tc_kw = {"timestep_cond": timestep_cond} if base and timestep_cond is not None else {}
+            ip_neg = ip_pos = ip2 = {}
+            if base and ip_tokens is not None:
+                def ip_kw(tokens):
+                    return {"ip_context": tokens, "ip_scale": float(cfg.ip_adapter_scale)}
+
+                ip_neg, ip_pos, ip2 = (ip_kw(ip_tokens[0]), ip_kw(ip_tokens[1]),
+                                       ip_kw(torch.cat(ip_tokens)))
             ctx2 = added2 = None
             if guidance_on and not serial:
                 ctx2 = torch.cat([ctx_neg, ctx_pos])
@@ -629,19 +812,20 @@ class StableDiffusionPipeline:
                     lat_in = torch.cat([lat_in, extras9.to(lat_in.dtype)], dim=1)
                 if not guidance_on:
                     noise_pred = self._call_unet_cached(cache, full, phase, lat_in, t, ctx_pos,
-                                                        added_pos, down_res, mid_res, **tc_kw)
+                                                        added_pos, down_res, mid_res, **tc_kw,
+                                                        **ip_pos)
                 else:
                     if serial:
                         out_neg = self._call_unet(phase, lat_in, t, ctx_neg, added_neg,
-                                                  down_res, mid_res)
+                                                  down_res, mid_res, **ip_neg)
                         out_pos = self._call_unet(phase, lat_in, t, ctx_pos, added_pos,
-                                                  down_res, mid_res)
+                                                  down_res, mid_res, **ip_pos)
                     else:
                         dr2 = None if down_res is None else [torch.cat([r, r]) for r in down_res]
                         mr2 = None if mid_res is None else torch.cat([mid_res, mid_res])
                         out = self._call_unet_cached(cache, full, phase,
                                                      torch.cat([lat_in, lat_in]), t, ctx2,
-                                                     added2, dr2, mr2)
+                                                     added2, dr2, mr2, **ip2)
                         out_neg, out_pos = out.chunk(2)
                     noise_pred = out_neg + g * (out_pos - out_neg)
                 denoised = None
@@ -701,6 +885,9 @@ class StableDiffusionPipeline:
         scheduler = self._make_scheduler(cfg)
         img2img = cfg.starting_image is not None
         inpaint = cfg.mask_image is not None
+        ip_on = cfg.ip_adapter_image is not None
+        if ip_on and self.ip_projection is None:
+            raise ValueError("ip_adapter_image requires load_ip_adapter(...) first")
         C = self.latent_channels
         unet9 = self.unet.config.in_channels == C + 5
         if inpaint and not img2img:
@@ -731,6 +918,7 @@ class StableDiffusionPipeline:
         try:
             with torch.inference_mode():
                 text = self._encode_text(token_inputs)
+                ip_tokens = self._ip_tokens(cfg, N) if ip_on else None
                 w_emb = None
                 if tcp:
                     w_emb = get_guidance_scale_embedding(
@@ -743,7 +931,8 @@ class StableDiffusionPipeline:
                     ctrl = self._prepare_control_inputs(cfg, ctrl)
                 latents = self._denoise(cfg, latents, text, N, plan, scheduler, guidance_on,
                                         float(cfg.guidance_scale), step_noises,
-                                        inpaint_state, w_emb, ctrl, progress_handler)
+                                        inpaint_state, w_emb, ctrl, progress_handler,
+                                        ip_tokens)
                 # the host fetch waits for the device
                 latents = _host_nhwc(latents)
         finally:

@@ -28,6 +28,10 @@ What differs from the SD-2.x pipeline it extends:
   vector, and their residuals add to the MMDiT's latent stream.
 
 ``deepcache_interval > 1`` raises ``ValueError``, as in the JAX pipeline.
+LoRA adapters address the MMDiT as ``transformer`` (kohya
+``lora_transformer_``, PEFT ``transformer.``); ``load_ip_adapter`` raises
+``ValueError``: the IP-Adapter checkpoints are UNets'.  A textual-inversion
+placeholder reaches the two CLIP tokenizers; T5 reads its text as it is.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ class StableDiffusion3Pipeline(StableDiffusionPipeline):
     latent_channels = 16
     #: a uniform transformer stack: no shallow/deep split for DeepCache
     supports_deepcache = False
+    _LORA_DENOISER_TARGET = "transformer"
 
     def __init__(self, *, tokenizer, tokenizer2, text_encoder, text_encoder2, mmdit,
                  vae_decoder, t5_tokenizer=None, t5_encoder=None, vae_encoder=None,

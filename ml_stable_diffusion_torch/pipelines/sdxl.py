@@ -29,9 +29,13 @@ What differs from the SD-2.x pipeline it extends:
   phase with that phase's conditioning, so a base net beside a refiner
   fails in the refiner phase (its 5 time ids).
 
-img2img, inpainting, progress callbacks, serial CFG, DeepCache and the
-safety checker come through the inherited ``generate_images``, as in the
-JAX package: the base -> refiner cut splits the strength-sliced plan.
+img2img, inpainting, progress callbacks, serial CFG, DeepCache, the safety
+checker and the adapters come through the inherited methods, as in the JAX
+package: the base -> refiner cut splits the strength-sliced plan; a LoRA's
+``lora_te2_`` / ``text_encoder_2.`` modules go to CLIP-G; a
+textual-inversion embedding needs its ``clip_l`` and ``clip_g`` vectors;
+the IP-Adapter tokens reach the base UNet's calls only (the refiner has no
+IP projections).
 ``reduce_memory`` staging raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 """

@@ -112,6 +112,10 @@ class CLIPTokenizer:
         self.eos_id = self.vocab[self.eos_token]
         self.pad_id = self.vocab[pad_token]
         self._cache: dict[str, list[str]] = {}
+        #: textual-inversion placeholders: lowercased token -> the ids it
+        #: expands to (rows of a token-embedding table grown past the vocab)
+        self.added_placeholders: dict[str, list[int]] = {}
+        self._added_re = None
 
     # -- construction ---------------------------------------------------------
 
@@ -184,9 +188,30 @@ class CLIPTokenizer:
 
     # -- public API -----------------------------------------------------------
 
+    def add_placeholder(self, token: str, ids: list[int]):
+        """Register a textual-inversion placeholder: every occurrence of
+        ``token`` (case-insensitive, the longest registered one first)
+        expands to ``ids``."""
+        self.added_placeholders[token.lower()] = [int(i) for i in ids]
+        pat = "|".join(re.escape(k) for k in
+                       sorted(self.added_placeholders, key=len, reverse=True))
+        self._added_re = re.compile(f"({pat})")
+
     def encode(self, text: str) -> list[int]:
         """Text -> token ids, without specials or padding.  Words are
-        byte-level encoded (bytes_to_unicode) before BPE."""
+        byte-level encoded (bytes_to_unicode) before BPE; registered
+        placeholders expand to their ids."""
+        if self._added_re is None:
+            return self._encode_plain(text)
+        ids: list[int] = []
+        for seg in self._added_re.split(_clean(text)):
+            if seg in self.added_placeholders:
+                ids += self.added_placeholders[seg]
+            elif seg:
+                ids += self._encode_plain(seg)
+        return ids
+
+    def _encode_plain(self, text: str) -> list[int]:
         ids: list[int] = []
         unk = self.eos_id
         b2u = bytes_to_unicode()

@@ -4,8 +4,9 @@ A tiny generation (3 steps of DPM++ 2M, CFG on, rng="numpy") through both
 ``generate_images`` on the same weights: latents within atol 1e-3, uint8
 images within 1; the default configuration (PNDM) too, and serial CFG,
 denoised previews, a weighted prompt and DeepCache.  Also: importing the
-port pulls in no JAX, features not ported yet raise, and fields the JAX
-pipeline ignores are ignored.
+port pulls in no JAX, features not ported yet raise, fields the JAX
+pipeline ignores are ignored, and an IP-Adapter image without an adapter
+raises the JAX pipeline's error.
 """
 
 import subprocess
@@ -90,7 +91,6 @@ def test_features_match_jax(pair, kw):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(reduce_memory=True), "reduce_memory"),
-    (dict(ip_adapter_scale=0.5), "IP-Adapter"),
 ])
 def test_unported_features_raise(pair, kw, match):
     _, port_pipe = pair
@@ -104,10 +104,12 @@ def test_unported_features_raise(pair, kw, match):
     dict(refiner_start=0.5),
     dict(crops_coords_top_left=(8, 8)),
     dict(timestep_shift=1.0),
+    dict(ip_adapter_scale=0.5),
 ])
 def test_fields_the_jax_pipeline_ignores_are_ignored(pair, kw):
-    """The SDXL-only fields, and the flow shift with a scheduler other than
-    DiscreteFlow, change nothing here, as in the JAX pipeline."""
+    """The SDXL-only fields, the flow shift with a scheduler other than
+    DiscreteFlow, and an IP-Adapter scale without an image change nothing
+    here, as in the JAX pipeline."""
     jax_pipe, port_pipe = pair
     args = dict(prompt="a cat", step_count=2, scheduler="DPMSolverMultistep",
                 guidance_scale=7.5, seed=17, disable_safety=True, rng="numpy", **kw)
@@ -123,6 +125,17 @@ def test_unported_fields_at_their_defaults_pass(pair):
     cfg = PipelineConfiguration(prompt="a cat", step_count=1, scheduler="DPMSolverMultistep",
                                 controlnet_inputs=[], crops_coords_top_left=[0, 0])
     assert port_pipe.generate_images(cfg, image_hw=HW).images.shape == (1, 64, 64, 3)
+
+
+def test_ip_adapter_image_needs_load_ip_adapter_as_in_jax(pair):
+    jax_pipe, port_pipe = pair
+    args = dict(prompt="a cat", step_count=2, scheduler="DPMSolverMultistep",
+                ip_adapter_image=np.zeros((16, 16, 3), np.float32))
+    with pytest.raises(ValueError, match="load_ip_adapter") as ref:
+        jax_pipe.generate_images(JaxConfig(**args), image_hw=HW)
+    with pytest.raises(ValueError, match="load_ip_adapter") as got:
+        port_pipe.generate_images(PipelineConfiguration(**args), image_hw=HW)
+    assert str(got.value) == str(ref.value)
 
 
 def test_rng_jax_is_rejected(pair):
@@ -147,7 +160,9 @@ def test_import_pulls_in_no_jax():
         "        'compress.mixed_bit', 'convert.artifacts', 'convert.native_io',\n"
         "        'convert.load', 'convert.report', 'models.controlnet', 'models.safety',\n"
         "        'models.multilingual', 'tokenizer.prompt_weights', 'utils.latent_preview',\n"
-        "        'tokenizer.t5', 'models.t5', 'models.controlnet_sd3'}\n"
+        "        'tokenizer.t5', 'models.t5', 'models.controlnet_sd3', 'convert.lora',\n"
+        "        'convert.textual_inversion', 'convert.ip_adapter', 'convert.clip_vision',\n"
+        "        'models.clip_vision', 'models.ip_adapter'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

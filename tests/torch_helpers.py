@@ -96,3 +96,71 @@ def pipelines(tmp_path, weight_seed=None, unet=None, encoder=False, controlnets=
                               else (port_multilingual(multilingual[1]), multilingual[2])),
         device="cpu")
     return jax_pipe, port_pipe
+
+
+def sdxl_pipelines(tmp_path, refiner=False):
+    """-> (JAX SDXL pipeline, port SDXL pipeline on the CPU) over
+    tests/test_torch_sdxl.py's tiny models and seeded weights: CLIP-L, the
+    projected CLIP-G, the base UNet and, with ``refiner``, the refiner."""
+    from ml_stable_diffusion_tpu.pipelines.sdxl import StableDiffusionXLPipeline as JaxSDXL
+
+    from ml_stable_diffusion_torch.pipelines import StableDiffusionXLPipeline
+
+    import test_torch_sdxl as xlt
+
+    (te1, p1), (te2, p2) = tiny_text_encoder(), tiny_text_encoder(use_projection=True)
+    unet, up = tiny_unet(cross_dim=xlt.XL_CTX, xl=True)
+    (dec, dp), _ = tiny_vae()
+    p1, p2, up, dp = (randomize_params(p, s) for p, s in ((p1, 41), (p2, 42), (up, 43), (dp, 45)))
+    ref = None
+    if refiner:
+        ref, rp = xlt._tiny_refiner()
+        rp = randomize_params(rp, 44)
+    for d in ("l", "g"):
+        (tmp_path / d).mkdir(exist_ok=True)
+    jax_pipe = JaxSDXL(tokenizer=tiny_tokenizer(tmp_path / "l"),
+                       tokenizer2=tiny_tokenizer(tmp_path / "g"), text_encoder=(te1, p1),
+                       text_encoder2=(te2, p2), unet=(unet, up),
+                       refiner_unet=None if ref is None else (ref, rp), vae_decoder=(dec, dp))
+    port_pipe = StableDiffusionXLPipeline(
+        tokenizer=CLIPTokenizer.from_pretrained_dir(tmp_path / "l"),
+        tokenizer2=CLIPTokenizer.from_pretrained_dir(tmp_path / "g"),
+        text_encoder=_load(CLIPTextEncoder, CLIPTextConfig, te1, p1, clip_text_state_dict),
+        text_encoder2=_load(CLIPTextEncoder, CLIPTextConfig, te2, p2, clip_text_state_dict),
+        unet=_load(UNet2DConditionModel, UNetConfig, unet, up, unet_state_dict),
+        refiner_unet=(None if ref is None else
+                      _load(UNet2DConditionModel, UNetConfig, ref, rp, unet_state_dict)),
+        vae_decoder=_load(VAEDecoder, VAEConfig, dec, dp, vae_decoder_state_dict), device="cpu")
+    return jax_pipe, port_pipe
+
+
+def sd3_pipelines(tmp_path):
+    """-> (JAX SD3 pipeline, port SD3 pipeline on the CPU) over
+    tests/test_torch_sd3.py's tiny models and seeded weights, without T5."""
+    from ml_stable_diffusion_tpu.pipelines.sd3 import StableDiffusion3Pipeline as JaxSD3
+
+    from ml_stable_diffusion_torch.convert.from_jax import mmdit_state_dict
+    from ml_stable_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
+    from ml_stable_diffusion_torch.pipelines import StableDiffusion3Pipeline
+
+    import test_torch_sd3 as sd3t
+
+    (te1, p1), (te2, p2) = tiny_text_encoder(), tiny_text_encoder(use_projection=True)
+    mm, mp = sd3t._tiny_mmdit()
+    dec, dp = sd3t._tiny_vae16()
+    p1, p2, mp, dp = (randomize_params(p, s) for p, s in ((p1, 31), (p2, 32), (mp, 33), (dp, 34)))
+    for d in ("l", "g"):
+        (tmp_path / d).mkdir(exist_ok=True)
+    jax_pipe = JaxSD3(tokenizer=tiny_tokenizer(tmp_path / "l"),
+                      tokenizer2=tiny_tokenizer(tmp_path / "g"), text_encoder=(te1, p1),
+                      text_encoder2=(te2, p2), mmdit=(mm, mp), vae_decoder=(dec, dp),
+                      t5_sequence_length=sd3t.T5_LEN)
+    port_pipe = StableDiffusion3Pipeline(
+        tokenizer=CLIPTokenizer.from_pretrained_dir(tmp_path / "l"),
+        tokenizer2=CLIPTokenizer.from_pretrained_dir(tmp_path / "g"),
+        text_encoder=_load(CLIPTextEncoder, CLIPTextConfig, te1, p1, clip_text_state_dict),
+        text_encoder2=_load(CLIPTextEncoder, CLIPTextConfig, te2, p2, clip_text_state_dict),
+        mmdit=_load(MMDiT, MMDiTConfig, mm, mp, mmdit_state_dict),
+        vae_decoder=_load(VAEDecoder, VAEConfig, dec, dp, vae_decoder_state_dict),
+        t5_sequence_length=sd3t.T5_LEN, device="cpu")
+    return jax_pipe, port_pipe
