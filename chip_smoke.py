@@ -171,6 +171,14 @@ warm-up and prints where the device time goes: the kernels grouped (the
 GroupNorm and flash kernels, matrix products, convolutions, the rest), the
 top kernels by device time, and the device's busy share of the generation's
 wall time.
+
+    python3 chip_smoke.py --compare PARENT_CHECKOUT
+
+runs phase 2 of a parent checkout (a ``git archive`` of it) and of this
+tree in turns, parent, change, change, parent, each in a process of its own,
+then ``--profile sd15`` of each, and prints each kernel row's device ms per
+launch side by side with its library call, bound and exp floor, and each
+path's flash ms per generation.
 """
 
 from __future__ import annotations
@@ -198,6 +206,10 @@ import torch
 #: of this bound
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
+#: exponentials a second on the SFUs (16 a clock an SM): one per 256 bf16
+#: tensor-core flops of time, the flash kernels' floor where a logit's
+#: products take fewer (D < 64)
+SFU_EXP_PER_S = PEAK_FLOPS[torch.bfloat16] / 256
 #: max-abs tolerance of a kernel against its plain version
 #: (tests/test_pallas_kernels.py's)
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -688,7 +700,8 @@ def check_kernel(kernel, reference, shapes):
     the kernel, the plain version and SDPA on the concatenated queries."""
     import torch.nn.functional as F
 
-    from ml_stable_diffusion_torch.ops.flash_attention import bf16_plan, wide_f32_plan
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        SMS, bf16_plan, persistent_resident_blocks, wide_f32_plan)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, calls, libraries = [], [], []
@@ -720,23 +733,40 @@ def check_kernel(kernel, reference, shapes):
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
         # the kernel and its instantiation: query rows a block, 64-column
         # chunks of a head, kv tile rows and stages; kv splits
-        extra = {}
+        extra, fma_share = {}, 0.0
         if dtype == torch.bfloat16 and D != 512:
             plan = bf16_plan(q_lens, B, H, D)
-            tile = (f"wgmma {plan.rows}-row, {plan.chunks} chunk(s), kv {plan.kv_rows} rows "
-                    f"x {plan.stages} stages")
+            tile = (f"wgmma {plan.kernel} {plan.rows}-row, {plan.chunks} chunk(s), kv "
+                    f"{plan.kv_rows} rows x {plan.stages} stages, {plan.q_buffers} q "
+                    f"buffer(s), P v N={plan.pv_cols}, cluster {plan.cluster}, "
+                    f"{plan.blocks} blocks")
             # the tensor cores' work with the head padded: q k^T over the
-            # 16-column k-steps below D, P v over whole 64-column chunks
-            done = 2 * B * H * sum(q_lens) * sk * (16 * -(-D // 16) + 64 * plan.chunks)
+            # 16-column k-steps below D, P v over the plan's columns, the row
+            # sums' product where the tensor cores take it
+            done = (2 * B * H * sum(q_lens) * sk
+                    * (16 * -(-D // 16) + plan.pv_cols + plan.sum_cols))
             extra = dict(bf16_plan=dataclasses.asdict(plan),
                          executed_ops_bound_ms=1e3 * done / PEAK_FLOPS[dtype])
+            fma_share = plan.fma_exp_share
+            if plan.kernel == "persistent":
+                # the plan's grid assumes blocks_per_sm blocks on every SM at
+                # once; the runtime says how many the card holds
+                resident = persistent_resident_blocks(D, plan.rows)
+                if resident != plan.blocks_per_sm * SMS:
+                    fail(f"{label}: the card holds {resident} blocks of the persistent "
+                         f"kernel at D={D}, {plan.rows}-row tiles; bf16_plan assumes "
+                         f"{plan.blocks_per_sm * SMS}")
+                tile += f", {resident} resident (runtime)"
         elif dtype == torch.float32 and D == 512:
             splits = wide_f32_plan(q_lens, sk, B, H).splits
             tile = f"wgmma 3xtf32 64-row, {splits} kv split(s)"
         else:
             tile = "fma"
+        # one exponential a logit, less those the kernel hands the FMA pipe
+        exp_floor_ms = 1e3 * B * H * sum(q_lens) * sk * (1 - fma_share) / SFU_EXP_PER_S
         row = dict(label=label, q_lens=list(q_lens), sk=sk, B=B, H=H, D=D,
                    dtype=str(dtype).split(".")[-1], tile=tile, **extra,
+                   exp_floor_ms=exp_floor_ms, fma_exp_share=fma_share,
                    launches_per_generation=per_gen,
                    max_abs_err=err, atol=ATOL[dtype], rel_rms_err=rel,
                    rel_rms_tol=REL_RMS[dtype], dropped_tile_max_abs=cut_err,
@@ -762,7 +792,10 @@ def check_kernel(kernel, reference, shapes):
             f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])})  plain "
             f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms (device "
             f"{fmt_ms(row['library_device_ms'])})  bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})  exp floor "
+            f"{row['exp_floor_ms']:.4f} ms (FMA share {row['fma_exp_share']:.3g})"
+            + (f"  executed-ops bound {row['executed_ops_bound_ms']:.4f} ms"
+               if "executed_ops_bound_ms" in row else ""))
     return rows
 
 
@@ -2744,6 +2777,24 @@ def check_palettized_witness(counters, calls):
                 unet_call_ms_fused=fused_ms, unet_call_ms_install=install_ms)
 
 
+#: what the kernels line keeps of a kernel's phase-2 rows: the shape, its
+#: launches, and what this run measured, with the bound.  The launch plans,
+#: the executed-ops bound and the exp floor are models, not measurements:
+#: they stay in phase 2's log and in --compare.
+LINE_ROW_KEYS = ("label", "q_lens", "sk", "B", "H", "D", "shape", "groups", "apply_silu",
+                 "M", "K", "N", "nbits", "dtype", "launches_per_generation", "calls_per_unet",
+                 "max_abs_err", "rel_rms_err", "dropped_tile_max_abs", "dropped_tile_rel_rms",
+                 "dropped_channel_max_abs", "dropped_channel_rel_rms", "dropped_k_tile_max_abs",
+                 "dropped_k_tile_rel_rms", "ms", "plain_ms", "library", "library_ms",
+                 "device_ms", "library_device_ms", "gather_matmul_ms",
+                 "gather_matmul_device_ms", "bound_ms", "bound_by")
+
+
+def line_rows(rows):
+    """``rows`` with only the keys the kernels line keeps."""
+    return [{k: r[k] for k in LINE_ROW_KEYS if k in r} for r in rows]
+
+
 def pal_kernel_entry(rows, witness, main_launches):
     """The fused dequant-matmul's line: launches from its main path (phase
     10, one UNet call), and the times of that call's launches: sum over the
@@ -2770,7 +2821,7 @@ def pal_kernel_entry(rows, witness, main_launches):
                                      for p in ("sd21_pal_install", "sd21_pal_program")},
                                   "phase 10 witness": launches},
                 per_unet_call=dict(per_unet, launches=launches),
-                shapes=rows)
+                shapes=line_rows(rows))
 
 
 def per_generation(rows, path):
@@ -2803,7 +2854,7 @@ def kernel_entry(name, source, replaces, rows, main_launches):
     entry["library_device_ms"] = total(g["library_device_ms"] for g in per_gen.values())
     entry["launches_by_path"] = {p: main_launches[p][name] for p in paths}
     entry["per_generation"] = per_gen
-    entry["shapes"] = rows
+    entry["shapes"] = line_rows(rows)
     return entry
 
 
@@ -2896,6 +2947,115 @@ def profile_generation(path):
     log(json.dumps({"profile": summary}))
 
 
+#: what --compare keeps of each phase-2 row
+COMPARE_KEYS = ("label", "q_lens", "sk", "B", "H", "D", "dtype", "tile", "plan", "device_ms",
+                "library_device_ms", "bound_ms", "bound_by", "exp_floor_ms",
+                "executed_ops_bound_ms", "launches_per_generation", "max_abs_err",
+                "rel_rms_err")
+#: phase 2 of the tree in the working directory, in a process of its own;
+#: its rows as the last line
+_PHASE2_CHILD = f"""
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke
+from ml_stable_diffusion_torch.utils import cuda_build
+from ml_stable_diffusion_torch.utils.numerics import apply_numerics
+apply_numerics()
+cuda_build.build_all()
+rows, _ = chip_smoke.check_kernels()
+print("PHASE2 " + json.dumps({{name: [{{k: r.get(k) for k in {COMPARE_KEYS!r}}} for r in rs]
+                               for name, rs in rows.items()}}))
+"""
+
+
+def _child(tree: Path, argv, marker: str):
+    """Run ``argv`` in ``tree``, echo its output, and return its last line
+    that starts with ``marker``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=tree, capture_output=True, text=True, timeout=1500)
+    for line in proc.stdout.splitlines():
+        log(f"  [{tree.name}] {line}")
+    if proc.returncode != 0:
+        fail(f"{' '.join(argv[:2])} in {tree} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    found = [line for line in proc.stdout.splitlines() if line.startswith(marker)]
+    if not found:
+        fail(f"{' '.join(argv[:2])} in {tree} printed no {marker!r} line")
+    log(f"{tree}: {' '.join(argv[1:3])} took {time.perf_counter() - t0:.1f} s")
+    return found[-1]
+
+
+def compare_trees(parent: Path):
+    """Phase 2 of the parent's tree and of this one in turns (parent,
+    change, change, parent), each in a process of its own on the same card,
+    then ``--profile sd15`` of each: every row's device ms per launch side by
+    side, and each path's flash ms per generation (rows times their launches
+    on it)."""
+    here = Path(__file__).resolve().parent
+    runs = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        tree = parent if who == "parent" else here
+        line = _child(tree, [sys.executable, "-c", _PHASE2_CHILD], "PHASE2 ")
+        runs[who].append(json.loads(line[len("PHASE2 "):]))
+    profiles = {who: json.loads(_child(tree, [sys.executable, "chip_smoke.py", "--profile",
+                                              "sd15"], '{"profile": '))["profile"]
+                for who, tree in (("parent", parent), ("change", here))}
+
+    def mean(values):
+        values = [v for v in values if v is not None]
+        return statistics.mean(values) if values else None
+
+    table, per_gen = {}, {}
+    for name, rows in runs["change"][0].items():
+        out = []
+        for i, row in enumerate(rows):
+            both = {who: [run[name][i] for run in runs[who]] for who in runs}
+            if any(r["label"] != row["label"] for rs in both.values() for r in rs):
+                fail(f"{name}: the parent's and the change's phase-2 rows differ")
+            entry = {k: row.get(k) for k in ("label", "q_lens", "sk", "B", "H", "D", "dtype",
+                                             "bound_ms", "bound_by", "exp_floor_ms",
+                                             "executed_ops_bound_ms", "tile", "plan",
+                                             "launches_per_generation")}
+            entry.update(parent_device_ms=[r["device_ms"] for r in both["parent"]],
+                         change_device_ms=[r["device_ms"] for r in both["change"]],
+                         library_device_ms=mean(r["library_device_ms"]
+                                                for rs in both.values() for r in rs),
+                         parent_tile=both["parent"][0]["tile"],
+                         parent_executed_ops_bound_ms=both["parent"][0].get(
+                             "executed_ops_bound_ms"))
+            for who in ("parent", "change"):
+                entry[f"{who}_ms"] = mean(entry[f"{who}_device_ms"])
+            out.append(entry)
+            if entry["parent_ms"] is None or entry["change_ms"] is None:
+                rel = "not measured"
+            else:
+                rel = f"{entry['change_ms'] / entry['parent_ms']:.3f}x the parent"
+            lib = entry["library_device_ms"]
+            log(f"{name:24s} {row['label']:17s} parent "
+                f"{' / '.join(fmt_ms(v) for v in entry['parent_device_ms'])}  change "
+                f"{' / '.join(fmt_ms(v) for v in entry['change_device_ms'])} ms ({rel})  "
+                f"library {fmt_ms(lib)}  bound {entry['bound_ms']:.4f}  exp floor "
+                f"{fmt_ms(entry['exp_floor_ms'])}  [{row.get('tile') or row.get('plan')}]")
+        table[name] = out
+        if name != "flash_attention":
+            continue
+        for path in sorted({p for r in out for p in r["launches_per_generation"]}):
+            counted = [(r, r["launches_per_generation"].get(path, 0)) for r in out]
+            per_gen[path] = {
+                key: total(None if r[key] is None else r[key] * n for r, n in counted if n)
+                for key in ("parent_ms", "change_ms", "library_device_ms", "bound_ms",
+                            "exp_floor_ms")}
+            g = per_gen[path]
+            log(f"flash per generation, {path:18s}: parent {fmt_ms(g['parent_ms'])}  change "
+                f"{fmt_ms(g['change_ms'])}  library {fmt_ms(g['library_device_ms'])}  bound "
+                f"{g['bound_ms']:.4f}  exp floor {g['exp_floor_ms']:.4f} ms")
+    for who, prof in profiles.items():
+        ms = prof["device_ms_by_group"].get("flash kernel")
+        log(f"--profile sd15, {who}: flash kernel {fmt_ms(ms)} ms of device time in one "
+            f"generation; device busy {prof['device_busy_s']:.4f} s of {prof['wall_s']:.4f} s")
+    log(json.dumps({"compare": {"rows": table, "flash_per_generation": per_gen,
+                                "profiles": profiles}}))
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--profile" and sys.argv[2] in PROFILE_BUILDERS:
         if not torch.cuda.is_available():
@@ -2907,9 +3067,18 @@ def main():
         log(f"card: {card_line()}")
         profile_generation(sys.argv[2])
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare" and Path(sys.argv[2]).is_dir():
+        if not torch.cuda.is_available():
+            print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
+            return 1
+        card = card_line()
+        log(f"card: {card}")
+        compare_trees(Path(sys.argv[2]).resolve())
+        log(card)
+        return 0
     if len(sys.argv) > 1:
-        print(f"usage: {sys.argv[0]} [--profile {'|'.join(PROFILE_BUILDERS)}]",
-              file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--profile {'|'.join(PROFILE_BUILDERS)} | "
+              f"--compare PARENT_CHECKOUT]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)

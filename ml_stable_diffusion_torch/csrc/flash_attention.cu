@@ -30,7 +30,23 @@
 // clock an SM) takes as long as the logit's 256 flops on the tensor cores,
 // so one warpgroup's softmax has to run under another's products, with the
 // bare ex2.approx.  At 256 tokens the whole call moves only a few MB and the
-// grid's size matters more.  The VAE's single head (D = 512, f32, 4096 or
+// grid's size matters more.  SD-1.5's widths differ (builds of the kernel
+// with parts removed, timed on the card, showed what bounds each):
+//  * D = 40, 4096 tokens: a logit takes 192 tensor-core flops (q k^T over 48
+//    columns, P v over 40, the row sum over 8), less than one exponential's
+//    time, so the SFU would bound the softmax; but each 128-row query tile
+//    streams its head's whole k and v (80-byte rows 640 bytes apart) through
+//    L2 and TMA, 335 MB a call, and without the cluster below that streaming
+//    alone took nearly the kernel's whole time; with it, the loads, the
+//    products and the softmax each hold a share and none the whole;
+//  * D = 80, 1024 tokens: 128-row tiles give 128 blocks, under one wave of
+//    132 SMs (64-row tiles gave two waves of one block an SM);
+//  * 256-308 keys (long prompts, the multilingual projection): two or three
+//    kv tiles a query tile, so a block's start-up (q load, the first S alone)
+//    and drain (the last P v alone, the store) are most of its time;
+//  * D = 160 (256 tokens, 64 blocks) is bound by latency and stays on the
+//    per-tile kernel: the persistent one gained nothing there.
+// The VAE's single head (D = 512, f32, 4096 or
 // 16384 tokens, one call an image) is bound by operations too, and must stay
 // f32-exact: single-pass TF32 (10-bit mantissas) would move the output by
 // ~4e-4 rel RMS.  The split-precision form "3xTF32" keeps it at f32's
@@ -48,7 +64,7 @@
 //  * Ragged Sq and Sk edges are masked in the kernel (rows past Sq are not
 //    stored, columns past Sk get a -1e30 logit), so the TPU kernel's
 //    ones-column normalizer / KV mask is not needed.
-//  * bf16, D = 64 (flash_wgmma_bf16): warp-specialised.  A producer warp
+//  * bf16, D = 64 and 160 (flash_wgmma_bf16): warp-specialised.  A producer warp
 //    loads the block's q tile once and keeps 128-row k and v tiles in flight
 //    in a four-stage ring, all by TMA through 4-D tensor maps over the
 //    strided (B, S, H, D) views (one map per query stream; rows past the
@@ -65,7 +81,33 @@
 //    from the producer to the consumers.  Where 128-row tiles would leave SMs
 //    idle (fewer than 132 blocks: 256 tokens, a lone 154-row stream) the
 //    launch takes the 64-row instantiation: one consumer warpgroup, 64-row
-//    kv tiles, registers and shared memory for two blocks an SM.
+//    kv tiles, registers and shared memory for two blocks an SM.  D = 160
+//    takes it always, its head as three zero-padded 64-column chunks.
+//  * bf16, D = 40 and 80 (flash_wgmma_persistent): the same producer and
+//    consumers, but
+//    - persistent: a block an SM walks work units (a query tile of one head,
+//      a pair of them at D = 40), its producer loading the next unit's q and
+//      first kv tiles while this one runs, so short kv loops do not pay their
+//      start-up and drain alone;
+//    - at D = 40, clusters of two blocks on adjacent query tiles of one head:
+//      one multicasts each k tile into both blocks' rings, the other each v
+//      tile, and a stage is free once all eight consumer warps of the pair
+//      have released it.  The streaming that bound this width halves;
+//    - P v at N = D (m64n40k16, m64n80k16; at 80 the MN-major descriptor's
+//      LBO steps from one chunk's swizzle atom to the next), and the row sums
+//      on the tensor cores: P times a 16 x 8 tile of ones (m64n8k16) in the
+//      same group, so the softmax does no unpacking and adding of P;
+//    - the softmax of S_j runs under P_{j-1} v_{j-1}: S_j and P_{j-1} v_{j-1}
+//      go out as two groups and wgmma_wait<1> releases S_j alone.  P stays
+//      f32 in S's registers until P_{j-1} v_{j-1} is done, then is packed to
+//      bf16 straight into P v's A fragments: copying packed P from S's
+//      registers into them made ptxas serialise every wgmma (C7511);
+//    - at D = 40 one exponential in eight runs on the FMA pipe (exp2_fma in
+//      hopper.cuh), beside the SFU;
+//    - 128-row query and kv tiles (two consumer warpgroups) where they leave
+//      at most half the SMs without one (D = 80 at 1024 tokens: 128 blocks),
+//      else 64-row ones; the last kv tile of a unit is masked by selects, not
+//      a branch, since P v is in flight.
 //  * q, k, v and o are read and written in place through strides: there are
 //    no BSHD->BHSD transposes, no pad copies and, for several streams, no q
 //    concatenation or output split.  TMA needs 16-byte aligned bases and
@@ -183,7 +225,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 
 // ---------------------------------------------------------------------------
-// bf16 wgmma kernel, D = 40, 64, 80 or 160
+// bf16 wgmma kernel, a block a query tile: D = 64 or 160
 // ---------------------------------------------------------------------------
 
 // Head columns of one 128-byte swizzled row in shared memory.  A head of
@@ -532,6 +574,514 @@ cudaError_t launch_wgmma(QStreams streams, const void* k, const void* v, int B, 
     if (wide) return launch_flash<2, D>(p, grid, stream);
   }
   return launch_flash<1, D>(p, grid, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 wgmma kernel at SD-1.5's head widths D = 40 and 80: persistent
+// ---------------------------------------------------------------------------
+
+// Where the SFU bounds the kernel, one 8-column group of logits in
+// kFmaExpEvery takes its exponentials on the FMA pipe (exp2_fma).
+constexpr int kFmaExpEvery = 8;
+
+// The shape of one instantiation: NWG consumer warpgroups of 64 query rows;
+// the head held in shared memory as NC chunks of 64 columns (the columns past
+// D load as zeros, as above) but P v computed at N = D, its MN-major B
+// descriptor stepping from one chunk's swizzle atom to the next (LBO).
+template <int NWG, int D>
+struct PersistShape {
+  static constexpr int NC = (D + kChunk - 1) / kChunk;
+  static constexpr int KS = (D + 15) / 16;       // 16-column k-steps of q k^T
+  static constexpr int BQ = 64 * NWG;            // query rows a tile
+  static constexpr int BK = 64 * NWG;            // kv rows a tile
+  // tensor-core flops a logit takes (q k^T over the k-steps, P v at N = D,
+  // the row sum at N = 8) against the 256 that one SFU exponential costs in
+  // time: fewer (D = 40: 192), and the SFU bounds the softmax, so some
+  // exponentials go to the FMA pipe; more (D = 80: 352), and the SFU has
+  // room
+  static constexpr bool FMA_EXP = 2 * (16 * KS + D + 8) < 256;
+  static constexpr int Q_CHUNK = BQ * kChunk * 2;
+  static constexpr int Q_TILE = NC * Q_CHUNK;
+  static constexpr int KV_CHUNK = BK * kChunk * 2;
+  static constexpr int KV_TILE = NC * KV_CHUNK;
+  // two blocks an SM at one warpgroup and one chunk (their registers fit)
+  static constexpr int MIN_BLOCKS = (NWG == 1 && NC == 1) ? 2 : 1;
+  // shared memory a block may take: the SM's 228 KB less 1 KB a block
+  static constexpr int LIMIT = MIN_BLOCKS == 2 ? 115712 : 232448;
+  // 1024 bytes of slack to align the tiles; q buffers, the k and v ring,
+  // the ones of the row sums (16 x 8 bf16), barriers (q full and empty, then
+  // k full, v full and empty a stage)
+  static constexpr int bytes(int qbufs, int stages) {
+    return 1024 + qbufs * Q_TILE + 2 * stages * KV_TILE + 256 + (4 + 3 * stages) * 8;
+  }
+  // four kv stages where they fit, else three (D = 80 at 128 rows); then a
+  // second q buffer (the next unit's q loads under this one) where that
+  // fits too
+  static constexpr int STAGES = bytes(1, 4) <= LIMIT ? 4 : 3;
+  static constexpr int Q_BUFS = bytes(2, STAGES) <= LIMIT ? 2 : 1;
+  static constexpr int SMEM = bytes(Q_BUFS, STAGES);
+  static_assert(D == 40 || D == 80, "head width");
+  static_assert(SMEM <= LIMIT, "shared memory of one block");
+};
+
+// a compile-time flag for generic lambdas
+template <bool kValue>
+struct BoolC {
+  static constexpr bool value = kValue;
+};
+
+struct PersistParams {
+  CUtensorMap tq[kMaxStreams];  // each stream's q, box (64, BQ, 1, 1)
+  CUtensorMap tk, tv;           // box (64, BK, 1, 1)
+  QStreams streams;
+  int H, Sk;
+  int units;  // work units: B x H x the query tiles of all streams in runs of CL
+  float scale_log2;
+};
+
+// d (64 x D, f32) += P (64 x 16, registers) v (16 x D, smem, MN-major)
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t desc_b) {
+  if constexpr (D == 40) wgmma_rs_m64n40k16<1>(d, a, desc_b);
+  else wgmma_rs_m64n80k16<1>(d, a, desc_b);
+}
+
+// One block per SM (two at one warpgroup and one chunk) walks work items
+// blockIdx.x, blockIdx.x + gridDim.x, ...: an item is one query tile of one
+// (batch, head), items of one head adjacent so that the blocks at work read
+// the same k and v from L2.  NWG consumer warpgroups, then one producer
+// warpgroup whose first thread keeps q tiles and the k/v ring filled by TMA
+// across items: the next item's q and first kv tiles load while this one
+// runs, so a short kv loop does not pay its start-up and drain alone.
+template <int NWG, int D, int CL>
+__global__ void __launch_bounds__((NWG + 1) * 128, PersistShape<NWG, D>::MIN_BLOCKS)
+flash_wgmma_persistent(const __grid_constant__ PersistParams p) {
+  using F = PersistShape<NWG, D>;
+  constexpr int NC = F::NC, BQ = F::BQ, BK = F::BK, STAGES = F::STAGES, QB = F::Q_BUFS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;                    // QB tiles of NC chunks of (BQ, 64)
+  uint8_t* sK = sQ + QB * F::Q_TILE;     // STAGES tiles of NC chunks of (BK, 64)
+  uint8_t* sV = sK + STAGES * F::KV_TILE;
+  uint8_t* sOnes = sV + STAGES * F::KV_TILE;  // B of the row sums: 16 x 8 ones
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sOnes + 256);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int qtiles = p.streams.tile0[p.streams.n];  // query tiles of one (b, h)
+  const int runs = (qtiles + CL - 1) / CL;           // work units of one (b, h)
+  const int ntiles = (p.Sk + BK - 1) / BK;
+  // the block's rank in its cluster: its query tile of each unit
+  const int rank = CL > 1 ? static_cast<int>(cluster_ctarank()) : 0;
+  const int unit0 = static_cast<int>(blockIdx.x) / CL, units_step = gridDim.x / CL;
+  // unit -> (b, h) and this block's query tile (past the streams' last tile:
+  // rows past the sequence, loaded as zeros and not stored)
+  auto unit_tile = [&](int unit, int* b, int* h) {
+    const int bh = unit / runs;
+    *b = bh / p.H;
+    *h = bh % p.H;
+    return find_tile(p.streams, BQ, (unit % runs) * CL + rank);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < QB; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], NWG * 128);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      // a stage is free once every consumer warp of the cluster is done with it
+      mbar_init(&empty[s], CL * NWG * 4);
+    }
+    fence_barrier_init();
+  }
+  if (tid < 64) {
+    reinterpret_cast<uint32_t*>(sOnes)[tid] = 0x3F803F80u;  // two bf16 ones
+    fence_proxy_async();  // visible to wgmma
+  }
+  // the other block's barriers are initialised before any multicast or
+  // remote arrival reaches them
+  if constexpr (CL > 1) cluster_sync();
+  else __syncthreads();
+
+  if (tid >= NWG * 128) {
+    // ---- producer: per item its q tile into a q buffer, then its k and v
+    // tiles into the ring (u counts the tiles across items), a chunk of 64
+    // columns a load ----
+    if constexpr (NWG == 2) reg_dealloc<24>();
+    if (tid == NWG * 128) {
+      int u = 0;
+      for (int it = 0, unit = unit0; unit < p.units; ++it, unit += units_step) {
+        int b, h;
+        const QTile tile = unit_tile(unit, &b, &h);
+        const CUtensorMap* tq = &p.tq[0];
+#pragma unroll
+        for (int i = 1; i < kMaxStreams; ++i)
+          if (i == tile.si) tq = &p.tq[i];
+        const int qb = it % QB;
+        uint8_t* dq = sQ + qb * F::Q_TILE;
+        mbar_wait(&q_empty[qb], ((it / QB) & 1) ^ 1);
+        mbar_arrive_expect_tx(&q_full[qb], F::Q_TILE);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(dq + c * F::Q_CHUNK, tq, &q_full[qb], c * kChunk, tile.q0, h, b);
+        for (int j = 0; j < ntiles; ++j, ++u) {
+          const int s = u % STAGES;
+          mbar_wait(&empty[s], ((u / STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(&k_full[s], F::KV_TILE);
+          mbar_arrive_expect_tx(&v_full[s], F::KV_TILE);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            uint8_t* dk = sK + s * F::KV_TILE + c * F::KV_CHUNK;
+            uint8_t* dv = sV + s * F::KV_TILE + c * F::KV_CHUNK;
+            if constexpr (CL == 1) {
+              tma_load_4d(dk, &p.tk, &k_full[s], c * kChunk, j * BK, h, b);
+              tma_load_4d(dv, &p.tv, &v_full[s], c * kChunk, j * BK, h, b);
+            } else if (rank == 0) {  // k for both blocks of the pair
+              tma_load_4d_multicast(dk, &p.tk, &k_full[s], c * kChunk, j * BK, h, b, 0x3);
+            } else {  // v for both
+              tma_load_4d_multicast(dv, &p.tv, &v_full[s], c * kChunk, j * BK, h, b, 0x3);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers.  Per kv tile j: S_j = q k_j^T and O += P_{j-1} v_{j-1}
+    // issued as two groups; the softmax of S_j runs once S_j is done, under
+    // P_{j-1} v_{j-1} (and, with two warpgroups, under the other's
+    // products); then O takes the rescale and P_j its registers ----
+    if constexpr (NWG == 2) reg_alloc<240>();
+    const int wg = tid / 128, wi = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const float sl = p.scale_log2;
+    // the row sums' B: every element 1, any layout (two core matrices along K)
+    const uint64_t d_ones = desc_plain(sOnes, 128, 128);
+
+    float o[D / 2];  // O (64 x D) of this warpgroup's rows
+    // the row sums of P as the tensor cores add them: P (64 x 16) times ones
+    // (16 x 8), each column the same sum; rows g (lsum[0]) and g + 8 (lsum[2])
+    float lsum[4];
+    float sc[BK / 2];
+    uint32_t pf[BK / 16][4];  // P of the last softmax, bf16 A fragments
+    float m0, m1;             // rows g and g + 8 of this warp's 16: running max
+    float c0 = 1.f, c1 = 1.f;  // the last softmax's rescale of O
+
+    // S = q k_u^T into sc, issued (not waited for): the k-steps that hold a
+    // column below D (past D both operands are zero)
+    auto issue_s = [&](int u, const uint8_t* q_rows) {
+      const int s = u % STAGES;
+      mbar_wait(&k_full[s], (u / STAGES) & 1);
+      const uint8_t* tK = sK + s * F::KV_TILE;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) fence_operand(sc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::KS; ++kk) {
+        const int c = kk / 4, col = 32 * (kk % 4);
+        const uint64_t da = desc_sw128(q_rows + c * F::Q_CHUNK + col, 16, 1024);
+        const uint64_t db = desc_sw128(tK + c * F::KV_CHUNK + col, 16, 1024);
+        if constexpr (BK == 128) wgmma_ss_m64n128k16(sc, da, db, kk > 0);
+        else wgmma_ss_m64n64k16(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P v_u and the row sums += P ones, issued (not waited for): N = D,
+    // one product a k16 slice
+    auto issue_pv = [&](int u) {
+      const int s = u % STAGES;
+      mbar_wait(&v_full[s], (u / STAGES) & 1);
+      const uint8_t* tV = sV + s * F::KV_TILE;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) fence_operand(o[i]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_operand(lsum[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_pv<D>(o, pf[kk], desc_sw128(tV + kk * 16 * kChunk * 2, F::KV_CHUNK, 1024));
+        wgmma_rs_m64n8k16<0>(lsum, pf[kk], d_ones);
+      }
+      wgmma_commit();
+    };
+    // the online softmax of the logits in sc (keys kv0 ..), in place: the
+    // rescale c0, c1 that O and the sums need, and P in f32
+    auto softmax = [&](int kv0, auto masked) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) fence_operand(sc[i]);
+      // sc[4n + e]: row g (e < 2) or g + 8, kv column 8n + 2t + (e & 1); the
+      // logits stay unscaled (the scale rides the exponent's FMA).  Only an
+      // item's last tile is masked, by selects: no branch while P v is in
+      // flight
+      if constexpr (decltype(masked)::value) {
+        const int lim = p.Sk - kv0;  // columns of this tile below Sk
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool out = n * 8 + t * 2 + e >= lim;
+            sc[4 * n + e] = out ? kNegBig : sc[4 * n + e];
+            sc[4 * n + 2 + e] = out ? kNegBig : sc[4 * n + 2 + e];
+          }
+        }
+      }
+      float r0 = kNegBig, r1 = kNegBig;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        r0 = fmaxf(r0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+        r1 = fmaxf(r1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+      }
+      r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 1));
+      r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 2));
+      r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 1));
+      r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 2));
+      // running maxima in the scaled (base-2) units
+      const float mn0 = fmaxf(m0, r0 * sl), mn1 = fmaxf(m1, r1 * sl);
+      c0 = exp2_ftz(m0 - mn0);
+      c1 = exp2_ftz(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = fmaf(sc[4 * n + i], sl, i < 2 ? -mn0 : -mn1);
+          const bool fma = F::FMA_EXP && n % kFmaExpEvery == kFmaExpEvery - 1;
+          sc[4 * n + i] = fma ? exp2_fma(x) : exp2_ftz(x);
+        }
+      }
+    };
+    // P rounded to bf16 once into the A fragments of P v (the P v product and
+    // the row sums take the same values, as the TPU kernel's ones-column
+    // did): the accumulator layout of n-tiles 2i, 2i + 1 is the A-fragment
+    // layout of k-step i
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        pf[n / 2][(n & 1) * 2 + 0] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
+        pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n] *= c0;
+        o[4 * n + 1] *= c0;
+        o[4 * n + 2] *= c1;
+        o[4 * n + 3] *= c1;
+      }
+      lsum[0] *= c0;
+      lsum[1] *= c0;
+      lsum[2] *= c1;
+      lsum[3] *= c1;
+    };
+    // tile u's stage is done with in this warp: one arrival on that stage's
+    // empty barrier in every block of the cluster (their producers multicast
+    // into this block's stage too)
+    auto release = [&](int u) {
+      if constexpr (CL == 1) {
+        mbar_arrive_if(lane == 0, &empty[u % STAGES]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < CL; ++r) mbar_arrive_cluster_if(lane == 0, &empty[u % STAGES], r);
+      }
+    };
+    auto fence_o = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) fence_operand(o[i]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_operand(lsum[i]);
+    };
+    // With several consumers their batches of products take turns in order
+    // (named barrier 1 + w: warpgroup w's turn), so one warpgroup's softmax
+    // runs while the others' products hold the tensor cores.  Each
+    // warpgroup issues ntiles + 1 batches an item; the last warpgroup opens
+    // warpgroup 0's first turn and passes on all but its last.
+    auto turn_begin = [&]() {
+      if constexpr (NWG > 1) named_bar_sync(1 + wg, 256);
+    };
+    auto turn_end = [&](bool last) {
+      if constexpr (NWG > 1) {
+        if (!(last && wg == NWG - 1)) named_bar_arrive(1 + (wg + 1) % NWG, 256);
+      }
+    };
+    if constexpr (NWG > 1) {
+      if (wg == NWG - 1) named_bar_arrive(1, 256);
+    }
+    // kv tile j > 0 of an item whose tiles start at u0: S_j and P_{j-1}
+    // v_{j-1} in one turn, as two groups; the softmax of S_j under P_{j-1}
+    // v_{j-1}; then the stage of tile j - 1 goes back to the producer, O and
+    // the sums take the rescale and P_j its registers
+    auto step = [&](int u0, int j, const uint8_t* q_rows, auto masked) {
+      turn_begin();
+      issue_s(u0 + j, q_rows);
+      issue_pv(u0 + j - 1);
+      turn_end(false);
+      wgmma_wait<1>();
+      softmax(j * BK, masked);
+      wgmma_wait<0>();
+      fence_o();
+      release(u0 + j - 1);
+      rescale();
+      pack_p();
+    };
+    int u = 0;  // kv tiles consumed, across units
+    for (int it = 0, unit = unit0; unit < p.units; ++it, unit += units_step) {
+      const bool last_item = unit + units_step >= p.units;
+      const int qb = it % QB;
+      const uint8_t* q_rows = sQ + qb * F::Q_TILE + wg * 64 * kChunk * 2;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lsum[i] = 0.f;
+      m0 = m1 = kNegBig;
+      mbar_wait(&q_full[qb], (it / QB) & 1);
+      turn_begin();
+      issue_s(u, q_rows);
+      turn_end(false);
+      wgmma_wait<0>();
+      if (ntiles == 1) softmax(0, BoolC<true>());
+      else softmax(0, BoolC<false>());
+      pack_p();
+      for (int j = 1; j + 1 < ntiles; ++j) step(u, j, q_rows, BoolC<false>());
+      if (ntiles > 1) step(u, ntiles - 1, q_rows, BoolC<true>());
+      turn_begin();
+      issue_pv(u + ntiles - 1);
+      turn_end(last_item);
+      wgmma_wait<0>();
+      fence_o();
+      release(u + ntiles - 1);
+      mbar_arrive(&q_empty[qb]);
+      u += ntiles;
+
+      const float inv0 = 1.f / lsum[0], inv1 = 1.f / lsum[2];
+      int b, h;
+      const QTile tile = unit_tile(unit, &b, &h);
+      const Strides os = tile.os;
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(tile.o) + b * os.b + h * os.h;
+      const int row0 = tile.q0 + wg * 64 + wi * 16 + g, row1 = row0 + 8;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = n * 8 + t * 2;
+        if (row0 < tile.sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * os.s + col) =
+              __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+        if (row1 < tile.sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * os.s + col) =
+              __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+      }
+    }
+  }
+  // no block exits while the other may still arrive on its barriers
+  if constexpr (CL > 1) cluster_sync();
+}
+
+// Clusters of CL blocks of the instantiation (blocks, at CL == 1) that the
+// card holds at once, as the runtime reckons it.  Returns the cudaError_t.
+template <int NWG, int D, int CL>
+cudaError_t persistent_fit(int* fit) {
+  auto kernel = flash_wgmma_persistent<NWG, D, CL>;
+  constexpr int smem = PersistShape<NWG, D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if constexpr (CL == 1) {
+    int per_sm = 0, dev = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, (NWG + 1) * 128, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    *fit = per_sm * sms;
+    return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(PersistShape<NWG, D>::MIN_BLOCKS * kSms);
+  cfg.blockDim = dim3((NWG + 1) * 128);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(fit, kernel, &cfg);
+}
+
+// Launches the instantiation: CL == 1 as a plain grid of per_sm blocks an SM
+// at most; CL > 1 in clusters, as many as fit on the card at once (both
+// blocks of a cluster in one GPC); either way no more than the work units.
+// Returns the cudaError_t of the launch.
+template <int NWG, int D, int CL>
+cudaError_t launch_persistent(const PersistParams& p, cudaStream_t stream) {
+  auto kernel = flash_wgmma_persistent<NWG, D, CL>;
+  constexpr int smem = PersistShape<NWG, D>::SMEM;
+  constexpr int slots = PersistShape<NWG, D>::MIN_BLOCKS * kSms / CL;  // clusters at most
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if constexpr (CL == 1) {
+    kernel<<<p.units < slots ? p.units : slots, (NWG + 1) * 128, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  static int fit = 0;  // a property of the kernel and the card: asked once
+  if (fit == 0) {
+    err = persistent_fit<NWG, D, CL>(&fit);
+    if (err != cudaSuccess) return err;
+    fit = fit < slots ? fit : slots;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.units < fit ? p.units : fit) * CL);
+  cfg.blockDim = dim3((NWG + 1) * 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// SD-1.5's widths: two consumer warpgroups (128-row query and kv tiles)
+// where 128-row tiles leave at most half the SMs without one, else one
+// (64-row tiles).  At D = 40 with two warpgroups, clusters of two blocks
+// over adjacent query tiles of one head: one multicasts each k tile to
+// both, the other each v tile, which halves what the head's query tiles
+// stream through L2 and TMA, the bound of this width (at D = 80 a kv byte
+// feeds twice the products, and the pairing's lockstep costs more than the
+// streaming it saves).  ops/flash_attention.py:bf16_plan repeats the rule.
+// Returns the cudaError_t of the launch.
+template <int D>
+cudaError_t launch_persistent_plan(QStreams streams, const void* k, const void* v, int B, int H,
+                                   int Sk, Strides ks, Strides vs, float scale_log2,
+                                   cudaStream_t stream) {
+  int tiles128 = 0;
+  for (int i = 0; i < streams.n; ++i) tiles128 += (streams.sq[i] + 127) / 128;
+  const bool wide = 2LL * tiles128 * B * H >= kSms;
+  const int bq = wide ? 128 : 64;
+  const int cl = wide && D == 40 ? 2 : 1;
+  streams.tile0[0] = 0;
+  for (int i = 0; i < streams.n; ++i)
+    streams.tile0[i + 1] = streams.tile0[i] + (streams.sq[i] + bq - 1) / bq;
+  PersistParams p{};
+  p.streams = streams;
+  p.H = H;
+  p.Sk = Sk;
+  p.units = (streams.tile0[streams.n] + cl - 1) / cl * B * H;
+  p.scale_log2 = scale_log2;
+  bool ok = head_map(&p.tk, k, B, Sk, H, D, ks, bq) && head_map(&p.tv, v, B, Sk, H, D, vs, bq);
+  for (int i = 0; i < streams.n; ++i)
+    ok = ok && head_map(&p.tq[i], streams.q[i], B, streams.sq[i], H, D, streams.qs[i], bq);
+  if (!ok) return cudaErrorNotSupported;
+  if (!wide) return launch_persistent<1, D, 1>(p, stream);
+  if constexpr (D == 40) return launch_persistent<2, D, 2>(p, stream);
+  else return launch_persistent<2, D, 1>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1292,19 +1842,22 @@ cudaError_t launch_wide(QStreams streams, int B, int H, int Sk, float* ws, long 
   return cudaGetLastError();
 }
 
-// One launch over every stream of the table: the wgmma kernel for bf16 at
-// D = 40, 64, 80 and 160, else the FMA kernel for this (dtype, D) with its
-// tile offsets.  f32 at D = 512 takes flash_attention_wide_f32_fwd instead.
+// One launch over every stream of the table: the persistent wgmma kernel for
+// bf16 at D = 40 and 80, the per-tile one at D = 64 and 160, else the FMA
+// kernel for this (dtype, D) with its tile offsets.  f32 at D = 512 takes
+// flash_attention_wide_f32_fwd instead.
 // The logit scale is 1/sqrt(D) of the true D.
 int launch(QStreams streams, const void* k, const void* v, int B, int H, int Sk, int D,
            int dtype, Strides ks, Strides vs, cudaStream_t stream) {
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   if (dtype == 1 && D == 40)
-    return static_cast<int>(launch_wgmma<40>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+    return static_cast<int>(
+        launch_persistent_plan<40>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
   if (dtype == 1 && D == 64)
     return static_cast<int>(launch_wgmma<64>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
   if (dtype == 1 && D == 80)
-    return static_cast<int>(launch_wgmma<80>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
+    return static_cast<int>(
+        launch_persistent_plan<80>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
   if (dtype == 1 && D == 160)
     return static_cast<int>(
         launch_wgmma<160>(streams, k, v, B, H, Sk, ks, vs, scale_log2, stream));
@@ -1415,4 +1968,23 @@ extern "C" int flash_attention_wide_f32_fwd(int n, const void* const* q, void* c
   return static_cast<int>(launch_wide(wide_streams(n, q, o, sq, q_strides, o_strides), B, H, Sk,
                                       static_cast<float*>(ws), ws_bytes, splits,
                                       static_cast<cudaStream_t>(stream)));
+}
+
+// Blocks of the persistent bf16 kernel (D = 40 or 80) that the card holds
+// at once, as the runtime reckons it, for the instantiation that
+// launch_persistent_plan takes with nwg consumer warpgroups (its clusters
+// times their blocks): what ops/flash_attention.py:bf16_plan assumes is
+// held against it.  Returns a cudaError_t.
+extern "C" int flash_persistent_fit(int D, int nwg, int* blocks) {
+  int fit = 0, cl = 1;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 40 && nwg == 1) err = persistent_fit<1, 40, 1>(&fit);
+  if (D == 40 && nwg == 2) {
+    err = persistent_fit<2, 40, 2>(&fit);
+    cl = 2;
+  }
+  if (D == 80 && nwg == 1) err = persistent_fit<1, 80, 1>(&fit);
+  if (D == 80 && nwg == 2) err = persistent_fit<2, 80, 1>(&fit);
+  *blocks = fit * cl;
+  return static_cast<int>(err);
 }

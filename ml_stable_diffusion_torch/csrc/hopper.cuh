@@ -3,7 +3,8 @@
 // TMA tile and bulk loads and the host-side encoding of their tensor maps,
 // wgmma shared-memory descriptors for the 128-byte swizzle, the wgmma
 // fences, register reallocation, the wgmma instructions the kernels issue
-// (bf16 and tf32), a transposing ldmatrix, bf16 packing and tf32 rounding.
+// (bf16 and tf32), a transposing ldmatrix, the SFU's and an FMA-pipe 2^x,
+// bf16 packing and tf32 rounding.
 //
 // Layouts.  A TMA load with CU_TENSOR_MAP_SWIZZLE_128B stores a tile of
 // 128-byte rows with 16-byte chunk c of row r at chunk c ^ (r % 8); every
@@ -54,6 +55,15 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// one arrival by the threads whose `issue` is true (predicated: no branch)
+__device__ __forceinline__ void mbar_arrive_if(bool issue, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(static_cast<int>(issue))
+      : "memory");
 }
 
 // mbar_arrive_expect_tx by the threads whose `issue` is true (predicated,
@@ -109,6 +119,33 @@ __device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity
   }
 }
 
+// the block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: all arrive, then all wait
+// (release / acquire: shared-memory writes before it are visible after it)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one arrival on the barrier at `bar`'s offset in the shared memory of
+// block `rank` of the cluster (this block's own too), by the threads whose
+// `issue` is true (predicated: no branch)
+__device__ __forceinline__ void mbar_arrive_cluster_if(bool issue, uint64_t* bar,
+                                                       uint32_t rank) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 remote;\nsetp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(smem_u32(bar)), "r"(rank), "r"(static_cast<int>(issue))
+      : "memory");
+}
+
 // generic-proxy writes to shared memory (st.shared) before the async proxy
 // (wgmma, TMA) reads them
 __device__ __forceinline__ void fence_proxy_async() {
@@ -158,6 +195,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// tma_load_4d into the same shared-memory offset of every block of the
+// cluster in `cta_mask`, each completing on its own barrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      int c3, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "h"(cta_mask)
       : "memory");
 }
 
@@ -231,6 +281,28 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// 2^x on the FMA pipe, for x <= 0: the SFU does 16 exponentials a clock an
+// SM, the FMA pipe 128 operations, so a kernel bound by its exponentials
+// hands some of them here (9 operations each).  x is clamped to -126 (a
+// masked -1e30 logit gives about 2^-126, not 0: its v row is zeros and the
+// sum it joins is at least 1); x = j + f with j = rint(x) by
+// the 1.5 * 2^23 rounding constant, f in [-1/2, 1/2]; 2^f by a degree-4
+// minimax polynomial (Horner, 4 FMA), scaled by 2^j through an integer add
+// of j << 23 to its exponent field (the constant's own bits shift out).
+// Relative error at most 4e-6 (2^-18) over [-126, 0], against bf16's
+// rounding of P at 2^-9: ops/flash_attention.py:exp2_fma_emulation repeats
+// the arithmetic and tests/test_torch_ops.py holds the bound.
+__device__ __forceinline__ float exp2_fma(float x) {
+  x = fmaxf(x, -126.f);
+  const float t = x + 12582912.f;
+  const float f = x - (t - 12582912.f);
+  float q = fmaf(0.009570102f, f, 0.05591786f);
+  q = fmaf(q, f, 0.24024744f);
+  q = fmaf(q, f, 0.6931218f);
+  q = fmaf(q, f, 0.9999993f);
+  return __int_as_float(__float_as_int(q) + (__float_as_int(t) << 23));
+}
+
 // two floats -> one register of two bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -257,6 +329,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo, u
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
   d |= 1ull << 62;
+  return d;
+}
+
+// descriptor of an operand tile without swizzle (core matrices of 8 rows
+// of 16 bytes, 128 bytes each); lbo / sbo in bytes
+__device__ __forceinline__ uint64_t desc_plain(const void* smem, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
   return d;
 }
 
@@ -428,6 +509,57 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float* d, const uint32_t* a,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+// d (64 x 8, f32) += A (64 x 16, registers) * B (16 x 8, smem); kTransB 1: B
+// is MN-major
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_m64n8k16(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+// d (64 x 40, f32) += A (64 x 16, registers) * B (16 x 40, smem); kTransB 1: B
+// is MN-major
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_m64n40k16(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, %26;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+// d (64 x 80, f32) += A (64 x 16, registers) * B (16 x 80, smem); kTransB 1: B
+// is MN-major
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_m64n80k16(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
 }
 

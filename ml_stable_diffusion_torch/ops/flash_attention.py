@@ -11,13 +11,25 @@ In short: one thread block per (batch*head, query tile) loops over KV tiles
 with an online base-2 softmax in f32; ragged edges are masked in the kernel.
 Which kernel serves a call:
 
-- bf16 at D = 40, 64, 80 and 160 (SD-1.5's 40/80/160; 64 for the other
-  UNets and the MMDiT): ``wgmma``, a producer warp feeding k/v tiles by TMA
-  to two consumer warpgroups (128 query rows a block, or 64 where 128-row
-  tiles would leave SMs idle: ``query_tile_rows``); q, k and v read in
-  place from the (B, S, H, D) layout.  A head is held in shared memory as
-  ceil(D / 64) chunks of 64 columns, the columns past D loaded as zeros
-  (``bf16_plan``);
+- bf16 at D = 64 and 160 (the other UNets and the MMDiT; SD-1.5's 16x16
+  blocks): ``wgmma``, a producer warp feeding k/v tiles by TMA to two
+  consumer warpgroups (128 query rows a block, or 64 where 128-row tiles
+  would leave SMs idle: ``query_tile_rows``), a block a query tile; q, k
+  and v read in place from the (B, S, H, D) layout.  A head is held in
+  shared memory as ceil(D / 64) chunks of 64 columns, the columns past D
+  loaded as zeros (``bf16_plan``);
+- bf16 at D = 40 and 80 (SD-1.5's 64x64 and 32x32 blocks, and its cross
+  attention over 77-308 keys): the same warpgroups in a persistent kernel.
+  At D = 40 the softmax needs fewer tensor-core flops a logit than one SFU
+  exponential's time, but what bounds the kernel first is streaming each
+  head's k and v through L2 once a query tile; at D = 80, 1024 tokens give
+  128 blocks of 128 rows, one wave; over a few hundred keys a block's
+  start-up and drain are most of its time.  So: a block an SM walks work
+  units, the next unit's loads under this one; at D = 40 two blocks in a
+  cluster share each k and v tile load (TMA multicast); P v at N = D and
+  the row sums on the tensor cores; the softmax of one kv tile under the
+  previous tile's P v; at D = 40 one exponential in eight on the FMA pipe
+  (``exp2_fma_emulation`` repeats its arithmetic for the CPU tests);
 - f32 at D = 512 (the VAE's single head): ``wgmma`` on tf32 operands in the
   split-precision "3xTF32" form, ``a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``
   with ``hi = tf32(x)`` and ``lo = tf32(x − hi)``, f32 accumulation.  A
@@ -154,36 +166,131 @@ def flash_attention_3xtf32_emulation(q, k, v, terms: int = 3):
     return o.transpose(1, 2)
 
 
-def query_tile_rows(q_lens, B: int, H: int) -> int:
-    """Query rows a block of the bf16 wgmma kernel takes for these streams:
-    128, unless 128-row tiles give fewer than ``SMS`` blocks, then 64 (the
-    rule of ``launch_wgmma`` in the source)."""
-    tiles = sum(-(-n // 128) for n in q_lens)
-    return 64 if tiles * B * H < SMS else 128
+#: head widths of the persistent bf16 kernel (``flash_wgmma_persistent``,
+#: SD-1.5's 40 and 80); 64 and 160 take the per-tile one
+#: (``flash_wgmma_bf16``)
+PERSISTENT_HEAD_DIMS = (40, 80)
+#: the persistent kernel's exponentials on the FMA pipe (``exp2_fma``) where
+#: the SFU bounds it: one 8-column group of logits in ``kFmaExpEvery`` = 8
+FMA_EXP_SHARE = 1 / 8
+#: shared memory a block may take (bytes): alone on an SM, and one of two
+SMEM_ONE_BLOCK, SMEM_TWO_BLOCKS = 232448, 115712
+
+
+def _tiles(q_lens, rows: int) -> int:
+    return sum(-(-n // rows) for n in q_lens)
+
+
+def query_tile_rows(q_lens, B: int, H: int, D: int) -> int:
+    """Query rows a block of the bf16 wgmma kernels takes for these streams
+    (the rules of ``launch_wgmma`` and ``launch_persistent_plan`` in the
+    source).  D = 64: 128, unless 128-row tiles give fewer than ``SMS``
+    blocks, then 64; D = 160: 64 always (two warpgroups' accumulators would
+    exceed a 384-thread block's registers).  D = 40 and 80: 128, unless
+    128-row tiles would leave more than half the SMs without one, then 64."""
+    tiles = _tiles(q_lens, 128) * B * H
+    if D in PERSISTENT_HEAD_DIMS:
+        return 128 if 2 * tiles >= SMS else 64
+    if -(-D // 64) == 3:
+        return 64
+    return 64 if tiles < SMS else 128
 
 
 @dataclasses.dataclass(frozen=True)
 class Bf16Plan:
-    """Instantiation of the bf16 wgmma kernel (``FlashShape`` in the source)."""
-    rows: int    # query rows a block (two consumer warpgroups at 128, one at 64)
-    chunks: int  # 64-column chunks a head takes in shared memory
-    kv_rows: int  # keys a kv tile
-    stages: int  # kv tiles in flight
+    """Instantiation of a bf16 wgmma kernel (``FlashShape`` and
+    ``PersistShape`` in the source)."""
+    kernel: str         # "per-tile" (D = 64, 160) or "persistent" (40, 80)
+    rows: int           # query rows a tile: 64 a consumer warpgroup
+    chunks: int         # 64-column chunks a head takes in shared memory
+    kv_rows: int        # keys a kv tile
+    stages: int         # kv tiles in flight
+    q_buffers: int      # q tiles in shared memory (2: the next unit's loads under this one)
+    pv_cols: int        # N of the P v product: whole chunks (per-tile), D (persistent)
+    sum_cols: int       # N of the row sums' product on the tensor cores (persistent: 8)
+    cluster: int        # blocks a cluster (2: the pair shares each k and v tile load)
+    blocks_per_sm: int
+    blocks: int         # the grid: one block a tile (per-tile), or the persistent blocks
+    fma_exp_share: float  # exponentials on the FMA pipe
     smem_bytes: int
 
 
 def bf16_plan(q_lens, B: int, H: int, D: int) -> Bf16Plan:
-    """The bf16 wgmma kernel's instantiation for these streams at width D:
-    ``query_tile_rows``, but 64 rows always at three chunks (D = 160: two
-    warpgroups' accumulators exceed a 384-thread block's registers);
-    128-row kv tiles only with two warpgroups at one chunk; three stages at
-    three chunks, four otherwise."""
+    """The bf16 wgmma kernel's instantiation for these streams at width D.
+
+    D = 64 and 160, the per-tile kernel: ``query_tile_rows``; 128-row kv
+    tiles with two warpgroups at one chunk, else 64; three stages at three
+    chunks, else four; two blocks an SM at 64 rows and one chunk; a block a
+    query tile.
+
+    D = 40 and 80, the persistent kernel: ``query_tile_rows``; kv tiles as
+    tall as the query tiles; two blocks an SM at 64 rows and one chunk; four
+    kv stages where they fit the block's shared memory, else three, then a
+    second q buffer where that fits too; P v at N = D.  At D = 40 with
+    128-row tiles, clusters of two blocks over adjacent query tiles of one
+    head (the pair shares each k and v tile load).  The grid: a block an SM
+    (two at 64 rows and one chunk), or the work units (a cluster's query
+    tiles of one head) where they are fewer; clusters as many as fit on the
+    card, which on the H100 is every SM pair (the kernel asks the runtime)."""
     chunks = -(-D // 64)
-    rows = 64 if chunks == 3 else query_tile_rows(q_lens, B, H)
-    kv_rows = 128 if rows == 128 and chunks == 1 else 64
-    stages = 3 if chunks == 3 else 4
-    smem = 1024 + chunks * rows * 128 + 2 * stages * chunks * kv_rows * 128 + (1 + 3 * stages) * 8
-    return Bf16Plan(rows, chunks, kv_rows, stages, smem)
+    rows = query_tile_rows(q_lens, B, H, D)
+    tiles = _tiles(q_lens, rows) * B * H
+    per_sm = 2 if rows == 64 and chunks == 1 else 1
+    if D not in PERSISTENT_HEAD_DIMS:
+        kv_rows = 128 if rows == 128 and chunks == 1 else 64
+        stages = 3 if chunks == 3 else 4
+        smem = (1024 + chunks * rows * 128 + 2 * stages * chunks * kv_rows * 128
+                + (1 + 3 * stages) * 8)
+        return Bf16Plan("per-tile", rows, chunks, kv_rows, stages, 1, 64 * chunks, 0, 1,
+                        per_sm, tiles, 0.0, smem)
+    limit = SMEM_TWO_BLOCKS if per_sm == 2 else SMEM_ONE_BLOCK
+
+    def smem_bytes(q_buffers, stages):
+        return (1024 + q_buffers * chunks * rows * 128 + 2 * stages * chunks * rows * 128
+                + 256 + (4 + 3 * stages) * 8)
+
+    stages = 4 if smem_bytes(1, 4) <= limit else 3
+    q_buffers = 2 if smem_bytes(2, stages) <= limit else 1
+    cluster = 2 if rows == 128 and D == 40 else 1
+    units = -(-_tiles(q_lens, rows) // cluster) * B * H
+    blocks = min(units, per_sm * SMS // cluster) * cluster
+    # a logit's tensor-core flops (q k^T, P v at N = D, the row sum at N = 8)
+    # fewer than the 256 an SFU exponential costs in time: FMA-pipe exps
+    fma = FMA_EXP_SHARE if 2 * (16 * -(-D // 16) + D + 8) < 256 else 0.0
+    return Bf16Plan("persistent", rows, chunks, rows, stages, q_buffers, D, 8, cluster,
+                    per_sm, blocks, fma, smem_bytes(q_buffers, stages))
+
+
+#: ``exp2_fma``'s minimax polynomial for 2^f on [-1/2, 1/2], constant term
+#: first, as the source spells its float literals
+EXP2_FMA_COEFFS = ("0.9999993", "0.6931218", "0.24024744", "0.05591786", "0.009570102")
+#: its relative error bound over [-126, 0] (csrc/hopper.cuh)
+EXP2_FMA_REL_ERR = 4e-6
+
+
+def _fma32(a, b, c):
+    """a * b + c rounded once to float32 (the product is exact in float64;
+    the float64 sum's own rounding may move the result by one float32 ulp
+    from a fused multiply-add in rare cases)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def exp2_fma_emulation(x: torch.Tensor) -> torch.Tensor:
+    """The arithmetic of the kernel's FMA-pipe 2^x (``csrc/hopper.cuh:
+    exp2_fma``) on float32 tensors: clamp to -126, j = rint(x) by adding
+    and subtracting 1.5 * 2^23, f = x - j, 2^f by the degree-4 polynomial in
+    Horner form, and j << 23 added to its bits.  For the CPU tests: the card
+    runs the kernel."""
+    x = torch.clamp(x.float(), min=-126.0)
+    magic = torch.tensor(12582912.0)
+    t = x + magic
+    f = x - (t - magic)
+    c = [torch.tensor(float(v), dtype=torch.float32) for v in EXP2_FMA_COEFFS]
+    q = _fma32(c[4].expand_as(f), f, c[3].expand_as(f))
+    for k in (2, 1, 0):
+        q = _fma32(q, f, c[k].expand_as(f))
+    bits = q.view(torch.int32).long() + ((t.view(torch.int32).long() << 23) & 0xFFFFFFFF)
+    return (((bits + 2**31) % 2**32) - 2**31).int().view(torch.float32)
 
 
 def _kernel(name: str):
@@ -194,7 +301,9 @@ def _kernel(name: str):
         streams = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                    strides, strides, ctypes.c_void_p, ctypes.c_void_p]
-        if name == "flash_attention_fwd":
+        if name == "flash_persistent_fit":
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        elif name == "flash_attention_fwd":
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                            + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
         elif name in ("flash_attention_wide_f32_fwd", "flash_split_tf32_fwd"):
@@ -207,6 +316,20 @@ def _kernel(name: str):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def persistent_resident_blocks(D: int, rows: int) -> int:
+    """Blocks of the persistent bf16 kernel at width D (40 or 80) with
+    ``rows``-row tiles that the card holds at once, as the CUDA runtime
+    reckons it for the instantiation ``launch_persistent_plan`` takes; what
+    ``bf16_plan`` assumes (``blocks_per_sm`` times ``SMS``) is held against
+    it on the card.  Launches nothing."""
+    blocks = ctypes.c_int(0)
+    rc = _kernel("flash_persistent_fit")(D, rows // 64, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"flash_persistent_fit failed with CUDA error {rc} at D={D}, "
+                           f"{rows}-row tiles")
+    return blocks.value
 
 
 def _vector_ready(x):

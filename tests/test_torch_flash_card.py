@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from ml_stable_diffusion_torch.ops.flash_attention import (
+    SMS,
+    bf16_plan,
     flash_attention,
     flash_attention_cuda,
     flash_attention_multi_q,
@@ -20,6 +22,7 @@ from ml_stable_diffusion_torch.ops.flash_attention import (
     flash_attention_wide_f32_cuda,
     flash_split_tf32_cuda,
     flash_split_tf32_reference,
+    persistent_resident_blocks,
     wide_f32_plan,
     wide_f32_planes,
 )
@@ -157,6 +160,78 @@ def test_multi_q_kernel_at_sd15_widths(D, cuda_device):
         diff = out.float() - ref.float()
         assert diff.abs().max().item() <= ATOL[torch.bfloat16]
         assert (diff.norm() / ref.float().norm()).item() <= REL_RMS[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,D", [
+    # the persistent kernel at D = 40 and 80 (csrc/flash_attention.cu:
+    # flash_wgmma_persistent): 128-row tiles with a partial last one
+    (2, 1000, 1000, 40), (2, 1000, 330, 80),
+    # five query tiles a head: the last cluster pair's second tile is past
+    # the sequence (D = 40 pairs blocks)
+    (2, 640, 640, 40),
+    # short and ragged kv loops: 256, 308 and 330 keys at both widths
+    (2, 4096, 330, 40), (2, 1024, 330, 80), (2, 2304, 256, 80), (2, 2304, 308, 80),
+    # batch 1: D = 40 keeps 128-row pairs, D = 80 takes 64-row tiles
+    (1, 4096, 330, 40), (1, 1024, 308, 80), (1, 1000, 256, 80),
+    # several units a block, kv over many tiles
+    (2, 2304, 2304, 80),
+])
+def test_persistent_kernel_edges(B, Sq, Sk, D, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    H = 8
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn(B, Sk, H, D, generator=g, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert_matches_plain(got, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [40, 80])
+def test_persistent_kernel_reads_fused_projection_views(D, cuda_device):
+    """128-row tiles (and at D = 40 cluster pairs) over views of one fused
+    (B, S, 3 H D) projection."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    B, S, H = 2, 1100, 8
+    x = torch.randn(B, S, 64, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.randn(3 * H * D, 64, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    q, k, v = (x @ w.t() / 8).view(B, S, 3, H, D).unbind(2)
+    assert not q.is_contiguous()
+    assert_matches_plain(flash_attention_cuda(q, k, v), q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_lens,D", [((4096, 77), 40), ((1024, 77), 80)])
+def test_multi_q_persistent_wide(q_lens, D, cuda_device):
+    """Two query streams at SD-1.5's widths on 128-row tiles: 33 tiles a
+    head at D = 40, an odd count for the cluster pairs, across the streams'
+    boundary."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    qs = [torch.randn(2, n, 8, D, generator=g, device=cuda_device).to(torch.bfloat16)
+          for n in q_lens]
+    k, v = (torch.randn(2, sum(q_lens), 8, D, generator=g, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    for out, ref in zip(flash_attention_multi_q_cuda(qs, k, v),
+                        flash_attention_multi_q_reference(qs, k, v)):
+        diff = out.float() - ref.float()
+        assert diff.abs().max().item() <= ATOL[torch.bfloat16]
+        assert (diff.norm() / ref.float().norm()).item() <= REL_RMS[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_lens,B,D", [((4096,), 2, 40), ((4096,), 1, 40), ((1024,), 2, 80),
+                                        ((1024,), 1, 80), ((330,), 2, 40)])
+def test_persistent_grid_fits_the_card(q_lens, B, D, cuda_device):
+    """bf16_plan's persistent grid assumes blocks_per_sm blocks on every SM
+    at once (clusters of two at D = 40 with 128-row tiles); the CUDA
+    runtime's count for the instantiation the launch takes agrees."""
+    plan = bf16_plan(q_lens, B, 8, D)
+    assert plan.kernel == "persistent"
+    assert persistent_resident_blocks(D, plan.rows) == plan.blocks_per_sm * SMS
 
 
 @pytest.mark.cuda

@@ -177,20 +177,102 @@ def test_activations_match_jax(name):
 
 
 @pytest.mark.parametrize("q_lens,B,H,D,want", [
-    ((4096,), 2, 8, 40, (128, 1, 128, 4)),   # SD-1.5 64x64 blocks
-    ((1024,), 2, 8, 80, (64, 2, 64, 4)),     # 32x32: 128 blocks < 132 SMs
-    ((256,), 2, 8, 160, (64, 3, 64, 3)),     # 16x16
-    ((2304,), 2, 8, 80, (128, 2, 64, 4)),    # 768x768's 48x48
-    ((4096,), 2, 8, 160, (64, 3, 64, 3)),    # three chunks: 64 rows always
-    ((4096,), 2, 5, 64, (128, 1, 128, 4)),   # SD-2.1, as before
-    ((4096, 154), 2, 24, 64, (128, 1, 128, 4)),
+    # (kernel, query rows, chunks, kv rows, stages, q buffers, P v columns,
+    # cluster, blocks)
+    # SD-1.5 64x64: 128-row tiles, pairs of blocks sharing k/v loads, a
+    # block an SM; batch 1 (ControlNet, serial CFG) the same
+    ((4096,), 2, 8, 40, ("persistent", 128, 1, 128, 4, 2, 40, 2, 132)),
+    ((4096,), 1, 8, 40, ("persistent", 128, 1, 128, 4, 2, 40, 2, 132)),
+    # an odd count of query tiles: the last pair's second tile is past the end
+    ((640,), 2, 8, 40, ("persistent", 128, 1, 128, 4, 2, 40, 2, 96)),
+    # 32x32: 128 blocks of 128 rows, no cluster; three kv stages and one q
+    # buffer fit two chunks
+    ((1024,), 2, 8, 80, ("persistent", 128, 2, 128, 3, 1, 80, 1, 128)),
+    ((2304,), 2, 8, 80, ("persistent", 128, 2, 128, 3, 1, 80, 1, 132)),
+    # batch-1 32x32: 128-row tiles would leave half the SMs idle
+    ((1024,), 1, 8, 80, ("persistent", 64, 2, 64, 4, 2, 80, 1, 128)),
+    # ragged and small: 64-row tiles, two blocks an SM at one chunk
+    ((330,), 2, 3, 40, ("persistent", 64, 1, 64, 4, 2, 40, 1, 36)),
+    ((300, 77), 2, 4, 40, ("persistent", 64, 1, 64, 4, 2, 40, 1, 56)),
+    ((330,), 2, 3, 80, ("persistent", 64, 2, 64, 4, 2, 80, 1, 36)),
+    # 16x16 and D = 160 at any length: the per-tile kernel, 64 rows
+    ((256,), 2, 8, 160, ("per-tile", 64, 3, 64, 3, 1, 192, 1, 64)),
+    ((4096,), 2, 8, 160, ("per-tile", 64, 3, 64, 3, 1, 192, 1, 1024)),
+    # D = 64 (SD-2.1, SDXL, SD3) as before
+    ((4096,), 2, 5, 64, ("per-tile", 128, 1, 128, 4, 1, 64, 1, 320)),
+    ((256,), 2, 20, 64, ("per-tile", 64, 1, 64, 4, 1, 64, 1, 160)),
+    ((4096, 154), 2, 24, 64, ("per-tile", 128, 1, 128, 4, 1, 64, 1, 1632)),
 ])
 def test_bf16_plan(q_lens, B, H, D, want):
-    """The bf16 kernel's instantiation (rows, chunks, kv rows, stages), as
-    csrc/flash_attention.cu:FlashShape and launch_wgmma choose it, in one
-    block's shared memory."""
-    from ml_stable_diffusion_torch.ops.flash_attention import bf16_plan
+    """The bf16 kernels' instantiation, as csrc/flash_attention.cu's
+    FlashShape / launch_wgmma and PersistShape / launch_persistent_plan
+    choose it, in one block's shared memory (half an SM's at two blocks)."""
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        SMEM_ONE_BLOCK,
+        SMEM_TWO_BLOCKS,
+        bf16_plan,
+    )
 
     plan = bf16_plan(q_lens, B, H, D)
-    assert (plan.rows, plan.chunks, plan.kv_rows, plan.stages) == want
-    assert plan.smem_bytes <= 232448
+    assert (plan.kernel, plan.rows, plan.chunks, plan.kv_rows, plan.stages, plan.q_buffers,
+            plan.pv_cols, plan.cluster, plan.blocks) == want
+    assert plan.smem_bytes <= (SMEM_TWO_BLOCKS if plan.blocks_per_sm == 2 else SMEM_ONE_BLOCK)
+    # the FMA pipe takes 1/8 of the exponentials where the SFU bounds the
+    # kernel: D = 40's 192 tensor flops a logit against an exponential's 256
+    assert plan.fma_exp_share == (0.125 if D == 40 else 0.0)
+
+
+def _phase2_bf16_shapes():
+    import chip_smoke
+
+    return [(label, q_lens, B, H, D) for label, q_lens, _, B, H, D, dtype, _ in
+            chip_smoke.FLASH_SHAPES + chip_smoke.MULTI_Q_SHAPES
+            if dtype == torch.bfloat16 and D != 512]
+
+
+@pytest.mark.parametrize("label,q_lens,B,H,D", _phase2_bf16_shapes())
+def test_bf16_plan_at_every_phase2_shape(label, q_lens, B, H, D):
+    """Every bf16 shape chip_smoke.py's phase 2 runs has a plan that fits,
+    on the kernel its width takes, a cluster's blocks a whole number of
+    pairs, and no more blocks than work or SMs."""
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        PERSISTENT_HEAD_DIMS,
+        SMEM_ONE_BLOCK,
+        SMEM_TWO_BLOCKS,
+        SMS,
+        bf16_plan,
+    )
+
+    plan = bf16_plan(q_lens, B, H, D)
+    assert plan.kernel == ("persistent" if D in PERSISTENT_HEAD_DIMS else "per-tile")
+    assert plan.smem_bytes <= (SMEM_TWO_BLOCKS if plan.blocks_per_sm == 2 else SMEM_ONE_BLOCK)
+    tiles = sum(-(-n // plan.rows) for n in q_lens) * B * H
+    if plan.kernel == "persistent":
+        assert plan.blocks % plan.cluster == 0
+        assert plan.blocks <= min(plan.blocks_per_sm * SMS, -(-tiles // plan.cluster)
+                                  * plan.cluster)
+        assert plan.pv_cols == D
+    else:
+        assert plan.blocks == tiles
+
+
+def test_exp2_fma_emulation_error_bound():
+    """The FMA-pipe 2^x (csrc/hopper.cuh:exp2_fma) against torch.exp2 over
+    [-126, 0]: within the relative error its header states, far below
+    bf16's rounding of P (2^-9); below -126 (a masked logit) it gives its
+    2^-126."""
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        EXP2_FMA_REL_ERR,
+        exp2_fma_emulation,
+    )
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.cat([torch.linspace(-126.0, 0.0, 400_001), -126.0 * torch.rand(200_000, generator=gen),
+                   torch.tensor([-126.0, -125.5, -1.5, -0.5, 0.0])])
+    got, ref = exp2_fma_emulation(x).double(), torch.exp2(x.double())
+    rel = ((got - ref) / ref).abs().max().item()
+    assert rel <= EXP2_FMA_REL_ERR
+    assert EXP2_FMA_REL_ERR < 2.0 ** -9 / 100
+    low = exp2_fma_emulation(torch.tensor([-1e30, -200.0, -126.0])).double()
+    assert torch.equal(low, low[2].expand(3))
+    assert abs(low[2].item() / 2.0 ** -126 - 1) <= EXP2_FMA_REL_ERR
