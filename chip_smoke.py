@@ -21,8 +21,9 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
 3. The main path at full width: SD-2.1-base 512x512 txt2img, 20 steps of
    DPM-Solver++(2M), CFG batch 2, guidance 7.5, through
    ``StableDiffusionPipeline.generate_images`` with random weights from a
-   seeded generator.  One warm-up, then the median of 3 generations with
-   distinct prompts and seeds.  Kernel launch counts are read around it.
+   seeded generator.  One warm-up (which captures the generation's
+   program), then the median of 3 generations with distinct prompts and
+   seeds (replays).  Kernel launch counts are read around it.
 4. One full-width UNet forward with variance-preserving weights, with the
    attention dispatch on the flash kernel and then forced to the plain path:
    the kernel's check inside the model (phase 3's speed weights leave the
@@ -153,6 +154,33 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    over 2048): 1401 flash and 680 GroupNorm each.  On phase 5's pipeline
    a PEFT ``transformer.`` LoRA over every joint-attention projection,
    generated from and cleared: 480 multi-stream launches.
+23. Captured programs against the eager loop, on the pipelines of phases 3
+   (SD-2.1), 11 (SD-1.5), 7 (SDXL base + refiner) and 5 (SD3), each right
+   after its main path: one eager generation (``execution = "eager"``) and
+   one captured with the same prompt and seed, their latents and images
+   bit-equal and their own launch counts the main path's; the median of 3
+   s/step of each, in turns in the same call; the program's capture
+   seconds and pool bytes; the device's busy share of one generation of
+   each under the profiler, and the profiler's kernel records of the
+   port's kernels held against the credited launch counts.
+24. ``reduce_memory`` on phase 7's SDXL base + refiner at 1024x1024: the
+   default (captured) generation from a cleared cache (its peak with the
+   capture, its time on the replay), then
+   ``offload_params_to_host`` and one staged generation, its latents and
+   images bit-equal to the default's; ``max_memory_allocated`` of both and
+   each stage's transfer bytes, seconds and GB/s.
+25. Serving on phase 3's SD-2.1 pipeline: ``GenerationServer.precompile``
+   at batch sizes 1, 2 and 4, four concurrent ``submit``s coalesced into
+   one batch, the batch against the pipeline's own generation of the merged
+   batch (bit-equal) and each result against its request run alone, one
+   img2img request that runs alone, ``stats()`` and the requests a second.
+
+The main paths run their captured programs (pipelines/program.py): each
+key's first generation runs the body once eagerly as warm-up, captures it
+and replays it; later ones replay.  A replay credits the launches its
+capture counted, so each generation's own launches are the counters' growth
+less its programs' warm-ups, which are printed apart.  The printed device
+memory reserved after each path includes its programs' pool.
 
 Phase 2 holds the multi-stream kernel at SD3 ControlNet's batch-1 shape too.
 
@@ -170,7 +198,7 @@ runs instead one generation of that path under ``torch.profiler`` after a
 warm-up and prints where the device time goes: the kernels grouped (the
 GroupNorm and flash kernels, matrix products, convolutions, the rest), the
 top kernels by device time, and the device's busy share of the generation's
-wall time.
+wall time, for the captured program and then for the eager loop.
 
     python3 chip_smoke.py --compare PARENT_CHECKOUT
 
@@ -186,6 +214,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -1281,12 +1310,47 @@ def reset_counters(counters):
         fn.launches = 0
 
 
+def free_card():
+    """Release what finished phases left on the card: a pipeline and its
+    captured programs hold each other, so collect them before the
+    allocator's cache is emptied."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def own_launches(pipe, counters, before, warm_before):
+    """The launches of a generation itself, eager or credited by a replay:
+    the counters' growth since ``before`` less the warm-ups of the programs
+    it captured (real launches, made once a program; ``warm_before`` is
+    ``pipe.programs.warmup_launches`` as it was)."""
+    warm = pipe.programs.warmup_launches
+    return {name: fn.launches - before[name] - (warm.get(name, 0) - warm_before.get(name, 0))
+            for name, fn in counters.items()}
+
+
+def launches_of(pipe, counters, fn):
+    """-> (``fn()``, the launches it made itself (``own_launches``), its
+    programs' warm-up launches)."""
+    before = {name: f.launches for name, f in counters.items()}
+    warm_before = dict(pipe.programs.warmup_launches)
+    out = fn()
+    own = own_launches(pipe, counters, before, warm_before)
+    warm = {name: pipe.programs.warmup_launches.get(name, 0) - warm_before.get(name, 0)
+            for name in counters}
+    return out, own, warm
+
+
+def reserved_gib() -> float:
+    return torch.cuda.memory_reserved() / 2**30
+
+
 def run_main_path(pipe, path, counters, timed=3, plain=True, warmup=True, extra=None,
                   results=None):
     """One warm-up (``warmup``) and ``timed`` generations with distinct
     prompts and seeds, the counters set to 0 just before and read just
-    after; then (``plain``) the last generation again with attention forced
-    to the plain path.  ``extra``: more configuration fields (the starting
+    after (``launches``: every launch, the captures' warm-ups among them;
+    each generation's own launches must be the path's); then (``plain``)
+    the last generation again with attention forced to the plain path.  ``extra``: more configuration fields (the starting
     image and mask, the control images, a prompt); ``results``: a list that
     receives the generations' results."""
     from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
@@ -1301,11 +1365,12 @@ def run_main_path(pipe, path, counters, timed=3, plain=True, warmup=True, extra=
         fields.update(spec.get("extra", {}))
         fields.update(extra or {})
         cfg = PipelineConfiguration(**fields)
-        before = {name: fn.launches for name, fn in counters.items()}
         t0 = time.perf_counter()
-        res = pipe.generate_images(cfg, image_hw=spec["image_hw"])
+        res, launched, warm = launches_of(
+            pipe, counters, lambda: pipe.generate_images(cfg, image_hw=spec["image_hw"]))
         seconds = time.perf_counter() - t0  # the images reach the host in it
-        launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+        for name, n in warm.items():
+            warmups[name] = warmups.get(name, 0) + n
         want = (1, *spec["image_hw"], 3)
         if res.images.shape != want or res.images.dtype.name != "uint8":
             fail(f"{path}: images {res.images.shape} {res.images.dtype}, want {want} uint8")
@@ -1314,6 +1379,7 @@ def run_main_path(pipe, path, counters, timed=3, plain=True, warmup=True, extra=
             fail(f"{path}: latents {res.latents.shape} not finite or not {spec['latents']}")
         return res, launched, seconds
 
+    warmups = {}  # the captures' warm-up launches
     reset_counters(counters)
     t0 = time.perf_counter()
     runs = [generate(i) for i in range(int(warmup) + timed)]  # warm-up + timed
@@ -1327,17 +1393,24 @@ def run_main_path(pipe, path, counters, timed=3, plain=True, warmup=True, extra=
     out = dict(seconds_per_step=sps, iter_per_s=1.0 / sps, seconds_per_image=spi,
                seconds_per_step_runs=[r.seconds_per_step for r, _, _ in runs],
                seconds_per_image_runs=[secs for _, _, secs in runs],
-               wall_s_generations=wall, launches=launches)
+               wall_s_generations=wall, launches=launches, capture_warmup_launches=warmups,
+               first_call=not warmup and any(warmups.values()),
+               memory_reserved_gib=reserved_gib())
     if results is not None:
         results.extend(r for r, _, _ in runs)
     if not plain:
         return out
-    # the same generation with attention forced to the plain path.  On these
+    # the same generation with attention forced to the plain path, on the
+    # eager loop.  On these
     # N(0, 0.02) weights q.k is near zero and attention nearly uniform, so
     # this shows the plain path runs end to end more than it tests the
     # kernel: phases 4, 6 and 8, on variance-preserving weights, are the
     # in-model checks.  The GroupNorm kernel stays on.
-    res, plain_launched, plain_secs = generate(len(runs) - 1, attention="plain")
+    pipe.execution = "eager"  # a check of the plain path: no program of its own
+    try:
+        res, plain_launched, plain_secs = generate(len(runs) - 1, attention="plain")
+    finally:
+        pipe.execution = "program"
     want = {name: 0 if name in ATTENTION_KERNELS else n
             for name, n in spec["per_generation"].items()}
     if plain_launched != want:
@@ -1593,9 +1666,9 @@ def run_scheduler_sweep(pipe, counters):
                                     rng="numpy", disable_safety=True)
         reset_counters(counters)
         t0 = time.perf_counter()
-        res = p.generate_images(cfg, image_hw=(512, 512))
-        seconds = time.perf_counter() - t0
-        launched = {n: fn.launches for n, fn in counters.items()}
+        res, launched, _ = launches_of(p, counters,
+                                   lambda: p.generate_images(cfg, image_hw=(512, 512)))
+        seconds = time.perf_counter() - t0  # a first call: it captures its program
         if launched != want:
             fail(f"scheduler {label}: a generation launched {launched}, want {want}")
         if res.latents.shape != (1, 64, 64, 4) or not bool(
@@ -1721,9 +1794,9 @@ def run_handler_path(pipe, counters):
                                 use_denoised_intermediates=True)
     reset_counters(counters)
     t0 = time.perf_counter()
-    res = pipe.generate_images(cfg, progress_handler=handler, image_hw=(512, 512))
+    res, launched, _ = launches_of(pipe, counters, lambda: pipe.generate_images(
+        cfg, progress_handler=handler, image_hw=(512, 512)))
     seconds = time.perf_counter() - t0
-    launched = {name: fn.launches for name, fn in counters.items()}
     if launched != spec["per_generation"]:
         fail(f"sd15_stop10: the generation launched {launched}, want {spec['per_generation']}")
     want = [(i, SD15_CALLS, (1, 64, 64, 3), True) for i in range(1, STOP_AFTER + 1)]
@@ -1930,7 +2003,7 @@ def run_t5_path(pipe, counters, report, sd3_results):
         fail(f"the T5 context did not move the latents: rel {rel} <= {SD3_MIN_REL}")
     encode = time_t5_encode(t5, tokenizer)
     del t5
-    torch.cuda.empty_cache()
+    free_card()
     return res, dict(parameters=n, with_vs_without_latents_rel=rel, encode=encode)
 
 
@@ -1973,7 +2046,7 @@ def run_sd3_controlnet_paths(pipe, counters, report, sd3_results):
     if not rel > SD3_MIN_REL:
         fail(f"the SD3 ControlNet did not move the latents: rel {rel} <= {SD3_MIN_REL}")
     del nets, enc_pipe
-    torch.cuda.empty_cache()
+    free_card()
     return out, dict(parameters_a_net=n, with_vs_without_latents_rel=rel)
 
 
@@ -2044,7 +2117,7 @@ def run_diffusers_path(pipe, counters, report, sd21_results):
         save_s = time.perf_counter() - t0
         nbytes = sum(f.stat().st_size for f in root.rglob("*.safetensors"))
         del encoder
-        torch.cuda.empty_cache()
+        free_card()
         t0 = time.perf_counter()
         loaded = load_pipeline(root, compute_dtype=torch.bfloat16, device="cuda")
         torch.cuda.synchronize()
@@ -2069,7 +2142,7 @@ def run_diffusers_path(pipe, counters, report, sd21_results):
         fail("the diffusers-loaded pipeline's latents differ from phase 3's: max abs "
              f"{float(np.abs(results[0].latents - sd21_results[0].latents).max())}")
     del loaded
-    torch.cuda.empty_cache()
+    free_card()
     return res, dict(directory_bytes=nbytes, save_s=save_s, load_s=load_s,
                      latents_bit_equal=same)
 
@@ -2158,13 +2231,19 @@ def save_adapter(d: Path, name: str, sd: dict, want):
     return path, path.stat().st_size
 
 
-def timed_host(fn):
-    """-> seconds of ``fn()`` by the host's clock, the card's work included."""
+def timed_call(fn):
+    """-> (``fn()``, its seconds by the host's clock, the card's work
+    included)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def timed_host(fn):
+    """-> seconds of ``fn()`` by the host's clock, the card's work included."""
+    return timed_call(fn)[1]
 
 
 def state_snapshot(modules: dict):
@@ -2524,6 +2603,257 @@ def run_sd3_lora_path(pipe, counters, report, sd3_results):
                      latents_rel_moved=rel)
 
 
+# -- phases 23 to 25 ----------------------------------------------------------------
+
+#: phase 25: each served request's latents against the same request run
+#: alone, relative max abs.  tests/test_serving.py holds the JAX server at
+#: 2e-4 absolute on f32 CPU models (tests/test_torch_serving.py holds the
+#: port's there too); on the card the bf16 UNet at batch 8 rounds otherwise
+#: than at batch 2 (other matmul and flash tilings), which 20 steps carry
+#: to ~1e-2, so the bound is GEN_MAX_REL_ERR's, the one the bf16
+#: generations are held to; a request given another's noise or prompt
+#: moves its latents by O(1).  The served batch itself must equal the
+#: pipeline's own generation of the merged batch bit for bit.
+SERVE_MAX_REL_ERR = GEN_MAX_REL_ERR
+
+
+def port_kernel_records(names) -> dict:
+    """The profiler's kernel records of the port's kernels, by kind, from
+    ``_device_time``'s {kernel name: (records, us)}: the bf16 flash kernels
+    (one a non-f32-D=512 wrapper launch), the 3xTF32 pre-pass, main kernel
+    and combine pass, and the GroupNorm kernel."""
+    rec = {"flash": 0, "split": 0, "wide": 0, "combine": 0, "gn": 0}
+    for name, (n, _) in names.items():
+        low = name.lower()
+        kind = ("gn" if "gn_silu" in low else "split" if "flash_split_tf32" in low else
+                "wide" if "3xtf32" in low else "combine" if "flash_combine" in low else
+                "flash" if ("flash_wgmma" in low or "flash_fma" in low) else None)
+        if kind:
+            rec[kind] += n
+    return rec
+
+
+def records_of_launches(launched) -> dict:
+    """What the profiler must record for a generation's wrapper launches."""
+    wide = launched["flash_attention_wide_f32"]
+    return {"flash": launched["flash_attention"] + launched["flash_attention_multi_q"] - wide,
+            "split": launched["flash_split_tf32"], "wide": wide,
+            "gn": launched["group_norm_silu"]}
+
+
+def run_graphs_vs_eager(pipe, path, counters):
+    """Phase 23 on ``path``'s pipeline, its programs cleared first: one eager
+    and one captured generation of one prompt and seed (latents and images
+    bit-equal, each launching the path's counts), the median of 3 s/step of
+    each in turns, the captures' seconds and pool bytes, and one generation
+    of each under the profiler: busy share, and the port's kernel records
+    against the launches counted (credited, for the replay)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+
+    spec = PATHS[path]
+    hw = spec["image_hw"]
+
+    def run(mode, i):
+        cfg = PipelineConfiguration(prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS,
+                                    guidance_scale=spec["guidance"], seed=3000 + i,
+                                    scheduler=spec["scheduler"], rng="numpy",
+                                    disable_safety=True, **spec.get("extra", {}))
+        pipe.execution = mode
+        try:
+            return launches_of(pipe, counters, lambda: pipe.generate_images(cfg, image_hw=hw))
+        finally:
+            pipe.execution = "program"
+
+    pipe.clear_programs()
+    free_card()
+    first = len(pipe.programs.captures)
+    eager, eager_launched, _ = run("eager", 0)
+    graph, graph_launched, warm = run("program", 0)
+    if not (np.array_equal(graph.latents, eager.latents)
+            and np.array_equal(graph.images, eager.images)):
+        fail(f"{path}: the captured program's latents differ from the eager loop's by "
+             f"{float(abs(graph.latents - eager.latents).max())} (max abs): not bit for bit")
+    for mode, launched in (("eager", eager_launched), ("captured", graph_launched),
+                           ("capture warm-up", warm)):
+        if launched != spec["per_generation"]:
+            fail(f"{path}: the {mode} generation launched {launched}, "
+                 f"want {spec['per_generation']}")
+    captures = [dict(program="decode" if key[0] == "decode" else "generation",
+                     capture_s=secs, pool_bytes=pool)
+                for key, secs, pool in pipe.programs.captures[first:]]
+    sps = {"eager": [], "program": []}
+    for i in range(3):
+        for mode in sps:
+            sps[mode].append(run(mode, 1 + i)[0].seconds_per_step)
+    profiled = {}
+    for mode in ("eager", "program"):
+        run(mode, 4)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, launched, _ = run(mode, 4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, _, names = _device_time(prof)
+        records = port_kernel_records(names)
+        want = records_of_launches(launched)
+        if any(records[k] != n for k, n in want.items()):
+            fail(f"{path} ({mode}): the profiler recorded {records} kernels of the port's; "
+                 f"the launches counted ({launched}) give {want}")
+        profiled[mode] = dict(wall_s=wall, device_busy_s=busy / 1e6,
+                              device_busy_share=busy / 1e6 / wall, kernel_records=records)
+    out = dict(latents_bit_equal=True, launches=graph_launched, captures=captures,
+               seconds_per_step_runs=sps,
+               seconds_per_step={m: statistics.median(v) for m, v in sps.items()},
+               profiled=profiled, memory_reserved_gib=reserved_gib())
+    log(f"phase 23, {path}: captured latents and images bit-equal to the eager loop's; "
+        f"s/step eager {out['seconds_per_step']['eager'] * 1e3:.2f} ms, captured "
+        f"{out['seconds_per_step']['program'] * 1e3:.2f} ms (median of 3, in turns); device "
+        f"busy {100 * profiled['eager']['device_busy_share']:.1f} % eager, "
+        f"{100 * profiled['program']['device_busy_share']:.1f} % captured; captures "
+        + ", ".join(f"{c['program']} {c['capture_s']:.2f} s, pool {c['pool_bytes'] / 2**30:.3f} "
+                    f"GiB" for c in captures)
+        + f"; kernel records {profiled['program']['kernel_records']} = the credited launches; "
+        f"{out['memory_reserved_gib']:.2f} GiB reserved")
+    return out
+
+
+def run_reduce_memory(pipe, counters):
+    """Phase 24 on phase 7's SDXL base + refiner: a default (captured)
+    generation from a cleared cache, then the weights offloaded and one
+    staged generation; latents and images bit-equal, both peaks, each
+    stage's transfer."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+
+    spec = PATHS["sdxl_refiner"]
+    cfg = PipelineConfiguration(prompt=PROMPTS[0], step_count=STEPS, guidance_scale=5.0,
+                                seed=4000, scheduler=spec["scheduler"], rng="numpy",
+                                disable_safety=True, **spec["extra"])
+    out = {}
+    results = {}
+    for mode in ("default", "staged"):
+        pipe.clear_programs()
+        if mode == "staged":
+            t0 = time.perf_counter()
+            pipe.offload_params_to_host()
+            out["offload_s"] = time.perf_counter() - t0
+        free_card()
+        at_rest = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        c = dataclasses.replace(cfg, reduce_memory=mode == "staged")
+        (res, launched, _), secs = timed_call(lambda: launches_of(
+            pipe, counters, lambda: pipe.generate_images(c, image_hw=spec["image_hw"])))
+        peak = torch.cuda.max_memory_allocated()  # the default's with its capture
+        if mode == "default":  # timed again on its replay
+            (res, launched, _), secs = timed_call(lambda: launches_of(
+                pipe, counters, lambda: pipe.generate_images(c, image_hw=spec["image_hw"])))
+        if launched != spec["per_generation"]:
+            fail(f"reduce_memory ({mode}): the generation launched {launched}, want "
+                 f"{spec['per_generation']}")
+        results[mode] = res
+        out[mode] = dict(max_memory_allocated=peak, memory_allocated_at_rest=at_rest,
+                         seconds_per_image=secs, seconds_per_step=res.seconds_per_step,
+                         launches=launched)
+    if not (np.array_equal(results["staged"].latents, results["default"].latents)
+            and np.array_equal(results["staged"].images, results["default"].images)):
+        fail("reduce_memory: the staged latents differ from the default generation's by "
+             f"{float(abs(results['staged'].latents - results['default'].latents).max())}")
+    out["stages"] = [dict(stage=name, bytes=n, seconds=t, gb_per_s=n / t / 1e9)
+                     for name, n, t in pipe.stage_transfers]
+    want = ["encode", "unet", "refiner", "decode"]
+    if [st["stage"] for st in out["stages"]] != want:
+        fail(f"reduce_memory: stages {[st['stage'] for st in out['stages']]}, want {want}")
+    for mode in ("default", "staged"):
+        r = out[mode]
+        log(f"phase 24, {mode}: peak {r['max_memory_allocated'] / 2**30:.3f} GiB allocated "
+            f"({r['memory_allocated_at_rest'] / 2**30:.3f} GiB at rest), "
+            f"{r['seconds_per_step'] * 1e3:.2f} ms/step, {r['seconds_per_image']:.3f} s/image")
+    for st in out["stages"]:
+        log(f"phase 24, stage {st['stage']}: {st['bytes'] / 1e9:.3f} GB to the card in "
+            f"{st['seconds'] * 1e3:.1f} ms, {st['gb_per_s']:.2f} GB/s")
+    log(f"phase 24: staged latents and images bit-equal to the default generation's; "
+        f"offload {out['offload_s']:.2f} s")
+    out["latents_bit_equal"] = True
+    return out
+
+
+def run_serving(pipe):
+    """Phase 25 on phase 3's SD-2.1 pipeline (a copy with a VAE encoder, for
+    the img2img request): precompile at batch 1, 2 and 4, four concurrent
+    submits in one batch, each against its request run alone, one img2img
+    request run alone, the server's stats and requests a second."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+    from ml_stable_diffusion_torch.serving import GenerationServer, ServeConfig
+
+    served = with_encoder(pipe, 25)
+    hw = (512, 512)
+    server = GenerationServer(served, [ServeConfig(image_hw=hw, step_count=STEPS,
+                                                   scheduler="DPMSolverMultistep",
+                                                   guidance_scale=7.5)],
+                              max_batch=4, batch_window_s=0.5)
+    out = {}
+    try:
+        _, out["precompile_s"] = timed_call(
+            lambda: server.precompile(batch_sizes=(1, 2, 4)))
+        built = served.programs.built
+        cfgs = [PipelineConfiguration(prompt=PROMPTS[i], seed=5000 + i, step_count=STEPS,
+                                      scheduler="DPMSolverMultistep", guidance_scale=7.5,
+                                      rng="numpy", disable_safety=True) for i in range(4)]
+        t0 = time.perf_counter()
+        futures = [server.submit(c, image_hw=hw) for c in cfgs]
+        results = [f.result(timeout=600) for f in futures]
+        out["batch_wall_s"] = time.perf_counter() - t0
+        out["requests_per_s"] = len(cfgs) / out["batch_wall_s"]
+        if server.batches_run != 1:
+            fail(f"serving: four submits ran as {server.batches_run} batches, want 1")
+        if served.programs.built != built:
+            fail("serving: the batch captured a program precompile had not built")
+        merged = served.generate_images(dataclasses.replace(
+            cfgs[0], prompt=[c.prompt for c in cfgs],
+            negative_prompt=[c.negative_prompt for c in cfgs], seed=[c.seed for c in cfgs],
+            image_count=len(cfgs)), image_hw=hw)
+        if not np.array_equal(np.concatenate([r.latents for r in results]), merged.latents):
+            fail("serving: the served batch differs from the pipeline's generation of the "
+                 "merged batch")
+        diffs = []
+        t0 = time.perf_counter()
+        for c, r in zip(cfgs, results):
+            alone = served.generate_images(c, image_hw=hw)
+            diffs.append(latents_rel(r.latents, alone.latents))
+        out["alone_s"] = time.perf_counter() - t0
+        out["alone_requests_per_s"] = len(cfgs) / out["alone_s"]
+        out["rel_err_vs_alone"] = diffs
+        if max(diffs) > SERVE_MAX_REL_ERR:
+            fail(f"serving: batched latents differ from each request run alone by {diffs} "
+                 f"(rel max abs) > {SERVE_MAX_REL_ERR}")
+        direct = server.submit(dataclasses.replace(
+            cfgs[0], starting_image=starting_image(hw, 25), strength=STRENGTH), image_hw=hw)
+        res = direct.result(timeout=600)
+        if server.batches_run != 1 or not np.isfinite(res.latents).all():
+            fail(f"serving: the img2img request ran in a batch ({server.batches_run}) or gave "
+                 "non-finite latents")
+        out["stats"] = server.stats()
+    finally:
+        server.shutdown()
+    log(f"phase 25: precompile of batch 1, 2, 4 in {out['precompile_s']:.2f} s; four "
+        f"submits in one batch: {out['batch_wall_s']:.3f} s, {out['requests_per_s']:.2f} "
+        f"requests/s (alone, one after another: {out['alone_requests_per_s']:.2f}); "
+        f"the batch bit-equal to the merged generation, each request against itself "
+        f"alone {max(out['rel_err_vs_alone']):.3g} (rel); "
+        f"stats {out['stats']}")
+    del served
+    free_card()
+    return out
+
+
 # -- phases 9 and 10 ----------------------------------------------------------------
 
 def fixed_latents(pipe):
@@ -2628,7 +2958,7 @@ def run_palettized_path(counters):
         te_tree = {k: v.to("cpu") for k, v in te_tree.items()}
         unet_config, te_config = unet.config, te.config
         del te, unet, vae
-        torch.cuda.empty_cache()
+        free_card()
 
         t0 = time.perf_counter()
         pipe = load_pipeline_from_artifacts(root, compute_dtype=torch.bfloat16, device="cuda")
@@ -2662,7 +2992,7 @@ def run_palettized_path(counters):
                     f"of {out['installed_bitwise'][mode]} weights at each generation's entry "
                     f"takes {out['program_gather_ms']:.2f} ms")
             torch.cuda.synchronize()
-            torch.cuda.empty_cache()
+            free_card()
             at_rest = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             res = run_main_path(pipe, path, counters, plain=False)
@@ -2695,7 +3025,7 @@ def run_palettized_path(counters):
                                               "program mode vs dequantized weights handed directly"),
     }
     del pipe, dense, unet_d, te_d
-    torch.cuda.empty_cache()
+    free_card()
     return out
 
 
@@ -2771,7 +3101,7 @@ def check_palettized_witness(counters, calls):
     if not (math.isfinite(max_abs) and psnr >= PAL_MIN_PSNR_DB):
         fail(f"palettized unet fused vs install PSNR {psnr} dB < {PAL_MIN_PSNR_DB}")
     del unet
-    torch.cuda.empty_cache()
+    free_card()
     return dict(max_abs=max_abs, psnr_db=psnr, predicted_psnr_db=list(PAL_PREDICTED_PSNR_DB),
                 peak=peak, launches=launches, modules_with_bias=with_bias,
                 unet_call_ms_fused=fused_ms, unet_call_ms_install=install_ms)
@@ -2898,7 +3228,8 @@ def profile_generation(path):
     """One generation of ``path`` under torch.profiler after a warm-up, then
     its VAE decode alone: device time by kernel group for the generation,
     the decode, and per denoise step (generation less decode, over the
-    steps)."""
+    steps), all of the captured program; then one eager generation's wall
+    time and device busy share beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
@@ -2934,8 +3265,8 @@ def profile_generation(path):
                    device_ms_by_group={g: t / 1e3 for g, t in groups.items()},
                    decode_device_ms_by_group={g: t / 1e3 for g, t in dec_groups.items()},
                    step_device_ms_by_group=per_step)
-    log(f"profiled one {path} generation (profiler on: host work is slower than in "
-        f"phases 3/5): wall {wall:.3f} s, {res.seconds_per_step * 1e3:.2f} ms/step, "
+    log(f"profiled one {path} generation, its captured program (profiler on: host work "
+        f"is slower than in phases 3/5): wall {wall:.3f} s, {res.seconds_per_step * 1e3:.2f} ms/step, "
         f"device busy {busy / 1e6:.3f} s ({100 * busy / 1e6 / wall:.1f} % of wall), "
         f"of it the VAE decode {dec_busy / 1e6:.3f} s")
     step_total = sum(per_step.values())
@@ -2944,6 +3275,21 @@ def profile_generation(path):
             f"decode {dec_groups.get(g, 0.0) / 1e3:8.2f} ms")
     for name, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][1])[:25]:
         log(f"  {us / 1e3:10.2f} ms  {n:6d} x  {name[:110]}")
+    pipe.execution = "eager"
+    generate(2)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof_eager:
+        t0 = time.perf_counter()
+        res = generate(1)
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t0
+    eager_busy = _device_time(prof_eager)[0] / 1e6
+    summary["eager"] = dict(wall_s=eager_wall, seconds_per_step=res.seconds_per_step,
+                            device_busy_s=eager_busy, device_busy_share=eager_busy / eager_wall)
+    log(f"the same generation on the eager loop: wall {eager_wall:.3f} s, "
+        f"{res.seconds_per_step * 1e3:.2f} ms/step, device busy {eager_busy:.3f} s "
+        f"({100 * eager_busy / eager_wall:.1f} % of wall; captured "
+        f"{100 * summary['device_busy_share']:.1f} %)")
     log(json.dumps({"profile": summary}))
 
 
@@ -3129,22 +3475,31 @@ def main():
     main_paths, model_checks = {}, {}
 
     def report(path, res):
+        warm = res.get("capture_warmup_launches")
+        captured = ("" if warm is None else
+                    f" (of them the captures' warm-ups {warm}"
+                    + ("; a first call: its s/step includes its capture" if res["first_call"]
+                       else "") + f"); {res['memory_reserved_gib']:.2f} GiB reserved")
         plain = ("" if "seconds_per_step_plain" not in res else
                  f"; plain attention {res['seconds_per_step_plain'] * 1e3:.2f} ms/step; flash "
                  f"vs plain latents rel err {res['flash_vs_plain_latents_rel_err']:.3g}")
         log(f"main path {path}: {PATHS[path]['label']}: "
             f"{res['seconds_per_step'] * 1e3:.2f} ms/step, {res['iter_per_s']:.2f} iter/s, "
             f"{res['seconds_per_image']:.3f} s/image ({card}){plain}; "
-            f"launches {res['launches']}")
+            f"launches {res['launches']}{captured}")
 
     check_unet_calls()
     schedulers = inpainting = None
     #: phases 18 to 20's checks; phases 21 and 22's; phases 3, 5 and 7's generations
     sd3_checks, adapters, results = {}, {}, {"sd21": [], "sd3": [], "sdxl": []}
+    #: phase 23 by path; phases 24 and 25
+    graphs, reduce_memory, serving = {}, None, None
 
     def sd21_more(pipe):
-        """Phases 12, 13 and 20 on phase 3's pipeline."""
-        nonlocal schedulers, inpainting
+        """Phases 23, 25, 12, 13 and 20 on phase 3's pipeline."""
+        nonlocal schedulers, inpainting, serving
+        graphs["sd21"] = run_graphs_vs_eager(pipe, "sd21", counters)
+        serving = run_serving(pipe)
         paths, inpainting = run_img2img_paths(pipe, counters, report)
         main_paths.update(paths)
         schedulers = run_scheduler_sweep(pipe, counters)
@@ -3152,20 +3507,21 @@ def main():
             pipe, counters, report, results["sd21"])
 
     def sd3_more(pipe):
-        """Phase 14's SD3 img2img, then phases 18 and 19, on phase 5's
-        pipeline."""
+        """Phase 23, phase 14's SD3 img2img, then phases 18 and 19, on phase
+        5's pipeline."""
+        graphs["sd3"] = run_graphs_vs_eager(pipe, "sd3", counters)
         main_paths["sd3_img2img"] = run_main_path(
             with_encoder(pipe, 14), "sd3_img2img", counters, timed=1, plain=False,
             warmup=False, extra=dict(starting_image=starting_image((1024, 1024), 14),
                                      strength=STRENGTH))
         report("sd3_img2img", main_paths["sd3_img2img"])
-        torch.cuda.empty_cache()
+        free_card()
         main_paths["sd3_t5"], sd3_checks["t5"] = run_t5_path(pipe, counters, report,
                                                              results["sd3"])
         paths, sd3_checks["controlnet"] = run_sd3_controlnet_paths(pipe, counters, report,
                                                                    results["sd3"])
         main_paths.update(paths)
-        torch.cuda.empty_cache()
+        free_card()
         # phase 22's SD3 LoRA
         main_paths["sd3_lora"], adapters["sd3"] = run_sd3_lora_path(pipe, counters, report,
                                                                     results["sd3"])
@@ -3180,10 +3536,10 @@ def main():
         report(path, main_paths[path])
         more(pipe)
         del pipe
-        torch.cuda.empty_cache()
+        free_card()
         counter = counters["flash_attention" if path == "sd21" else "flash_attention_multi_q"]
         model_checks[path] = check(counter)
-        torch.cuda.empty_cache()
+        free_card()
         log(f"phases of {path}: {time.perf_counter() - t0:.1f} s")
 
     # phase 7: SDXL base, then base + refiner over the same modules
@@ -3197,23 +3553,25 @@ def main():
         with_encoder(pipe, 17), "sdxl_img2img", counters, timed=1, plain=False, warmup=False,
         extra=dict(starting_image=starting_image((1024, 1024), 17), strength=STRENGTH))
     report("sdxl_img2img", main_paths["sdxl_img2img"])
-    torch.cuda.empty_cache()
+    free_card()
     # phase 17: one SDXL ControlNet beside the base, before the refiner joins
     main_paths["sdxl_controlnet"] = run_sdxl_controlnet_path(pipe, counters, report)
-    torch.cuda.empty_cache()
+    free_card()
     # phase 22: the adapters on the base, before the refiner joins
     paths, adapters["sdxl"] = run_sdxl_adapter_paths(pipe, counters, report, results["sdxl"])
     main_paths.update(paths)
-    torch.cuda.empty_cache()
+    free_card()
     pipe = sdxl_with_refiner(pipe)
     main_paths["sdxl_refiner"] = run_main_path(pipe, "sdxl_refiner", counters, timed=1,
                                                plain=False)
     report("sdxl_refiner", main_paths["sdxl_refiner"])
+    graphs["sdxl_refiner"] = run_graphs_vs_eager(pipe, "sdxl_refiner", counters)
+    reduce_memory = run_reduce_memory(pipe, counters)
     del pipe
-    torch.cuda.empty_cache()
+    free_card()
     # phase 8
     model_checks["sdxl"] = check_sdxl_unet(counters)
-    torch.cuda.empty_cache()
+    free_card()
     log(f"phases of sdxl: {time.perf_counter() - t0:.1f} s")
 
     # phase 11: SD-1.5 with the default configuration, then its UNet check
@@ -3223,20 +3581,21 @@ def main():
     sd15_results = []
     main_paths["sd15"] = run_main_path(pipe, "sd15", counters, results=sd15_results)
     report("sd15", main_paths["sd15"])
+    graphs["sd15"] = run_graphs_vs_eager(pipe, "sd15", counters)
     # phases 15 and 16: ControlNet and the other features on its modules
     paths, controlnet = run_controlnet_paths(pipe, counters, report, sd15_results)
     main_paths.update(paths)
-    torch.cuda.empty_cache()
+    free_card()
     paths, features = run_feature_paths(pipe, counters, report, sd15_results)
     main_paths.update(paths)
-    torch.cuda.empty_cache()
+    free_card()
     # phase 21: the adapters on its modules
     paths, adapters["sd15"] = run_sd15_adapter_paths(pipe, counters, report, sd15_results)
     main_paths.update(paths)
     del pipe
-    torch.cuda.empty_cache()
+    free_card()
     model_checks["sd15"] = check_sd15_flash_vs_plain(counters["flash_attention"])
-    torch.cuda.empty_cache()
+    free_card()
     log(f"phases of sd15 (11, 15, 16, 21): {time.perf_counter() - t0:.1f} s")
 
     # phases 9 and 10: the palettized path and the fused op's witness
@@ -3273,6 +3632,8 @@ def main():
                     "palettized_path": palettized, "schedulers": schedulers,
                     "inpainting": inpainting, "controlnet": controlnet, "features": features,
                     "sd3_t5_controlnet_loader": sd3_checks, "adapters": adapters,
+                    "graphs_vs_eager": graphs, "reduce_memory": reduce_memory,
+                    "serving": serving,
                     "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
     log(json.dumps({"kernels": kernels}))

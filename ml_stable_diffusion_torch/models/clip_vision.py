@@ -67,11 +67,19 @@ class CLIPVisionEncoder(nn.Module):
         self.vision_model = _VisionTransformer(config)
         self.visual_projection = nn.Linear(config.hidden_size, config.projection_dim,
                                            bias=False)
+        self._stats: dict = {}
+
+    def _pixel_stats(self, device):
+        """The CLIP mean and std as (3, 1, 1) tensors on ``device``, made
+        once: a host copy inside a captured program is not allowed."""
+        if device not in self._stats:
+            self._stats[device] = tuple(torch.from_numpy(a).to(device)[:, None, None]
+                                        for a in (CLIP_IMAGE_MEAN, CLIP_IMAGE_STD))
+        return self._stats[device]
 
     def forward(self, images):
         dtype = self.visual_projection.weight.dtype
-        mean, std = (torch.from_numpy(a).to(images.device)[:, None, None]
-                     for a in (CLIP_IMAGE_MEAN, CLIP_IMAGE_STD))
+        mean, std = self._pixel_stats(images.device)
         x = ((images.float() - mean) / std).to(dtype)
         vm = self.vision_model
         h = vm.pre_layrnorm(vm.embeddings(x))

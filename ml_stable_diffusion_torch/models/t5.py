@@ -187,14 +187,22 @@ class T5Encoder(nn.Module):
         self.config = config
         self.shared = nn.Embedding(config.vocab_size, config.d_model)
         self.encoder = _Stack(config)
+        #: (S, device) -> the relative-position buckets, made once: a host
+        #: copy inside a captured program is not allowed
+        self._buckets: dict = {}
+
+    def _position_buckets(self, S: int, device) -> torch.Tensor:
+        key = (S, device)
+        if key not in self._buckets:
+            cfg = self.config
+            self._buckets[key] = torch.from_numpy(relative_position_buckets(
+                S, S, cfg.relative_attention_num_buckets,
+                cfg.relative_attention_max_distance)).to(device)
+        return self._buckets[key]
 
     def forward(self, input_ids, attention_mask=None):
-        cfg = self.config
         x = self.shared(input_ids)
-        S = input_ids.shape[1]
-        buckets = torch.from_numpy(relative_position_buckets(
-            S, S, cfg.relative_attention_num_buckets,
-            cfg.relative_attention_max_distance)).to(x.device)
+        buckets = self._position_buckets(input_ids.shape[1], x.device)
         table = self.encoder.block[0].layer[0].SelfAttention.relative_attention_bias.weight
         bias = table.float()[buckets].permute(2, 0, 1)[None]  # (1, H, S, S)
         if attention_mask is not None:

@@ -5,10 +5,7 @@ Field for field the JAX package's ``PipelineConfiguration``, with two
 differences: ``rng`` defaults to ``"numpy"`` (the JAX default ``"jax"`` draws
 with ``jax.random``, which this package does not reproduce), and
 ``attention_implementation`` names the port's paths (``"plain"`` for the
-JAX ``"xla"``).  Fields whose features have not been ported yet are kept so
-that a configuration reads the same in both packages;
-``StableDiffusionPipeline.generate_images`` raises ``NotImplementedError``
-when one differs from its default.
+JAX ``"xla"``).
 """
 
 from __future__ import annotations
@@ -42,12 +39,13 @@ class PipelineConfiguration:
     #: per-ControlNet conditioning images (NHWC arrays or PIL images)
     controlnet_inputs: Sequence[Any] = ()
 
-    #: IP-Adapter reference image and weight (not ported yet)
+    #: IP-Adapter reference image and weight
     ip_adapter_image: Any | None = None
     ip_adapter_scale: float = 1.0
 
     disable_safety: bool = False
-    #: per-stage weight staging (not ported yet)
+    #: the staged path: each stage's weights on the card for that stage only
+    #: (with ``offload_params_to_host``)
     reduce_memory: bool = False
     #: denoised-x0 previews for progress callbacks
     use_denoised_intermediates: bool = False

@@ -1,8 +1,11 @@
 """Stable Diffusion 1.x/2.x pipeline: txt2img, img2img and inpainting
 (port of ml_stable_diffusion_tpu/pipelines/sd.py).
 
-The JAX package compiles the whole generation into one XLA program; here
-the same steps run eagerly on the card:
+The JAX package compiles the whole generation into one XLA program per
+configuration; here it is one captured CUDA graph per program key
+(``pipelines/program.py``), replayed from static input buffers.  The host
+prepares every input (token ids, prompt weights, noise, images, masks,
+timesteps) and the body runs these steps on the card:
 
 1. tokenize the negative and positive prompts, with the prompt-weight
    syntax (``tokenizer/prompt_weights.py``) and windows of 75 tokens for
@@ -53,12 +56,32 @@ patch states, the negative branch from an image at the CLIP mean); every
 call of the base UNet takes them, scaled by ``ip_adapter_scale``, and no
 ControlNet does.
 
+How a generation runs, as the JAX ``generate_images`` dispatches:
+
+- the default: one program (the JAX ``prog["full"]``).  On the card it is
+  captured once per key, at its first call, and replayed; the decode is a
+  program of its own per (N, h, w) (the JAX ``_decode_fn``).  The safety
+  checker stays eager;
+- with a ``progress_handler``: the eager per-step loop (the JAX
+  per-step programs ``prog["steps"]``), the handler after each step;
+- ``reduce_memory``: the staged path (the JAX ``prog["init"]`` and
+  ``prog["phase_scans"]``).  The encode stage, each denoise phase, the
+  decode and the checker each get only their modules' weights
+  (``_stage_bundle``); after ``offload_params_to_host`` those weights wait
+  in pinned host memory and move to the card for their stage and leave it
+  after.  The stages run eagerly: their weights land at new addresses on
+  every call;
+- ``execution = "eager"`` (a pipeline attribute, not a configuration
+  field): the same body, launched op by op from the host; so do a pipeline
+  whose weights were offloaded and a palettized pipeline in program mode,
+  which rebinds its parameters on every call.
+
 ``seconds_per_step`` is measured as in the JAX package: text encoding (and
 the image tokens) plus the denoise loop, ended by fetching the latents to
 the host, divided by the step count of the plan (also when a handler
-stopped the loop early).  Images come back as one (N, H, W, 3) uint8 array
-(``utils.image.to_pil`` converts).  Features not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+stopped the loop early); a program's first call includes its capture.
+Images come back as one (N, H, W, 3) uint8 array (``utils.image.to_pil``
+converts).
 
 Palettized weights (``install_palettized``) are served as the JAX package
 serves them: dequantized once on the host (``mode="install"``), or kept on
@@ -69,6 +92,7 @@ window, and freed at its end (``mode="program"``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -81,6 +105,7 @@ from ..models.multilingual import EMBED_DIM, MAX_SEQUENCE_LENGTH
 from ..models.safety import CLIP_IMAGE_MEAN, check_images
 from ..models.unet import get_guidance_scale_embedding
 from ..models.vae import sample_diagonal_gaussian
+from ..ops import attention
 from ..ops.attention import set_attention_implementation
 from ..schedulers import SCHEDULER_MAP
 from ..schedulers.base import Scheduler, SchedulerConfig, TimestepSpacing
@@ -89,6 +114,7 @@ from ..utils.image import nchw_to_nhwc, pil_to_tensor
 from ..utils.numerics import apply_numerics
 from ..utils.rng import make_random_source
 from .config import PipelineConfiguration
+from .program import ProgramCache, jax_key, program_key, weights_fingerprint
 
 TEXT_LEN = 77
 
@@ -144,6 +170,11 @@ def _host_nhwc(x: torch.Tensor) -> np.ndarray:
     return x.permute(0, 2, 3, 1).float().cpu().numpy()
 
 
+def _nchw_host(x) -> np.ndarray:
+    """An NHWC host array -> a contiguous NCHW float32 one."""
+    return np.ascontiguousarray(np.asarray(x, np.float32).transpose(0, 3, 1, 2))
+
+
 def _multilingual_rows(embed_fn, text: str) -> np.ndarray:
     """``embed_fn(text)`` cut or zero-padded to (MAX_SEQUENCE_LENGTH,
     EMBED_DIM) float32."""
@@ -181,26 +212,65 @@ class GenerationResult:
     seconds_per_step: float
 
 
-#: configuration fields of features not ported yet, with the ROADMAP item
-#: that brings them: a value other than the default raises rather than being
-#: ignored.  The SDXL-only fields (``refiner_start`` and the
-#: micro-conditioning) and ``timestep_shift`` are not here: the JAX SD and
-#: SD3 pipelines ignore the first, and every scheduler but DiscreteFlow the
-#: second, and so does the port
-_UNPORTED_FIELDS = {
-    "reduce_memory": "reduce_memory staging: ROADMAP Queue 1 item 17",
-}
+@dataclasses.dataclass
+class _Generation:
+    """What the host decides for one generation, which the body bakes in:
+    the configuration, the scheduler and its plan, the sizes and the
+    switches derived from them."""
+
+    cfg: PipelineConfiguration
+    scheduler: Scheduler
+    plan: Any
+    N: int
+    h: int
+    w: int
+    img2img: bool
+    inpaint: bool
+    unet9: bool
+    ip_on: bool
+    guidance_on: bool
+    #: the guidance-embedding width of an LCM UNet (None: CFG as usual)
+    tcp: int | None
 
 
-def _unported(cfg: PipelineConfiguration):
-    """Raise for a field of an unported feature set away from its default."""
-    defaults = PipelineConfiguration()
-    for name, what in _UNPORTED_FIELDS.items():
-        value, default = getattr(cfg, name), getattr(defaults, name)
-        if isinstance(default, tuple):
-            value = tuple(value)
-        if value is not None if default is None else value != default:
-            raise NotImplementedError(f"{what} ({name}={value!r}) is not ported yet")
+class _HostWeights:
+    """A module's parameters and buffers packed into one host buffer
+    (pinned when ``pin``), each tensor a view of it: one copy moves the
+    module to the card, and rebinding the views puts it back."""
+
+    ALIGN = 256
+
+    def __init__(self, module: torch.nn.Module, pin: bool):
+        self.tensors = list(dict.fromkeys((*module.parameters(), *module.buffers())))
+        sizes = [t.numel() * t.element_size() for t in self.tensors]
+        self.offsets, total = [], 0
+        for n in sizes:
+            self.offsets.append(total)
+            total += -(-n // self.ALIGN) * self.ALIGN
+        self.flat = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
+        with torch.no_grad():
+            for t, off in zip(self.tensors, self.offsets):
+                view = self._view(self.flat, t, off)
+                view.copy_(t.detach())
+                t.data = view
+        self.nbytes = total
+
+    @staticmethod
+    def _view(flat, t, off):
+        n = t.numel() * t.element_size()
+        return flat[off:off + n].view(t.dtype).view(t.shape)
+
+    def to(self, device):
+        """Rebind every tensor to a copy of the buffer on ``device``."""
+        dev = self.flat.to(device, non_blocking=True)
+        for t, off in zip(self.tensors, self.offsets):
+            t.data = self._view(dev, t, off)
+
+    def back(self):
+        """Rebind every tensor to its host view (the device copy is freed
+        with its last reference)."""
+        for t, off in zip(self.tensors, self.offsets):
+            t.data = self._view(self.flat, t, off)
 
 
 def _mask_pixels(mask, N: int, H: int, W: int) -> np.ndarray:
@@ -276,6 +346,31 @@ class StableDiffusionPipeline:
         self.applied_loras: list[tuple[str, float]] = []
         #: load_textual_inversion: (token, vectors)
         self.textual_inversions: list[tuple[str, int]] = []
+        #: "program" (the default: one captured program per key on the
+        #: card) or "eager" (the same body launched op by op)
+        self.execution = "program"
+        self._programs = ProgramCache()
+        #: offload_params_to_host: id(module) -> its packed host weights
+        self._host_weights: dict[int, _HostWeights] = {}
+        #: the staged path's last transfers: (stage, bytes, seconds)
+        self.stage_transfers: list[tuple[str, int, float]] = []
+
+    def __copy__(self):
+        """A shallow copy shares the modules but not the programs, which
+        may have been captured against other modules."""
+        out = object.__new__(type(self))
+        out.__dict__.update(self.__dict__)
+        out._programs = ProgramCache()
+        return out
+
+    @property
+    def programs(self) -> ProgramCache:
+        """The captured programs by key, with their capture records."""
+        return self._programs
+
+    def clear_programs(self):
+        """Drop every captured program (and its memory pool)."""
+        self._programs.clear()
 
     # -- LoRA adapters -----------------------------------------------------------
 
@@ -359,27 +454,34 @@ class StableDiffusionPipeline:
             image_encoder = load_clip_vision(image_encoder, dtype=w.dtype, device=self.device)
         self.ip_projection = (proj.to(device=w.device, dtype=w.dtype).eval(), embed_key)
         self.ip_image_encoder = image_encoder.to(self.device).eval()
+        self._weights_changed()
         return self
 
-    def _ip_tokens(self, cfg: PipelineConfiguration, N: int):
-        """(negative, positive) IP-Adapter tokens of ``ip_adapter_image``:
-        an (S, S, 3) or (N, S, S, 3) array in [0, 1], or a PIL image resized
-        to S.  BASE projects zeros for the negative branch, PLUS the
-        patch states of an image at the CLIP mean."""
-        proj, embed_key = self.ip_projection
-        enc = self.ip_image_encoder
-        S = enc.config.image_size
+    def _ip_inputs(self, cfg: PipelineConfiguration, N: int) -> dict:
+        """``ip_adapter_image`` (an (S, S, 3) or (N, S, S, 3) array in [0,
+        1], or a PIL image resized to S) as "ip_image", (N, 3, S, S); for
+        PLUS also "ip_neutral", an image at the CLIP mean."""
+        S = self.ip_image_encoder.config.image_size
         im = cfg.ip_adapter_image
         if not isinstance(im, np.ndarray):
             im = pil_to_tensor(im, size=(S, S), value_range=(0.0, 1.0))
         im = np.asarray(im, np.float32)
         if im.ndim == 3:
             im = im[None]
-        image = self._nchw(np.broadcast_to(im, (N, S, S, 3)))
-        emb = enc(image)[embed_key]
+        out = {"ip_image": _nchw_host(np.broadcast_to(im, (N, S, S, 3)))}
+        if self.ip_projection[1] == "penultimate":
+            out["ip_neutral"] = _nchw_host(np.broadcast_to(CLIP_IMAGE_MEAN, (N, S, S, 3)))
+        return out
+
+    def _ip_tokens(self, inputs: dict):
+        """(negative, positive) IP-Adapter tokens of ``_ip_inputs``' images.
+        BASE projects zeros for the negative branch, PLUS the patch states
+        of the image at the CLIP mean."""
+        proj, embed_key = self.ip_projection
+        enc = self.ip_image_encoder
+        emb = enc(inputs["ip_image"])[embed_key]
         if embed_key == "penultimate":
-            neutral = self._nchw(np.broadcast_to(CLIP_IMAGE_MEAN, (N, S, S, 3)))
-            emb_neg = enc(neutral)[embed_key]
+            emb_neg = enc(inputs["ip_neutral"])[embed_key]
         else:
             emb_neg = torch.zeros_like(emb)
         return proj(emb_neg), proj(emb)
@@ -430,6 +532,7 @@ class StableDiffusionPipeline:
         if tok2 is not None:
             tok2.add_placeholder(token, ids)
         self.textual_inversions.append((token, n))
+        self._weights_changed()  # a new token table
         return ids
 
     # -- compressed serving ------------------------------------------------------
@@ -484,6 +587,7 @@ class StableDiffusionPipeline:
                 self._release_palettized()
             else:
                 raise ValueError(f"unknown mode {mode!r}")
+        self._weights_changed()
 
     @torch.no_grad()
     def _materialize_palettized(self):
@@ -502,6 +606,89 @@ class StableDiffusionPipeline:
             for key in pal:
                 p = module.get_parameter(key)
                 p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    # -- weights: offload and stages -------------------------------------------
+
+    def _params_bundle(self) -> dict:
+        """The JAX ``_params_bundle``'s keys -> the modules holding those
+        weights here (SDXL and SD3 add theirs)."""
+        b = {"unet": [self.unet], "controlnets": list(self.controlnets)}
+        if self.text_encoder is not None:
+            b["text_encoder"] = [self.text_encoder]
+        if self.vae_encoder is not None:
+            b["vae_encoder"] = [self.vae_encoder]
+        if self.multilingual_encoder is not None:
+            b["multilingual"] = [self.multilingual_encoder[0]]
+        if self.ip_projection is not None:
+            b["ip_proj"] = [self.ip_projection[0]]
+            b["ip_vision"] = [self.ip_image_encoder]
+        return b
+
+    def _stage_bundle(self, stage: str, img2img: bool = False, n_ctrl: int = 0) -> dict:
+        """The modules of one stage of the staged path, as the JAX
+        ``_stage_bundle`` picks them (:682-703): ``stage`` "encode" (the
+        text encoders, the multilingual projection, the IP projection and
+        vision tower, the VAE encoder under img2img) or a phase's denoiser
+        key ("unet", "refiner") with the ControlNets.  ``n_ctrl``: the
+        ControlNets in use (SD3 encodes their control images)."""
+        full = self._params_bundle()
+        if stage == "encode":
+            keys = ["text_encoder", "text_encoder2", "multilingual", "ip_proj", "ip_vision"]
+            if img2img:
+                keys.append("vae_encoder")
+        else:
+            keys = [stage, "controlnets"]
+        return {k: full[k] for k in keys if k in full}
+
+    def _all_modules(self) -> list[torch.nn.Module]:
+        mods = [m for ms in self._params_bundle().values() for m in ms]
+        mods += [m for m in (self.vae_decoder, self.safety_checker) if m is not None]
+        return list({id(m): m for m in mods}.values())
+
+    def offload_params_to_host(self):
+        """Move every module's weights to host memory, pinned when the
+        pipeline runs on the card (the JAX ``offload_params_to_host``,
+        :613-639).  With ``reduce_memory`` each stage's weights then move
+        to the card for that stage and leave it after, so the card holds
+        one stage's weights at a time; without it every module moves in for
+        each generation.  Generations with offloaded weights run eagerly."""
+        pin = self.device.type == "cuda"
+        self._host_weights = {id(m): _HostWeights(m, pin) for m in self._all_modules()}
+        self._programs.clear()
+        return self
+
+    def _weights_changed(self):
+        """Where the JAX package clears its programs: drop them, and pack
+        offloaded weights anew so that new tensors are covered."""
+        self._programs.clear()
+        if self._host_weights:
+            self.offload_params_to_host()
+
+    @contextlib.contextmanager
+    def _stage(self, name: str, bundle: dict):
+        """The offloaded modules of ``bundle`` on the card for the block
+        (a module that was not offloaded stays where it is); the copy's
+        bytes and seconds go to ``stage_transfers``."""
+        packs = list({id(m): self._host_weights[id(m)] for ms in bundle.values() for m in ms
+                      if id(m) in self._host_weights}.values())
+        if not packs:
+            yield
+            return
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda *a: None)
+        sync(self.device)
+        t0 = time.perf_counter()
+        with torch.inference_mode(False):  # parameters take normal tensors
+            for pack in packs:
+                pack.to(self.device)
+        sync(self.device)
+        self.stage_transfers.append((name, sum(p.nbytes for p in packs),
+                                     time.perf_counter() - t0))
+        try:
+            yield
+        finally:
+            with torch.inference_mode(False):
+                for pack in packs:
+                    pack.back()
 
     # -- scheduler -------------------------------------------------------------
 
@@ -557,8 +744,15 @@ class StableDiffusionPipeline:
             out["weights"] = weights
         return out
 
+    def _dev(self, x) -> torch.Tensor:
+        """A host array (as ``_tokenize`` makes them) or a tensor already
+        on the device (the body's inputs) -> a tensor on the device."""
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
     def _ids(self, token_inputs: dict, key: str) -> torch.Tensor:
-        return torch.from_numpy(token_inputs[key]).long().to(self.device)
+        return self._dev(token_inputs[key]).long()
 
     def _hidden(self, encoder, token_inputs: dict, key: str, out_key: str, weights_key: str):
         """-> (``out_key`` of ``encoder`` over the ids ``key``, windows
@@ -569,17 +763,17 @@ class StableDiffusionPipeline:
         if shape3 is not None:
             ctx = _reseq(ctx, shape3)
         if weights_key in token_inputs:
-            w = token_inputs[weights_key]
-            ctx = apply_prompt_weights(
-                ctx, torch.from_numpy(w.reshape(w.shape[0], -1)).to(self.device))
+            w = self._dev(token_inputs[weights_key])
+            ctx = apply_prompt_weights(ctx, w.reshape(w.shape[0], -1))
         return ctx, out, shape3
 
     def _encode_text(self, token_inputs: dict) -> dict:
         """-> {"context": (2N or 2, S, C), ...}: what the denoiser is
-        conditioned on (SD3 adds the pooled vector)."""
+        conditioned on (SD3 adds the pooled vector).  ``token_inputs``:
+        ``_tokenize``'s host arrays, or the same as device tensors."""
         if "ml_embeds" in token_inputs:
             proj = self.multilingual_encoder[0]
-            return {"context": proj(torch.from_numpy(token_inputs["ml_embeds"]).to(self.device))}
+            return {"context": proj(self._dev(token_inputs["ml_embeds"]))}
         ctx, _, _ = self._hidden(self.text_encoder, token_inputs, "ids",
                                  self.text_embedding_key, "weights")
         return {"context": ctx}
@@ -665,12 +859,13 @@ class StableDiffusionPipeline:
 
     def _ctrl_images(self, cfg: PipelineConfiguration, N: int):
         """``controlnet_inputs`` (NHWC arrays, taken as they are, or PIL
-        images, read into [0, 1]) -> one (N, 3, H, W) float32 tensor each."""
+        images, read into [0, 1]) -> one (N, 3, H, W) float32 host array
+        each."""
         out = []
         for im in cfg.controlnet_inputs:
             if not isinstance(im, np.ndarray):
                 im = pil_to_tensor(im, value_range=(0.0, 1.0))
-            out.append(self._nchw(np.broadcast_to(im, (N,) + tuple(im.shape[-3:]))))
+            out.append(_nchw_host(np.broadcast_to(im, (N,) + tuple(im.shape[-3:]))))
         return out
 
     def _check_deepcache(self, cfg: PipelineConfiguration, num_steps: int):
@@ -722,63 +917,122 @@ class StableDiffusionPipeline:
                  if step_draws else None)
         return init, steps
 
-    def _nchw(self, x: np.ndarray) -> torch.Tensor:
-        """An NHWC host array -> a contiguous NCHW float32 tensor on the device."""
-        return torch.from_numpy(np.array(x, np.float32)).to(self.device).permute(
-            0, 3, 1, 2).contiguous()
+    def _host_inputs(self, gen: _Generation) -> dict:
+        """Everything the body reads, made on the host: ``_tokenize``'s
+        arrays (ids and masks as int64) and flags, the timesteps, the noise
+        (N, C, h, w) and the step noises (steps, N, C, h, w), and as the
+        configuration asks the starting image (N, 3, H, W), the pixel mask
+        (N, 1, H, W), the control images "ctrl_<i>" and the IP-Adapter's
+        images.  Arrays are contiguous; anything else is a host flag."""
+        cfg, N, h, w = gen.cfg, gen.N, gen.h, gen.w
+        out = {}
+        for key, v in self._tokenize(cfg).items():
+            if isinstance(v, np.ndarray) and key.startswith(("ids", "mask")):
+                v = v.astype(np.int64)
+            out[key] = np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v
+        noise, step_noises = self._noise(
+            cfg, N, h, w, gen.plan.num_steps if gen.scheduler.needs_noise else 0)
+        out["noise"] = _nchw_host(noise)
+        if step_noises is not None:
+            out["step_noises"] = np.ascontiguousarray(step_noises.transpose(0, 1, 4, 2, 3))
+        out["timesteps"] = np.ascontiguousarray(gen.plan.timesteps)
+        ds = self.vae_downscale
+        H, W = h * ds, w * ds
+        if gen.img2img:
+            image = cfg.starting_image
+            if not isinstance(image, np.ndarray):
+                image = pil_to_tensor(image, size=(H, W))
+            out["image"] = _nchw_host(np.broadcast_to(image, (N, H, W, 3)))
+        if gen.inpaint:
+            out["mask_px"] = _nchw_host(_mask_pixels(cfg.mask_image, N, H, W))
+        for i, im in enumerate(self._ctrl_images(cfg, N)):
+            out[f"ctrl_{i}"] = im
+        if gen.ip_on:
+            out.update(self._ip_inputs(cfg, N))
+        return out
 
-    def _start(self, cfg, plan, scheduler, noise, N: int, hw, img2img: bool, inpaint: bool,
-               unet9: bool):
+    def _start(self, gen: _Generation, inputs: dict):
         """-> (latents, inpainting state): the first latents (NCHW) and, for
         inpainting, {"mask": latent mask, and "extras9" (9-channel UNet) or
         "z0" and "noise" (4-channel)}, as the JAX encode stage builds them."""
-        noise = self._nchw(noise)
-        if not img2img:
+        plan, scheduler, N, h, w = gen.plan, gen.scheduler, gen.N, gen.h, gen.w
+        noise = inputs["noise"]
+        if not gen.img2img:
             return noise * plan.init_noise_sigma, None
-        if self.vae_encoder is None:
-            raise ValueError("starting_image needs a pipeline with a vae_encoder")
-        h, w = hw
         ds = self.vae_downscale
-        H, W = h * ds, w * ds
-        image = cfg.starting_image
-        if not isinstance(image, np.ndarray):
-            image = pil_to_tensor(image, size=(H, W))
-        image = self._nchw(np.broadcast_to(image, (N, H, W, 3)))
-        scale = cfg.encoder_scale_factor or self.default_latent_scale
+        image = inputs["image"]
+        scale = gen.cfg.encoder_scale_factor or self.default_latent_scale
         # the parity RNG modes use the single host draw for the encoder too
         z0 = sample_diagonal_gaussian(self.vae_encoder(image), noise) * scale
         latents = scheduler.add_noise(plan, z0, noise)
-        if not inpaint:
+        if not gen.inpaint:
             return latents, None
-        mask_px = self._nchw(_mask_pixels(cfg.mask_image, N, H, W))
+        mask_px = inputs["mask_px"]
         # latent-resolution mask by area pooling of the pixel mask
         mask = mask_px.reshape(N, 1, h, ds, w, ds).mean(dim=(3, 5))
-        if unet9:
+        if gen.unet9:
             masked = image * (1.0 - mask_px)
             masked_z0 = sample_diagonal_gaussian(self.vae_encoder(masked), noise) * scale
             return latents, {"mask": mask, "extras9": torch.cat([mask, masked_z0], dim=1)}
         return latents, {"mask": mask, "z0": z0, "noise": noise}
 
-    def _denoise(self, cfg, latents, text, N, plan, scheduler, guidance_on, g,
-                 step_noises=None, inpaint=None, timestep_cond=None, ctrl_inputs=(),
-                 progress_handler=None, ip_tokens=None):
-        """The denoise loop on NCHW float32 latents: the phases in turn over
-        one scheduler state, as the JAX package's consecutive scans.
-        ``step_noises`` (steps, N, h, w, C) host noise for a scheduler that
-        needs it; ``inpaint`` the inpainting state of ``_start``;
+    def _encode_stage(self, gen: _Generation, inputs: dict) -> dict:
+        """What the JAX encode stage (``init_run``) makes: the text
+        conditioning, the IP-Adapter tokens, an LCM UNet's guidance
+        embedding, the first latents with the scheduler state and the
+        inpainting state, and what the ControlNets take."""
+        cfg = gen.cfg
+        text = self._encode_text(inputs)
+        ip_tokens = self._ip_tokens(inputs) if gen.ip_on else None
+        w_emb = None
+        if gen.tcp:
+            w_emb = get_guidance_scale_embedding(
+                torch.full((gen.N,), float(cfg.guidance_scale) - 1.0, dtype=torch.float32,
+                           device=self.device), gen.tcp)
+        latents, inpaint = self._start(gen, inputs)
+        ctrl = [inputs[f"ctrl_{i}"] for i in range(len(cfg.controlnet_inputs))]
+        if ctrl:
+            ctrl = self._prepare_control_inputs(cfg, ctrl)
+        return dict(latents=latents, state=gen.scheduler.initial_state(gen.plan, latents),
+                    text=text, ip_tokens=ip_tokens, w_emb=w_emb, inpaint=inpaint, ctrl=ctrl)
+
+    def _denoise_stage(self, gen: _Generation, enc: dict, inputs: dict, phases,
+                       progress_handler=None):
+        """``phases`` of the denoise loop from ``enc``'s latents and state;
+        -> (latents, state, stopped by the handler)."""
+        return self._denoise_loop(
+            gen.cfg, enc["latents"], enc["text"], gen.N, gen.plan, gen.scheduler,
+            gen.guidance_on, float(gen.cfg.guidance_scale), inputs["timesteps"], phases,
+            enc["state"], inputs.get("step_noises"), enc["inpaint"], enc["w_emb"],
+            enc["ctrl"], progress_handler, enc["ip_tokens"])
+
+    def _body(self, gen: _Generation, inputs: dict, progress_handler=None) -> torch.Tensor:
+        """The generation from its inputs to the final latents (N, C, h, w)
+        float32: the JAX ``full_run``."""
+        enc = self._encode_stage(gen, inputs)
+        phases = self._denoise_phases(gen.cfg, gen.plan.num_steps)
+        return self._denoise_stage(gen, enc, inputs, phases, progress_handler)[0]
+
+    def _denoise_loop(self, cfg, latents, text, N, plan, scheduler, guidance_on, g, timesteps,
+                      phases, state, step_noises=None, inpaint=None, timestep_cond=None,
+                      ctrl_inputs=(), progress_handler=None, ip_tokens=None):
+        """The denoise loop on NCHW float32 latents: ``phases`` [(start, end,
+        phase)] in turn over one scheduler ``state``, as the JAX package's
+        consecutive scans.  ``timesteps`` the plan's on the device;
+        ``step_noises`` (steps, N, C, h, w) device noise for a scheduler
+        that needs it; ``inpaint`` the inpainting state of ``_start``;
         ``timestep_cond`` the guidance embedding of a guidance-embedded UNet
         (its base phase only); ``ctrl_inputs`` one per ControlNet (the
         control images, or what ``_prepare_control_inputs`` made of them),
         the nets running in every phase; ``progress_handler`` called after
         every step, the loop ending when it returns False; ``ip_tokens``
         the IP-Adapter's (negative, positive) tokens, for the base UNet's
-        calls (the SDXL refiner has no IP projections)."""
-        timesteps = torch.from_numpy(plan.timesteps).to(self.device)
-        state = scheduler.initial_state(plan, latents)
+        calls (the SDXL refiner has no IP projections).  -> (latents,
+        state, whether the handler stopped the loop)."""
         inpaint = inpaint or {}
         dc = cfg.deepcache_interval
         serial = guidance_on and cfg.unet_batch_one
-        for start, end, phase in self._denoise_phases(cfg, plan.num_steps):
+        for start, end, phase in phases:
             ctx_neg, ctx_pos, added_neg, added_pos = self._phase_conditioning(
                 cfg, text, N, phase)
             base = phase == "unet"
@@ -831,9 +1085,7 @@ class StableDiffusionPipeline:
                 denoised = None
                 if progress_handler is not None and cfg.use_denoised_intermediates:
                     denoised = scheduler.pred_x0(plan, state, noise_pred, i, latents)
-                noise = None
-                if scheduler.needs_noise:
-                    noise = self._nchw(step_noises[i])
+                noise = step_noises[i] if scheduler.needs_noise else None
                 state, latents = scheduler.step(plan, state, noise_pred, i, latents, noise=noise)
                 if "z0" in inpaint:
                     # the known region at the next step's noise level
@@ -846,23 +1098,40 @@ class StableDiffusionPipeline:
                         self, i + 1, plan.num_steps, _host_nhwc(latents),
                         None if denoised is None else _host_nhwc(denoised))
                     if progress_handler(progress) is False:
-                        return latents
-        return latents
+                        return latents, state, True
+        return latents, state, False
 
     # -- decode ----------------------------------------------------------------
+
+    def _decode_body(self, z: torch.Tensor, scale: float, shift: float) -> torch.Tensor:
+        """NHWC latents -> (N, 3, H, W) uint8 pixels."""
+        x = self.vae_decoder(z.permute(0, 3, 1, 2) / scale + shift)
+        x = torch.clamp(x * 0.5 + 0.5, 0.0, 1.0)
+        return torch.round(x * 255.0).to(torch.uint8)
 
     @torch.inference_mode()
     def decode_latents(self, latents: np.ndarray,
                        cfg: PipelineConfiguration | None = None) -> np.ndarray:
-        """Scaled NHWC latents -> (N, H, W, 3) uint8 images."""
+        """Scaled NHWC latents -> (N, H, W, 3) uint8 images: a program of
+        its own per (N, h, w) and factors, as the JAX ``_decode_fn``."""
         scale = ((cfg.decoder_scale_factor if cfg else None)
                  or self.default_latent_scale)
         shift = ((cfg.decoder_shift_factor if cfg else None)
                  or self.default_latent_shift)
-        z = torch.from_numpy(np.ascontiguousarray(latents)).to(self.device)
-        x = self.vae_decoder(z.permute(0, 3, 1, 2) / scale + shift)
-        x = torch.clamp(x * 0.5 + 0.5, 0.0, 1.0)
-        pixels = torch.round(x * 255.0).to(torch.uint8)
+        z = np.ascontiguousarray(latents, np.float32)
+        if self._captures():
+            dtype = next(self.vae_decoder.parameters()).dtype
+            inputs = {"z": z}
+            # the attention dispatch in effect is baked into the graph too
+            prog = self._programs.get(("decode", scale, shift, str(dtype), z.shape,
+                                       attention.ATTENTION_IMPLEMENTATION_IN_EFFECT.value),
+                                      weights_fingerprint(self._all_modules()), inputs,
+                                      lambda b: self._decode_body(b["z"], scale, shift),
+                                      self.device)
+            pixels = prog(inputs)
+        else:
+            with self._stage("decode", {"vae_decoder": [self.vae_decoder]}):
+                pixels = self._decode_body(self._dev(z), scale, shift)
         return pixels.permute(0, 2, 3, 1).cpu().numpy()
 
     # -- public API ----------------------------------------------------------------
@@ -871,15 +1140,22 @@ class StableDiffusionPipeline:
         """-> (images with the flagged ones zeroed, nsfw flags)."""
         if self.safety_checker is None:
             return images, [False] * len(images)
-        return check_images(self.safety_checker, images)
+        with self._stage("safety", {"safety_checker": [self.safety_checker]}):
+            return check_images(self.safety_checker, images)
 
-    def generate_images(self, cfg: PipelineConfiguration, progress_handler=None,
-                        image_hw: tuple[int, int] = (512, 512)) -> GenerationResult:
-        """``progress_handler(PipelineProgress) -> bool | None``: called after
-        every step; returning False ends the loop, and what the latents are
-        then is decoded."""
-        cfg.validate()
-        _unported(cfg)
+    def _captures(self, progress_handler=None) -> bool:
+        """Whether a generation runs as captured programs (the default):
+        not with a progress handler, palettized weights in program mode
+        (rebound on every call), offloaded weights (moved on every call) or
+        ``execution = "eager"``."""
+        if self.execution not in ("program", "eager"):
+            raise ValueError(f"execution must be 'program' or 'eager', got {self.execution!r}")
+        return (self.execution == "program" and progress_handler is None
+                and not self.palettized_side and not self._host_weights)
+
+    def _plan_generation(self, cfg: PipelineConfiguration, image_hw,
+                         progress_handler) -> _Generation:
+        """The JAX ``generate_images``' checks and the plan."""
         N = cfg.image_count
         h, w = image_hw[0] // self.vae_downscale, image_hw[1] // self.vae_downscale
         scheduler = self._make_scheduler(cfg)
@@ -895,6 +1171,8 @@ class StableDiffusionPipeline:
         if unet9 and not inpaint:
             raise ValueError("this checkpoint is a 9-channel inpainting UNet; pass "
                              "starting_image + mask_image")
+        if img2img and self.vae_encoder is None:
+            raise ValueError("starting_image needs a pipeline with a vae_encoder")
         plan = scheduler.set_timesteps(cfg.step_count,
                                        strength=cfg.strength if img2img else 1.0)
         # a guidance-embedded (LCM) UNet never runs CFG: the scale is an input
@@ -908,39 +1186,77 @@ class StableDiffusionPipeline:
             raise ValueError("deepcache_interval > 1 is incompatible with a progress_handler "
                              "(the deep-feature cache lives in the one-program scan carry)")
         self._check_deepcache(cfg, plan.num_steps)
+        return _Generation(cfg, scheduler, plan, N, h, w, img2img, inpaint, unet9, ip_on,
+                           guidance_on, tcp)
 
-        token_inputs = self._tokenize(cfg)
-        noise, step_noises = self._noise(cfg, N, h, w,
-                                         plan.num_steps if scheduler.needs_noise else 0)
+    def _program(self, gen: _Generation, inputs: dict):
+        """The cached program of this generation's key, built when missing.
+        The key: the JAX key's fields, then what the body bakes that JAX's
+        key lacks (the encoder's latent scale), the inputs' names, shapes
+        and dtypes with the host flags, and the denoiser's dtype."""
+        cfg = gen.cfg
+        key = program_key(
+            jax_key(cfg, gen.N, gen.h, gen.w, gen.guidance_on, len(cfg.controlnet_inputs),
+                    gen.img2img, gen.inpaint, gen.ip_on, cfg.strength if gen.img2img else 1.0,
+                    self._conditioning_cache_key(cfg)),
+            (cfg.encoder_scale_factor,), inputs, next(self.unet.parameters()).dtype)
+        return self._programs.get(key, weights_fingerprint(self._all_modules()), inputs,
+                                  lambda buffers: self._body(gen, buffers), self.device)
+
+    def _run_staged(self, gen: _Generation, inputs: dict, progress_handler) -> torch.Tensor:
+        """The staged path: the encode stage, then each denoise phase, each
+        with only its modules' weights on the card (the JAX ``prog["init"]``
+        and ``prog["phase_scans"]``)."""
+        if self.palettized_side:
+            raise NotImplementedError("reduce_memory with palettized weights in program mode "
+                                      "is not ported yet (ROADMAP Queue 1 item 17)")
+        inputs = {k: self._dev(v) if isinstance(v, np.ndarray) else v for k, v in inputs.items()}
+        with self._stage("encode", self._stage_bundle("encode", gen.img2img,
+                                                      len(gen.cfg.controlnet_inputs))):
+            enc = self._encode_stage(gen, inputs)
+        for start, end, phase in self._denoise_phases(gen.cfg, gen.plan.num_steps):
+            with self._stage(phase, self._stage_bundle(phase)):
+                enc["latents"], enc["state"], stopped = self._denoise_stage(
+                    gen, enc, inputs, [(start, end, phase)], progress_handler)
+            if stopped:
+                break
+        return enc["latents"]
+
+    def _conditioning_cache_key(self, cfg: PipelineConfiguration):
+        """The JAX key's last field: what the family's conditioning bakes."""
+        return ()
+
+    def generate_images(self, cfg: PipelineConfiguration, progress_handler=None,
+                        image_hw: tuple[int, int] = (512, 512)) -> GenerationResult:
+        """``progress_handler(PipelineProgress) -> bool | None``: called after
+        every step; returning False ends the loop, and what the latents are
+        then is decoded."""
+        cfg.validate()
+        gen = self._plan_generation(cfg, image_hw, progress_handler)
+        inputs = self._host_inputs(gen)
+        self.stage_transfers = []
 
         t0 = time.perf_counter()
         self._materialize_palettized()
         try:
             with torch.inference_mode():
-                text = self._encode_text(token_inputs)
-                ip_tokens = self._ip_tokens(cfg, N) if ip_on else None
-                w_emb = None
-                if tcp:
-                    w_emb = get_guidance_scale_embedding(
-                        torch.full((N,), float(cfg.guidance_scale) - 1.0,
-                                   dtype=torch.float32, device=self.device), tcp)
-                latents, inpaint_state = self._start(cfg, plan, scheduler, noise, N, (h, w),
-                                                     img2img, inpaint, unet9)
-                ctrl = self._ctrl_images(cfg, N)
-                if ctrl:
-                    ctrl = self._prepare_control_inputs(cfg, ctrl)
-                latents = self._denoise(cfg, latents, text, N, plan, scheduler, guidance_on,
-                                        float(cfg.guidance_scale), step_noises,
-                                        inpaint_state, w_emb, ctrl, progress_handler,
-                                        ip_tokens)
+                if cfg.reduce_memory:
+                    latents = self._run_staged(gen, inputs, progress_handler)
+                elif self._captures(progress_handler):
+                    latents = self._program(gen, inputs)(inputs)
+                else:
+                    with self._stage("all", self._params_bundle()):
+                        latents = self._body(gen, {k: self._dev(v) if isinstance(v, np.ndarray)
+                                                   else v for k, v in inputs.items()},
+                                             progress_handler)
                 # the host fetch waits for the device
                 latents = _host_nhwc(latents)
         finally:
             self._release_palettized()
-        dt = (time.perf_counter() - t0) / plan.num_steps
+        dt = (time.perf_counter() - t0) / gen.plan.num_steps
 
         images = self.decode_latents(latents, cfg)
-        nsfw = [False] * N
+        nsfw = [False] * gen.N
         if not cfg.disable_safety:
             images, nsfw = self.run_safety_checker(images)
         return GenerationResult(images=images, latents=latents,

@@ -32,6 +32,12 @@ LoRA adapters address the MMDiT as ``transformer`` (kohya
 ``lora_transformer_``, PEFT ``transformer.``); ``load_ip_adapter`` raises
 ``ValueError``: the IP-Adapter checkpoints are UNets'.  A textual-inversion
 placeholder reaches the two CLIP tokenizers; T5 reads its text as it is.
+
+The MMDiT with its multi-stream attention, T5-XXL and the SD3 ControlNets
+run inside the generation's program.  Under ``reduce_memory`` the encode
+stage also takes T5 and, with ControlNets, the VAE encoder that encodes
+their control images (the JAX ``_stage_bundle`` leaves both out, and its
+staged SD3 encode would miss them).
 """
 
 from __future__ import annotations
@@ -143,3 +149,24 @@ class StableDiffusion3Pipeline(StableDiffusionPipeline):
             # InstantX SD3 nets were trained with zeroed pooled projections
             pooled = torch.zeros_like(pooled)
         return net(latents_in, t, ctx_pos, pooled, ctrl_latents)
+
+    # -- programs and stages -------------------------------------------------------
+
+    def _params_bundle(self) -> dict:
+        b = super()._params_bundle()
+        b["text_encoder2"] = [self.text_encoder2]
+        if self.t5_encoder is not None:
+            b["t5"] = [self.t5_encoder]
+        return b
+
+    def _stage_bundle(self, stage: str, img2img: bool = False, n_ctrl: int = 0) -> dict:
+        b = super()._stage_bundle(stage, img2img, n_ctrl)
+        if stage == "encode":
+            full = self._params_bundle()
+            for key, needed in (("t5", True), ("vae_encoder", n_ctrl > 0)):
+                if needed and key in full:
+                    b[key] = full[key]
+        return b
+
+    def _conditioning_cache_key(self, cfg: PipelineConfiguration):
+        return (self.t5_encoder is not None,)

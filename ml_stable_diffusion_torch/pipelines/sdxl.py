@@ -36,8 +36,10 @@ package: the base -> refiner cut splits the strength-sliced plan; a LoRA's
 textual-inversion embedding needs its ``clip_l`` and ``clip_g`` vectors;
 the IP-Adapter tokens reach the base UNet's calls only (the refiner has no
 IP projections).
-``reduce_memory`` staging raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+The refiner phase runs inside the same program as the base phase (two
+phases, one graph); under ``reduce_memory`` each phase is a stage with its
+own UNet (the JAX ``_stage_bundle`` keys "unet" and "refiner"), and the
+encode stage takes both text encoders.
 """
 
 from __future__ import annotations
@@ -101,7 +103,28 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
         if any_w2:
             out["weights2"] = w2
         out["zero_negative"] = self.force_zeros_for_empty_prompt and all(t == "" for t in neg)
+        out.update(self._time_ids(cfg))
         return out
+
+    @staticmethod
+    def _time_ids(cfg: PipelineConfiguration) -> dict:
+        """The micro-conditioning rows, float32 host arrays: the base UNet's
+        ``[original_size, crops_coords_top_left, target_size]`` for both
+        halves, the refiner's ``[original_size, crops_coords_top_left,
+        aesthetic_score]`` (the negative score for the negative half)."""
+        osz = cfg.original_size or (1024, 1024)
+        tsz = cfg.target_size or (1024, 1024)
+        crop = cfg.crops_coords_top_left
+
+        def row(*values):
+            return np.array([float(v) for v in values], np.float32)
+
+        base = row(osz[0], osz[1], crop[0], crop[1], tsz[0], tsz[1])
+        return {"time_ids_unet_neg": base, "time_ids_unet_pos": base.copy(),
+                "time_ids_refiner_neg": row(osz[0], osz[1], crop[0], crop[1],
+                                            cfg.negative_aesthetic_score),
+                "time_ids_refiner_pos": row(osz[0], osz[1], crop[0], crop[1],
+                                            cfg.aesthetic_score)}
 
     def _encode_text(self, token_inputs: dict) -> dict:
         ctx2, out2, shape3 = self._hidden(self.text_encoder2, token_inputs, "ids2",
@@ -118,7 +141,10 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
             half = ctx.shape[0] // 2  # the negative rows come first
             ctx = torch.cat([ctx[:half] * 0.0, ctx[half:]])
             pooled = torch.cat([pooled[:half] * 0.0, pooled[half:]])
-        return {"context": ctx, "context2": ctx2, "pooled": pooled}
+        text = {"context": ctx, "context2": ctx2, "pooled": pooled}
+        text.update({k: self._dev(v) for k, v in token_inputs.items()
+                     if k.startswith("time_ids")})
+        return text
 
     # -- phases ------------------------------------------------------------------
 
@@ -138,21 +164,28 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
         refiner = phase == "refiner"
         ctx_neg, ctx_pos = self._split_neg_pos(text["context2" if refiner else "context"], N)
         pooled_neg, pooled_pos = self._split_neg_pos(text["pooled"], N)
-        osz = cfg.original_size or (1024, 1024)
-        tsz = cfg.target_size or (1024, 1024)
-        crop = cfg.crops_coords_top_left
-        if refiner:
-            ids_pos = [osz[0], osz[1], crop[0], crop[1], cfg.aesthetic_score]
-            ids_neg = [osz[0], osz[1], crop[0], crop[1], cfg.negative_aesthetic_score]
-        else:
-            ids_pos = ids_neg = [osz[0], osz[1], crop[0], crop[1], tsz[0], tsz[1]]
 
-        def time_ids(ids):
-            row = torch.tensor([float(v) for v in ids], dtype=torch.float32, device=self.device)
-            return row.expand(N, len(ids))
+        def time_ids(half):
+            row = text[f"time_ids_{phase}_{half}"]
+            return row.expand(N, row.shape[0])
 
-        return (ctx_neg, ctx_pos, {"text_embeds": pooled_neg, "time_ids": time_ids(ids_neg)},
-                {"text_embeds": pooled_pos, "time_ids": time_ids(ids_pos)})
+        return (ctx_neg, ctx_pos, {"text_embeds": pooled_neg, "time_ids": time_ids("neg")},
+                {"text_embeds": pooled_pos, "time_ids": time_ids("pos")})
 
     def _phase_unet(self, phase: str):
         return self.refiner_unet if phase == "refiner" else self.unet
+
+    # -- programs and stages -------------------------------------------------------
+
+    def _params_bundle(self) -> dict:
+        b = super()._params_bundle()
+        b["text_encoder2"] = [self.text_encoder2]
+        if self.refiner_unet is not None:
+            b["refiner"] = [self.refiner_unet]
+        return b
+
+    def _conditioning_cache_key(self, cfg: PipelineConfiguration):
+        neg, _ = self._prompt_lists(cfg)
+        return (cfg.original_size, cfg.target_size, cfg.crops_coords_top_left,
+                cfg.aesthetic_score, cfg.negative_aesthetic_score,
+                round(cfg.refiner_start, 4), all(t == "" for t in neg))

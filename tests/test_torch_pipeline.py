@@ -4,9 +4,8 @@ A tiny generation (3 steps of DPM++ 2M, CFG on, rng="numpy") through both
 ``generate_images`` on the same weights: latents within atol 1e-3, uint8
 images within 1; the default configuration (PNDM) too, and serial CFG,
 denoised previews, a weighted prompt and DeepCache.  Also: importing the
-port pulls in no JAX, features not ported yet raise, fields the JAX
-pipeline ignores are ignored, and an IP-Adapter image without an adapter
-raises the JAX pipeline's error.
+port pulls in no JAX, fields the JAX pipeline ignores are ignored, and an
+IP-Adapter image without an adapter raises the JAX pipeline's error.
 """
 
 import subprocess
@@ -89,17 +88,6 @@ def test_features_match_jax(pair, kw):
     np.testing.assert_allclose(got.latents, ref.latents, atol=1e-3)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(reduce_memory=True), "reduce_memory"),
-])
-def test_unported_features_raise(pair, kw, match):
-    _, port_pipe = pair
-    args = dict(prompt="a cat", step_count=2, scheduler="DPMSolverMultistep")
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match=match):
-        port_pipe.generate_images(PipelineConfiguration(**args), image_hw=HW)
-
-
 @pytest.mark.parametrize("kw", [
     dict(refiner_start=0.5),
     dict(crops_coords_top_left=(8, 8)),
@@ -162,7 +150,7 @@ def test_import_pulls_in_no_jax():
         "        'models.multilingual', 'tokenizer.prompt_weights', 'utils.latent_preview',\n"
         "        'tokenizer.t5', 'models.t5', 'models.controlnet_sd3', 'convert.lora',\n"
         "        'convert.textual_inversion', 'convert.ip_adapter', 'convert.clip_vision',\n"
-        "        'models.clip_vision', 'models.ip_adapter'}\n"
+        "        'models.clip_vision', 'models.ip_adapter', 'pipelines.program', 'serving'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

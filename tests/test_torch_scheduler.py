@@ -73,8 +73,11 @@ def test_dpm2_golden(tmp_path):
     with torch.no_grad():
         context = pipe._encode_text(pipe._tokenize(cfg))
         lat = torch.from_numpy(np.array(noise)).permute(0, 3, 1, 2).contiguous()
-        lat = pipe._denoise(cfg, lat * plan.init_noise_sigma, context, 1, plan, sched,
-                            True, cfg.guidance_scale)
+        lat = lat * plan.init_noise_sigma
+        lat = pipe._denoise_loop(cfg, lat, context, 1, plan, sched, True, cfg.guidance_scale,
+                                 torch.from_numpy(plan.timesteps),
+                                 pipe._denoise_phases(cfg, plan.num_steps),
+                                 sched.initial_state(plan, lat))[0]
     golden = np.load(GOLDEN)["latents"]
     np.testing.assert_allclose(lat.permute(0, 2, 3, 1).numpy(), golden,
                                rtol=2e-4, atol=2e-4)

@@ -286,13 +286,6 @@ def test_features_match_jax(pair, kw):
     np.testing.assert_allclose(got.latents, ref.latents, atol=1e-3)
 
 
-def test_unported_fields_raise(pair):
-    _, port_pipes = pair
-    with pytest.raises(NotImplementedError, match="reduce_memory"):
-        port_pipes["refiner"].generate_images(
-            PipelineConfiguration(**_kw(reduce_memory=True)), image_hw=HW)
-
-
 def test_sdxl_pipeline_constants_are_the_jax_ones():
     assert StableDiffusionXLPipeline.default_latent_scale == JaxSDXL.default_latent_scale
 

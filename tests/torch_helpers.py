@@ -5,6 +5,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import torch
 
 from ml_stable_diffusion_tpu.pipelines.sd import StableDiffusionPipeline as JaxPipeline
 
@@ -28,7 +29,15 @@ from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder, VAEEncod
 from ml_stable_diffusion_torch.pipelines import StableDiffusionPipeline
 from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
 
-from helpers import randomize_params, tiny_text_encoder, tiny_tokenizer, tiny_unet, tiny_vae
+from helpers import (
+    CTX_DIM,
+    VOCAB,
+    randomize_params,
+    tiny_text_encoder,
+    tiny_tokenizer,
+    tiny_unet,
+    tiny_vae,
+)
 
 
 def _load(cls, cfg_cls, jax_model, params, convert):
@@ -164,3 +173,102 @@ def sd3_pipelines(tmp_path):
         vae_decoder=_load(VAEDecoder, VAEConfig, dec, dp, vae_decoder_state_dict),
         t5_sequence_length=sd3t.T5_LEN, device="cpu")
     return jax_pipe, port_pipe
+
+
+# -- port-only tiny pipelines (no JAX model): the port held against itself --------
+
+#: the tiny text encoders' and UNets' geometry, as tests/helpers.py's
+_CLIP = dict(vocab_size=VOCAB, hidden_size=CTX_DIM, intermediate_size=64, num_hidden_layers=2,
+             num_attention_heads=2, eos_token_id=VOCAB - 1, projection_dim=32)
+_UNET = dict(block_out_channels=(16, 32), layers_per_block=1, transformer_layers_per_block=(1, 1),
+             num_attention_heads=(2, 2), norm_num_groups=8)
+_VAE = dict(block_out_channels=(8, 8, 8, 8), layers_per_block=1, norm_num_groups=4)
+
+
+def _seeded(module, seed):
+    """``module`` in eval mode with variance-preserving weights from ``seed``."""
+    from ml_stable_diffusion_torch.models.init import init_random_
+
+    return init_random_(module, torch.Generator().manual_seed(seed)).eval()
+
+
+def _sd_unet_config(**kw):
+    return UNetConfig(down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                      up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                      cross_attention_dim=CTX_DIM, **_UNET, **kw)
+
+
+def _xl_unet_config(cross_dim, time_ids, **kw):
+    return UNetConfig(down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+                      up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+                      cross_attention_dim=cross_dim, addition_embed_type="text_time",
+                      addition_time_embed_dim=8,
+                      projection_class_embeddings_input_dim=32 + time_ids * 8, **_UNET, **kw)
+
+
+def port_sd_pipeline(tmp_path, seed=0, encoder=True, controlnets=0):
+    """A port SD pipeline on the CPU over tiny modules with seeded weights:
+    CLIP, the UNet, the VAE decoder and (``encoder``) encoder, and
+    ``controlnets`` ControlNets."""
+    tiny_tokenizer(tmp_path)
+    return StableDiffusionPipeline(
+        tokenizer=CLIPTokenizer.from_pretrained_dir(tmp_path),
+        text_encoder=_seeded(CLIPTextEncoder(CLIPTextConfig(**_CLIP)), seed),
+        unet=_seeded(UNet2DConditionModel(_sd_unet_config()), seed + 1),
+        vae_decoder=_seeded(VAEDecoder(VAEConfig(**_VAE)), seed + 2),
+        vae_encoder=_seeded(VAEEncoder(VAEConfig(**_VAE)), seed + 3) if encoder else None,
+        controlnets=[_seeded(ControlNetModel(_sd_unet_config()), seed + 4 + i)
+                     for i in range(controlnets)],
+        device="cpu")
+
+
+def port_sdxl_pipeline(tmp_path, seed=0, refiner=True):
+    """A port SDXL pipeline on the CPU over tiny modules: CLIP-L, a
+    projected CLIP-G, the base UNet and (``refiner``) the refiner."""
+    from ml_stable_diffusion_torch.pipelines import StableDiffusionXLPipeline
+
+    for d in ("l", "g"):
+        (tmp_path / d).mkdir(exist_ok=True)
+        tiny_tokenizer(tmp_path / d)
+    return StableDiffusionXLPipeline(
+        tokenizer=CLIPTokenizer.from_pretrained_dir(tmp_path / "l"),
+        tokenizer2=CLIPTokenizer.from_pretrained_dir(tmp_path / "g"),
+        text_encoder=_seeded(CLIPTextEncoder(CLIPTextConfig(**_CLIP)), seed),
+        text_encoder2=_seeded(CLIPTextEncoder(CLIPTextConfig(**_CLIP, use_text_projection=True)),
+                              seed + 1),
+        unet=_seeded(UNet2DConditionModel(_xl_unet_config(2 * CTX_DIM, 6)), seed + 2),
+        refiner_unet=(_seeded(UNet2DConditionModel(_xl_unet_config(CTX_DIM, 5)), seed + 3)
+                      if refiner else None),
+        vae_decoder=_seeded(VAEDecoder(VAEConfig(**_VAE)), seed + 4), device="cpu")
+
+
+def port_sd3_pipeline(tmp_path, seed=0, t5=True):
+    """A port SD3 pipeline on the CPU over tiny modules: CLIP-L, a projected
+    CLIP-G, the MMDiT, the 16-channel VAE decoder and (``t5``) a two-layer
+    T5 with a unigram tokenizer, at a T5 length of 16."""
+    from ml_stable_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
+    from ml_stable_diffusion_torch.models.t5 import T5Config, T5Encoder
+    from ml_stable_diffusion_torch.pipelines import StableDiffusion3Pipeline
+    from ml_stable_diffusion_torch.tokenizer.t5 import T5Tokenizer
+
+    from test_native_t5 import _unigram_json
+
+    for d in ("l", "g", "t5"):
+        (tmp_path / d).mkdir(exist_ok=True)
+    for d in ("l", "g"):
+        tiny_tokenizer(tmp_path / d)
+    mm = MMDiTConfig(patch_size=2, in_channels=16, out_channels=16, depth=2, hidden_size=32,
+                     num_heads=4, context_dim=128, pooled_dim=CTX_DIM + 32,
+                     pos_embed_max_size=16)
+    vae = VAEConfig(**_VAE, latent_channels=16, use_quant_conv=False)
+    t5_cfg = T5Config(vocab_size=256, d_model=128, d_kv=16, d_ff=64, num_layers=2, num_heads=4)
+    return StableDiffusion3Pipeline(
+        tokenizer=CLIPTokenizer.from_pretrained_dir(tmp_path / "l"),
+        tokenizer2=CLIPTokenizer.from_pretrained_dir(tmp_path / "g"),
+        text_encoder=_seeded(CLIPTextEncoder(CLIPTextConfig(**_CLIP)), seed),
+        text_encoder2=_seeded(CLIPTextEncoder(CLIPTextConfig(**_CLIP, use_text_projection=True)),
+                              seed + 1),
+        mmdit=_seeded(MMDiT(mm), seed + 2), vae_decoder=_seeded(VAEDecoder(vae), seed + 3),
+        t5_tokenizer=T5Tokenizer(_unigram_json(tmp_path / "t5")) if t5 else None,
+        t5_encoder=_seeded(T5Encoder(t5_cfg), seed + 4) if t5 else None,
+        t5_sequence_length=16, device="cpu")
