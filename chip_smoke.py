@@ -158,8 +158,8 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    (SD-2.1), 11 (SD-1.5), 7 (SDXL base + refiner) and 5 (SD3), each right
    after its main path: one eager generation (``execution = "eager"``) and
    one captured with the same prompt and seed, their latents and images
-   bit-equal and their own launch counts the main path's; the median of 3
-   s/step of each, in turns in the same call; the program's capture
+   bit-equal and their own launch counts the main path's; the eager
+   generation's s/step and the median of 3 captured replays'; the program's capture
    seconds and pool bytes; the device's busy share of one generation of
    each under the profiler, and the profiler's kernel records of the
    port's kernels held against the credited launch counts.
@@ -174,6 +174,35 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    one batch, the batch against the pipeline's own generation of the merged
    batch (bit-equal) and each result against its request run alone, one
    img2img request that runs alone, ``stats()`` and the requests a second.
+   Then the W8A8 + DeepCache (interval 2) + batch-4 preset on phase 26's
+   W8A8 pipeline: precompile, four submits coalesced into one batch, the
+   batch bit-equal to the pipeline's merged generation, each finite.
+26. W8A8 on phase 3's SD-2.1 modules, on copies of its pipeline: the int8
+   ops (quantize_weight_int8 in f32 and bf16, int8_dense, int8_conv) on the
+   card against the host, bit for bit, at the UNet's three largest Linear
+   shapes and its largest 3x3 convolution; ``enable_w8a8()`` (ConstantScales,
+   dense) and ``enable_w8a8(include_convs=True)``: int8 layers against the
+   profiler's ``aten::_int_mm`` records in one UNet call, 301 flash a
+   generation, warm-up then the median of 3 captured s/step in turns with
+   phase 3's pipeline (whose UNet stays byte for byte, and whose replay
+   gives its own latents again), busy share, the UNet's bytes; a calibrated
+   (two calls) W8A8 UNet with variance-preserving weights against the float
+   call (PSNR) and each layer against its fake-quant simulation (rel RMS);
+   each distinct int8 layer shape's quantize, ``_int_mm`` and rescale
+   device ms against bf16 ``F.linear``/``F.conv2d``, with bounds.
+27. W8A8 (dense) on phase 7's SDXL base and phase 5's SD3 modules: warm-up
+   and the median of 3 captured s/step in turns with the bf16 pipeline,
+   every generation's counts the bf16 path's (1401 flash and 680 GroupNorm;
+   480 multi-stream), busy share, the denoiser's bytes.
+28. Phase 20's diffusers directory, kept until here, loaded with
+   ``fuse_qkv=True``: its latents against phase 3's of the same prompt and
+   seed (rel RMS), 301 flash, s/step in turns with phase 3's pipeline.
+29. Staged: phase 9's pipeline in palettized program mode, offloaded and
+   generated with ``reduce_memory``, latents bit-equal to its unstaged
+   program mode, both peaks; SDXL base W8A8 on copies of phase 7's modules,
+   offloaded and staged, latents bit-equal to phase 27's unstaged ones,
+   the int8 buffers packed with the base UNet, each stage's bytes.
+   Each phase group's seconds and the whole run's are printed.
 
 The main paths run their captured programs (pipelines/program.py): each
 key's first generation runs the body once eagerly as warm-up, captures it
@@ -186,7 +215,8 @@ Phase 2 holds the multi-stream kernel at SD3 ControlNet's batch-1 shape too.
 
 Every kernel launch counter is set to 0 just before each main path (phases
 3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, each
-path of 15, 16, 17, 18, 19, 20, 21 and 22, and phase 10 for the fused
+path of 15, 16, 17, 18, 19, 20, 21 and 22, each path's turns of 26, 27 and
+28, the staged run of 29, and phase 10 for the fused
 dequant-matmul, whose main path it is) and read just after it; phase 13 reads them around each
 generation.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
@@ -466,7 +496,8 @@ for _mode in ("install", "program"):
                              "mode, 20 steps DPM++ 2M, CFG batch 2")
 #: steps of each UNet in one generation of a path: (base, refiner)
 UNET_STEPS = {"sdxl": (STEPS, 0), "sdxl_refiner": (16, 4), "sdxl_img2img": (15, 0),
-              "sdxl_controlnet": (STEPS, 0), **{p: (STEPS, 0) for p in SDXL_ADAPTER_PATHS}}
+              "sdxl_controlnet": (STEPS, 0), "sdxl_w8a8": (STEPS, 0),
+              **{p: (STEPS, 0) for p in SDXL_ADAPTER_PATHS}}
 #: the known half of an inpainted generation's latents against the starting
 #: image's latents z0 (max abs, relative to z0's peak): after the last step
 #: the known region is z0 itself, recomputed here by the same encoder
@@ -639,7 +670,8 @@ def timings(kernel, plain, library, bound_s):
 def sd21_all(n, img2img=None):
     """Launches per generation of the SD-2.1 path and its palettized runs,
     and ``img2img`` of its img2img and inpainting runs."""
-    out = {"sd21": n, "sd21_pal_install": n, "sd21_pal_program": n, "sd21_diffusers": n}
+    out = {p: n for p in ("sd21", "sd21_pal_install", "sd21_pal_program", "sd21_diffusers",
+                          "sd21_w8a8", "sd21_w8a8_convs", "sd21_fused_qkv")}
     if img2img:
         out.update(sd21_img2img=img2img, sd21_inpaint=img2img)
     return out
@@ -656,7 +688,7 @@ FLASH_SHAPES = [
     ("vae mid 1024", (16384,), 16384, 1, 1, 512, torch.float32,
      {"sd3": 1, "sdxl": 1, "sdxl_refiner": 1, "sd3_img2img": 2, "sdxl_img2img": 2,
       "sdxl_controlnet": 1, "sd3_t5": 1, "sd3_controlnet": 2, "sd3_controlnet2": 3,
-      "sd3_lora": 1, **{p: 1 for p in SDXL_ADAPTER_PATHS}}),
+      "sd3_lora": 1, "sd3_w8a8": 1, "sdxl_w8a8": 1, **{p: 1 for p in SDXL_ADAPTER_PATHS}}),
     ("sd15 64x64", (4096,), 4096, 2, 8, 40, torch.bfloat16, sd15_self(4096)),
     ("sd15 32x32", (1024,), 1024, 2, 8, 80, torch.bfloat16, sd15_self(1024)),
     ("sd15 16x16", (256,), 256, 2, 8, 160, torch.bfloat16, sd15_self(256)),
@@ -687,10 +719,12 @@ FLASH_SHAPES = [
     ("ragged D80", (330,), 330, 2, 3, 80, torch.bfloat16, {}),
     ("sdxl 64x64", (4096,), 4096, 2, 10, 64, torch.bfloat16,
      {"sdxl": 10 * 20, "sdxl_refiner": 10 * 16, "sdxl_img2img": 10 * 15,
-      "sdxl_controlnet": 10 * 20, **{p: 10 * 20 for p in SDXL_ADAPTER_PATHS}}),
+      "sdxl_controlnet": 10 * 20, "sdxl_w8a8": 10 * 20,
+      **{p: 10 * 20 for p in SDXL_ADAPTER_PATHS}}),
     ("sdxl 32x32", (1024,), 1024, 2, 20, 64, torch.bfloat16,
      {"sdxl": 60 * 20, "sdxl_refiner": 60 * 16, "sdxl_img2img": 60 * 15,
-      "sdxl_controlnet": 60 * 20, **{p: 60 * 20 for p in SDXL_ADAPTER_PATHS}}),
+      "sdxl_controlnet": 60 * 20, "sdxl_w8a8": 60 * 20,
+      **{p: 60 * 20 for p in SDXL_ADAPTER_PATHS}}),
     # the SDXL ControlNet at batch 1: 4 heads at 4096 tokens, 30 at 1024
     ("sdxl cn 64x64", (4096,), 4096, 1, 10, 64, torch.bfloat16, {"sdxl_controlnet": 4 * 20}),
     ("sdxl cn 32x32", (1024,), 1024, 1, 20, 64, torch.bfloat16, {"sdxl_controlnet": 30 * 20}),
@@ -704,7 +738,7 @@ FLASH_SHAPES = [
 MULTI_Q_SHAPES = [
     ("sd3 joint 1024", (4096, 154), 4250, 2, 24, 64, torch.bfloat16,
      {"sd3": 480, "sd3_img2img": 24 * 15, "sd3_t5": 480, "sd3_controlnet": 480,
-      "sd3_controlnet2": 480, "sd3_lora": 480}),
+      "sd3_controlnet2": 480, "sd3_lora": 480, "sd3_w8a8": 480}),
     # the SD3 ControlNets' joint blocks, at batch 1
     ("sd3 cn joint 1024", (4096, 154), 4250, 1, 24, 64, torch.bfloat16,
      {"sd3_controlnet": SD3_NET_BLOCKS * STEPS, "sd3_controlnet2": 2 * SD3_NET_BLOCKS * STEPS}),
@@ -1353,18 +1387,10 @@ def run_main_path(pipe, path, counters, timed=3, plain=True, warmup=True, extra=
     the last generation again with attention forced to the plain path.  ``extra``: more configuration fields (the starting
     image and mask, the control images, a prompt); ``results``: a list that
     receives the generations' results."""
-    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
-
     spec = PATHS[path]
 
     def generate(i, attention="auto"):
-        fields = dict(prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS,
-                      guidance_scale=spec["guidance"], seed=1000 + i,
-                      scheduler=spec["scheduler"], rng="numpy", disable_safety=True,
-                      attention_implementation=attention)
-        fields.update(spec.get("extra", {}))
-        fields.update(extra or {})
-        cfg = PipelineConfiguration(**fields)
+        cfg = main_cfg(path, i, attention_implementation=attention, **(extra or {}))
         t0 = time.perf_counter()
         res, launched, warm = launches_of(
             pipe, counters, lambda: pipe.generate_images(cfg, image_hw=spec["image_hw"]))
@@ -1627,12 +1653,13 @@ def run_img2img_paths(pipe, counters, report):
     enc_pipe = with_encoder(pipe, 12)
     image = starting_image((512, 512), 12)
     out = {}
-    out["sd21_img2img"] = run_main_path(enc_pipe, "sd21_img2img", counters, plain=False,
+    out["sd21_img2img"] = run_main_path(enc_pipe, "sd21_img2img", counters, timed=1,
+                                        plain=False,
                                         extra=dict(starting_image=image, strength=STRENGTH))
     report("sd21_img2img", out["sd21_img2img"])
     results = []
     out["sd21_inpaint"] = run_main_path(
-        enc_pipe, "sd21_inpaint", counters, plain=False, results=results,
+        enc_pipe, "sd21_inpaint", counters, timed=1, plain=False, results=results,
         extra=dict(starting_image=image, strength=STRENGTH,
                    mask_image=left_half_mask((512, 512))))
     report("sd21_inpaint", out["sd21_inpaint"])
@@ -1994,7 +2021,7 @@ def run_t5_path(pipe, counters, report, sd3_results):
     log(f"T5-XXL: {n / 1e9:.3f} B parameters on the card")
     results = []
     res = run_main_path(with_modules(pipe, t5_encoder=t5, t5_tokenizer=tokenizer), "sd3_t5",
-                        counters, plain=False, results=results)
+                        counters, timed=1, plain=False, results=results)
     report("sd3_t5", res)
     rel = latents_rel(results[0].latents, sd3_results[0].latents)
     log(f"sd3 T5: latents with the T5 context differ from those with the zero block by "
@@ -2033,7 +2060,7 @@ def run_sd3_controlnet_paths(pipe, counters, report, sd3_results):
     enc_pipe = with_encoder(pipe, 19)
     out, results = {}, []
     out["sd3_controlnet"] = run_main_path(with_modules(enc_pipe, controlnets=nets[:1]),
-                                          "sd3_controlnet", counters, plain=False,
+                                          "sd3_controlnet", counters, timed=1, plain=False,
                                           results=results,
                                           extra=dict(controlnet_inputs=conds[:1]))
     report("sd3_controlnet", out["sd3_controlnet"])
@@ -2104,24 +2131,25 @@ def save_diffusers_sd21(root: Path, pipe, encoder):
 def run_diffusers_path(pipe, counters, report, sd21_results):
     """Phase 20: phase 3's modules through a diffusers directory and
     ``load_pipeline``; the same prompt and seed give phase 3's latents bit
-    for bit."""
+    for bit.  -> (the path's readings, the checks, the directory's
+    ``TemporaryDirectory``, kept for phase 28: clean it up after)."""
     import numpy as np
 
     from ml_stable_diffusion_torch.convert.load import load_pipeline
 
     encoder = with_encoder(pipe, 20).vae_encoder
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "sd21"
-        t0 = time.perf_counter()
-        save_diffusers_sd21(root, pipe, encoder)
-        save_s = time.perf_counter() - t0
-        nbytes = sum(f.stat().st_size for f in root.rglob("*.safetensors"))
-        del encoder
-        free_card()
-        t0 = time.perf_counter()
-        loaded = load_pipeline(root, compute_dtype=torch.bfloat16, device="cuda")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name) / "sd21"
+    t0 = time.perf_counter()
+    save_diffusers_sd21(root, pipe, encoder)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in root.rglob("*.safetensors"))
+    del encoder
+    free_card()
+    t0 = time.perf_counter()
+    loaded = load_pipeline(root, compute_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     log(f"diffusers directory: {nbytes / 1e9:.3f} GB saved in {save_s:.2f} s, "
         f"load_pipeline in {load_s:.2f} s")
     for name in ("text_encoder", "unet", "vae_decoder"):
@@ -2144,7 +2172,7 @@ def run_diffusers_path(pipe, counters, report, sd21_results):
     del loaded
     free_card()
     return res, dict(directory_bytes=nbytes, save_s=save_s, load_s=load_s,
-                     latents_bit_equal=same)
+                     latents_bit_equal=same), tmp
 
 
 # -- phases 21 and 22 ----------------------------------------------------------------
@@ -2644,10 +2672,11 @@ def records_of_launches(launched) -> dict:
 def run_graphs_vs_eager(pipe, path, counters):
     """Phase 23 on ``path``'s pipeline, its programs cleared first: one eager
     and one captured generation of one prompt and seed (latents and images
-    bit-equal, each launching the path's counts), the median of 3 s/step of
-    each in turns, the captures' seconds and pool bytes, and one generation
-    of each under the profiler: busy share, and the port's kernel records
-    against the launches counted (credited, for the replay)."""
+    bit-equal, each launching the path's counts), the eager one's s/step and
+    the median of 3 captured replays', the captures' seconds and pool bytes,
+    and one generation of each under the profiler: busy share, and the
+    port's kernel records against the launches counted (credited, for the
+    replay)."""
     from torch.profiler import ProfilerActivity, profile
 
     import numpy as np
@@ -2685,13 +2714,14 @@ def run_graphs_vs_eager(pipe, path, counters):
     captures = [dict(program="decode" if key[0] == "decode" else "generation",
                      capture_s=secs, pool_bytes=pool)
                 for key, secs, pool in pipe.programs.captures[first:]]
-    sps = {"eager": [], "program": []}
-    for i in range(3):
-        for mode in sps:
-            sps[mode].append(run(mode, 1 + i)[0].seconds_per_step)
+    # the eager loop's s/step is its one generation's above; the captured
+    # program's the median of 3 replays
+    sps = {"eager": [eager.seconds_per_step],
+           "program": [run("program", 1 + i)[0].seconds_per_step for i in range(3)]}
     profiled = {}
     for mode in ("eager", "program"):
-        run(mode, 4)
+        if mode == "program":
+            run(mode, 4)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2711,8 +2741,8 @@ def run_graphs_vs_eager(pipe, path, counters):
                seconds_per_step={m: statistics.median(v) for m, v in sps.items()},
                profiled=profiled, memory_reserved_gib=reserved_gib())
     log(f"phase 23, {path}: captured latents and images bit-equal to the eager loop's; "
-        f"s/step eager {out['seconds_per_step']['eager'] * 1e3:.2f} ms, captured "
-        f"{out['seconds_per_step']['program'] * 1e3:.2f} ms (median of 3, in turns); device "
+        f"s/step eager {out['seconds_per_step']['eager'] * 1e3:.2f} ms (one generation), "
+        f"captured {out['seconds_per_step']['program'] * 1e3:.2f} ms (median of 3); device "
         f"busy {100 * profiled['eager']['device_busy_share']:.1f} % eager, "
         f"{100 * profiled['program']['device_busy_share']:.1f} % captured; captures "
         + ", ".join(f"{c['program']} {c['capture_s']:.2f} s, pool {c['pool_bytes'] / 2**30:.3f} "
@@ -2854,17 +2884,726 @@ def run_serving(pipe):
     return out
 
 
+# -- phases 26 to 29 ----------------------------------------------------------------
+
+#: each W8A8 Linear of one full-width denoiser call against its simulation
+#: in float32 on the same input, relative RMS.  The simulation quantizes the
+#: input as the JAX op does (divided by its scale rounded to bf16) and the
+#: float layer's weight per output channel, and multiplies the dequantized
+#: operands in float32 (full float32: the port turns TF32 off), so the two
+#: differ only by the int8 layer's bf16 output rounding, under 2e-3 at any
+#: shape (bf16 keeps 8 significant bits).  The control, the float layer on
+#: the same input against the same simulation, reads the quantization noise
+#: an int8 layer must reproduce: an int8 step of a per-channel weight absmax
+#: of ~3-4 sigma alone is ~1 % of a Gaussian weight's RMS, and the
+#: activation's step adds as much.  The bound sits between, and each run
+#: shows it does: it fails if any layer's control reads at or below it.  (The whole call is printed,
+#: not bounded: one rounding difference upstream moves activations across
+#: int8 rounding boundaries, and the calls drift apart by about the
+#: quantization noise itself, which the PSNR against the float call reads.)
+W8A8_LAYER_REL_RMS = 4e-3
+#: H100 SXM dense int8 tensor-core peak (operations a second)
+PEAK_INT8_OPS = 1979e12
+PATHS.update({
+    "sd21_w8a8": dict(PATHS["sd21"], label="SD-2.1-base 512x512 W8A8 (enable_w8a8(): "
+                      "ConstantScales, dense layers), 20 steps DPM++ 2M, CFG batch 2"),
+    "sd21_w8a8_convs": dict(PATHS["sd21"], label="SD-2.1-base 512x512 W8A8 with "
+                            "include_convs=True, 20 steps DPM++ 2M, CFG batch 2"),
+    "sdxl_w8a8": dict(PATHS["sdxl"], label="SDXL-base 1024x1024 W8A8 (dense), 20 steps "
+                      "DPM++ 2M, CFG batch 2"),
+    "sd3_w8a8": dict(PATHS["sd3"], label="SD3-medium 1024x1024 (no T5) W8A8 (dense), 20 "
+                     "steps DiscreteFlow, CFG batch 2"),
+    "sd21_fused_qkv": dict(PATHS["sd21"], label="SD-2.1-base 512x512 loaded with "
+                           "fuse_qkv=True, 20 steps DPM++ 2M, CFG batch 2"),
+})
+
+
+def main_cfg(path, i, **extra):
+    """The configuration of ``run_main_path``'s generation ``i`` of ``path``
+    (prompt ``PROMPTS[i]``, seed 1000 + i)."""
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+
+    spec = PATHS[path]
+    fields = dict(prompt=PROMPTS[i % len(PROMPTS)], step_count=STEPS,
+                  guidance_scale=spec["guidance"], seed=1000 + i, scheduler=spec["scheduler"],
+                  rng="numpy", disable_safety=True)
+    fields.update(spec.get("extra", {}))
+    fields.update(extra)
+    return PipelineConfiguration(**fields)
+
+
+def module_bytes(module) -> int:
+    """Bytes of a module's parameters and buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in (*module.parameters(), *module.buffers()))
+
+
+def int8_layers(module) -> dict:
+    from ml_stable_diffusion_torch.ops.int8 import Int8Conv2d, Int8Linear
+
+    return {k: m for k, m in module.named_modules() if isinstance(m, (Int8Linear, Int8Conv2d))}
+
+
+def generation_busy(pipe, path, i):
+    """One generation of ``path`` under the profiler: -> (busy share,
+    {kernel name: (records, us)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = main_cfg(path, i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.generate_images(cfg, image_hw=PATHS[path]["image_hw"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, _, names = _device_time(prof)
+    return busy / 1e6 / wall, names
+
+
+def run_in_turns(pipes: dict, paths: dict, counters, rounds: int = 3):
+    """Each pipeline's warm-up (its capture) with generation 0 of its path,
+    then ``rounds`` generations of each in turns (1, 2, 3: phase 3's prompts
+    and seeds), every generation's own launches held to its path's; then one
+    more of each under the profiler.  -> {label: dict(s/step median and
+    runs, busy share, the results)}."""
+    out = {label: dict(runs=[], results=[]) for label in pipes}
+    reset_counters(counters)
+
+    def one(label, i):
+        pipe, path = pipes[label], paths[label]
+        spec = PATHS[path]
+        res, launched, _ = launches_of(pipe, counters, lambda: pipe.generate_images(
+            main_cfg(path, i), image_hw=spec["image_hw"]))
+        if launched != spec["per_generation"]:
+            fail(f"{path}: a generation launched {launched}, want {spec['per_generation']}")
+        if not bool(torch.isfinite(torch.from_numpy(res.latents)).all()):
+            fail(f"{path}: latents not finite")
+        return res
+
+    for label in pipes:
+        one(label, 0)
+    for i in range(1, rounds + 1):
+        for label in pipes:
+            res = one(label, i)
+            out[label]["runs"].append(res.seconds_per_step)
+            out[label]["results"].append(res)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for label in pipes:
+        out[label]["seconds_per_step"] = statistics.median(out[label]["runs"])
+        out[label]["launches"] = launches
+        out[label]["device_busy_share"], _ = generation_busy(pipes[label], paths[label],
+                                                             rounds + 1)
+    return out
+
+
+def unet_call_inputs(gen, batch=2, hw=64, ctx=(77, 1024)):
+    return (torch.randn(batch, 4, hw, hw, generator=gen, device="cuda"),
+            torch.tensor(500.0, device="cuda"),
+            torch.randn(batch, *ctx, generator=gen, device="cuda"))
+
+
+def int_mm_records(module, inputs) -> int:
+    """``aten::_int_mm`` records of one eager call of ``module``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        module(*inputs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            module(*inputs)
+            torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name == "aten::_int_mm")
+
+
+def record_int8_calls(module, inputs) -> list:
+    """(name, layer, input shape) of every int8 layer of one call."""
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: calls.append((name, mod, tuple(args[0].shape))))
+        for name, m in int8_layers(module).items()]
+    try:
+        with torch.inference_mode():
+            module(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_int8_exactness(calls):
+    """Phase 26.1: the three largest Linear weight shapes and the largest
+    3x3 convolution of the UNet call, random operands at their call shapes:
+    ``quantize_weight_int8``, ``int8_dense`` and ``int8_conv`` (with a bias)
+    in float32 and in bf16, the dtype the pipelines serve, on the card and
+    on the host, bit for bit (int32 accumulation is exact)."""
+    from ml_stable_diffusion_torch.ops.int8 import Int8Conv2d, int8_conv, int8_dense
+    from ml_stable_diffusion_torch.ops.int8 import quantize_weight_int8
+
+    dense = {}
+    conv = None
+    for _, m, shape in calls:
+        w = tuple(m.weight_q.shape)
+        if isinstance(m, Int8Conv2d):
+            if w[2:] == (3, 3) and (conv is None or math.prod(w) > math.prod(conv[1])):
+                conv = (m, w, shape)
+        else:
+            dense.setdefault(w, (m, w, shape))
+    picks = sorted(dense.values(), key=lambda r: -math.prod(r[1]))[:3]
+    picks += [conv] if conv is not None else []
+    gen = torch.Generator().manual_seed(26)
+    rows = []
+    for m, w_shape, x_shape in picks:
+        w = torch.randn(w_shape, generator=gen) * 0.05
+        x = torch.randn(x_shape, generator=gen)
+        amax = float(x.abs().max())
+        same = {}
+        for dt in (torch.float32, torch.bfloat16):
+            (qc, sc), (qh, sh) = (quantize_weight_int8(w.to(dt).to(d)) for d in ("cuda", "cpu"))
+            same[f"quantize_weight_{str(dt)[6:]}"] = bool(
+                torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh))
+        bias = torch.randn(w_shape[0], generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            wq, ws = quantize_weight_int8(w.to(dt))
+            if isinstance(m, Int8Conv2d):
+                def op(d):
+                    return int8_conv(x.to(dt).to(d), wq.to(d), ws.to(d), amax,
+                                     bias=bias.to(dt).to(d), stride=m.stride, padding=m.padding)
+            else:
+                def op(d):
+                    return int8_dense(x.to(dt).to(d), wq.to(d), ws.to(d), amax,
+                                      bias=bias.to(dt).to(d))
+            same[f"output_{str(dt)[6:]}"] = bool(torch.equal(op("cuda").cpu(), op("cpu")))
+        rows.append(dict(kind="conv" if isinstance(m, Int8Conv2d) else "dense",
+                         weight=list(w_shape), input=list(x_shape), bit_equal=same))
+        log(f"phase 26.1: {rows[-1]['kind']} weight {w_shape} input {x_shape}: card against "
+            f"host bit-equal {same}")
+        if not all(same.values()):
+            fail(f"int8 ops on the card differ from the host at weight {w_shape}: {same}")
+    return rows
+
+
+def graph_ms(fn, calls: int = 20, windows: int = 3) -> float:
+    """Device ms per call of ``fn``: a CUDA graph of ``calls`` back-to-back
+    calls replayed between CUDA events (median of ``windows``), so that the
+    host's issue rate does not pace the short ones; the graph's own launch
+    gaps (~1 us a kernel) are in it, for every row alike."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def int8_shape_table(calls):
+    """Phase 26.5: for each distinct int8 layer shape of the UNet call, the
+    device ms (``graph_ms``) of its quantize pass (with the im2col of a
+    convolution), its ``_int_mm`` and its rescale (with a convolution's NCHW
+    store), the whole layer, and bf16 ``F.linear`` / ``F.conv2d`` at that
+    shape; each row's bound (bytes or operations) for the int8 layer and
+    the bf16 call."""
+    import torch.nn.functional as F
+
+    from ml_stable_diffusion_torch.ops.int8 import (
+        Int8Conv2d,
+        _rescale,
+        int_mm,
+        quantize_activation,
+    )
+
+    groups = {}
+    for _, m, shape in calls:
+        key = (type(m).__name__, tuple(m.weight_q.shape), shape, getattr(m, "stride", None),
+               getattr(m, "padding", None))
+        groups.setdefault(key, [m, 0])[1] += 1
+    gen = torch.Generator(device="cuda").manual_seed(265)
+    rows, fns = [], []
+    for (kind, w_shape, x_shape, stride, padding), (m, n) in groups.items():
+        x = torch.randn(x_shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+        w16 = torch.randn(w_shape, generator=gen, device="cuda", dtype=torch.bfloat16) * 0.05
+        b16 = None if m.bias is None else m.bias.detach()
+        conv = isinstance(m, Int8Conv2d)
+        O = w_shape[0]
+        K = math.prod(w_shape[1:])
+        if conv and w_shape[2:] != (1, 1):
+            B, C, H, W = x_shape
+            kh, kw = w_shape[2:]
+            Ho = (H + 2 * padding[0] - kh) // stride[0] + 1
+            Wo = (W + 2 * padding[1] - kw) // stride[1] + 1
+            M = B * Ho * Wo
+
+            def quant(x=x, m=m, kh=kh, kw=kw, Ho=Ho, Wo=Wo, B=B, K=K):
+                xr = quantize_activation(x, m.x_scale, dtype=x.dtype)
+                cols = F.unfold(xr, (kh, kw), padding=m.padding, stride=m.stride)
+                a = torch.empty((B, Ho * Wo, K), dtype=torch.int8, device="cuda")
+                a.copy_(cols.transpose(1, 2))
+                return a.reshape(-1, K)
+
+            def ref(x=x, w16=w16, b16=b16, m=m):
+                return F.conv2d(x, w16, b16, m.stride, m.padding)
+        else:
+            M = math.prod(x_shape) // (x_shape[1] if conv else x_shape[-1])
+
+            def quant(x=x, m=m, conv=conv, K=K):
+                xx = x.permute(0, 2, 3, 1) if conv else x
+                return quantize_activation(xx, m.x_scale).reshape(-1, K)
+
+            if conv:
+                def ref(x=x, w16=w16, b16=b16):
+                    return F.conv2d(x, w16, b16)
+            else:
+                def ref(x=x, w16=w16, b16=b16):
+                    return F.linear(x, w16, b16)
+        a = quant()
+        wq = m.weight_q.reshape(O, -1)
+        acc = int_mm(a, wq)
+
+        def mm(a=a, wq=wq):
+            return int_mm(a, wq)
+
+        def rescale(acc=acc, m=m, conv=conv, x=x):
+            y = _rescale(acc, m.rescale, m.bias, x.dtype)
+            return y.view(x.shape[0], -1, O).transpose(1, 2).contiguous() if conv else y
+
+        def layer(m=m, x=x):
+            return m(x)
+
+        fns += [quant, mm, rescale, layer, ref]
+        bias_b = 0 if m.bias is None else O * 2
+        int8_bytes = math.prod(x_shape) * 2 + O * K + O * 4 + bias_b + M * O * 2
+        bf16_bytes = math.prod(x_shape) * 2 + O * K * 2 + M * O * 2 + bias_b
+        rows.append(dict(kind="conv" if conv else "dense", weight=list(w_shape),
+                         input=list(x_shape), M=M, K=K, N=O, launches_per_unet_call=n,
+                         int8_bound_ms=1e3 * max(int8_bytes / PEAK_BYTES_PER_S,
+                                                 2 * M * K * O / PEAK_INT8_OPS),
+                         bf16_bound_ms=1e3 * max(bf16_bytes / PEAK_BYTES_PER_S,
+                                                 2 * M * K * O / PEAK_FLOPS[torch.bfloat16])))
+    ms = [graph_ms(fn) for fn in fns]
+    for i, row in enumerate(rows):
+        q, mm_, rs, whole, ref = ms[5 * i:5 * i + 5]
+        row.update(quantize_ms=q, int_mm_ms=mm_, rescale_ms=rs, int8_layer_ms=whole,
+                   bf16_ms=ref)
+    tot = {k: total(r[k] * r["launches_per_unet_call"] if r[k] is not None else None
+                    for r in rows) for k in ("int8_layer_ms", "bf16_ms", "quantize_ms",
+                                             "int_mm_ms", "rescale_ms")}
+    for r in sorted(rows, key=lambda r: -(r["bf16_ms"] or 0) * r["launches_per_unet_call"]):
+        log(f"phase 26.5: {r['kind']:5s} w {tuple(r['weight'])} x {tuple(r['input'])} "
+            f"(M {r['M']}, K {r['K']}, N {r['N']}) x{r['launches_per_unet_call']}: quantize "
+            f"{fmt_ms(r['quantize_ms'])} + _int_mm {fmt_ms(r['int_mm_ms'])} + rescale "
+            f"{fmt_ms(r['rescale_ms'])}; layer {fmt_ms(r['int8_layer_ms'])} ms (bound "
+            f"{r['int8_bound_ms']:.4f}) against bf16 {fmt_ms(r['bf16_ms'])} ms (bound "
+            f"{r['bf16_bound_ms']:.4f})")
+    log(f"phase 26.5: per UNet call (device ms, {card_line()}): int8 layers {tot}")
+    return dict(rows=rows, per_unet_call=tot)
+
+
+def run_w8a8_sd21(pipe, counters, sd21_results):
+    """Phase 26 on phase 3's SD-2.1 pipeline: the defaults and include_convs
+    on copies of it, in turns with it; the exactness, quality and per-shape
+    readings.  -> (readings, the dense W8A8 pipeline)."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.compress.w8a8 import (
+        capture_activation_scales,
+        quantize_tree_dense_int8,
+        w8a8_interceptor,
+        w8a8_serving_swap,
+    )
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from ml_stable_diffusion_torch.pipelines.sd import _own_tree
+
+    out = {}
+    snapshot = {k: v.detach().clone() for k, v in pipe.unet.state_dict().items()}
+    pipes = {"bf16": pipe}
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    inputs = unet_call_inputs(gen)
+    for label, kw in (("w8a8", {}), ("w8a8_convs", dict(include_convs=True))):
+        w8 = copy.copy(pipe)
+        (_, secs) = timed_call(lambda: w8.enable_w8a8(**kw))
+        layers = int8_layers(w8.unet)
+        records = int_mm_records(w8.unet, inputs)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            w8.unet(*inputs)
+        torch.cuda.synchronize()
+        out[label] = dict(enable_s=secs, int8_layers=len(layers), int_mm_records=records,
+                          unet_bytes=module_bytes(w8.unet),
+                          unet_call_peak_bytes=torch.cuda.max_memory_allocated() - before)
+        log(f"phase 26, {label}: enable_w8a8({kw}) in {secs:.2f} s: {len(layers)} int8 layers, "
+            f"{records} aten::_int_mm records in one UNet call; UNet "
+            f"{out[label]['unet_bytes'] / 2**30:.3f} GiB on the card against "
+            f"{module_bytes(pipe.unet) / 2**30:.3f} (bf16); one UNet call's peak above rest "
+            f"{out[label]['unet_call_peak_bytes'] / 2**30:.3f} GiB")
+        if records != len(layers) or not layers:
+            fail(f"{label}: {records} _int_mm records in one UNet call for {len(layers)} layers")
+        pipes[label] = w8
+    out["bf16_unet_bytes"] = module_bytes(pipe.unet)
+    if not all(torch.equal(v, pipe.unet.state_dict()[k]) for k, v in snapshot.items()):
+        fail("enable_w8a8 changed phase 3's UNet")
+    del snapshot
+    turns = run_in_turns(pipes, {"bf16": "sd21", "w8a8": "sd21_w8a8",
+                                 "w8a8_convs": "sd21_w8a8_convs"}, counters)
+    same = np.array_equal(turns["bf16"]["results"][0].latents, sd21_results[1].latents)
+    if not same:
+        fail("phase 3's pipeline no longer gives its own latents after enable_w8a8 on a copy")
+    for label in pipes:
+        t = turns[label]
+        rel = latents_rel(t["results"][0].latents, turns["bf16"]["results"][0].latents)
+        out.setdefault(label, {}).update(
+            seconds_per_step=t["seconds_per_step"], seconds_per_step_runs=t["runs"],
+            device_busy_share=t["device_busy_share"], latents_rel_vs_bf16=rel)
+        log(f"phase 26, {label}: {t['seconds_per_step'] * 1e3:.2f} ms/step (median of 3 in "
+            f"turns; runs {[round(s * 1e3, 2) for s in t['runs']]}), busy "
+            f"{100 * t['device_busy_share']:.1f} %, latents against bf16 {rel:.3g} (rel) "
+            f"({card_line()})")
+    out["phase3_replay_bit_equal"] = True
+    calls = record_int8_calls(pipes["w8a8_convs"].unet, inputs)
+    out["exactness"] = check_int8_exactness(calls)
+    out["per_shape"] = int8_shape_table(calls)
+    del pipes["w8a8_convs"], calls
+    free_card()
+
+    # 26.4: calibrated scales on variance-preserving weights
+    vgen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(UNetConfig.sd21())
+    unet = materialize(unet, vgen, torch.bfloat16, std=None).eval()
+    calib = [unet_call_inputs(vgen) for _ in range(2)]
+    test = unet_call_inputs(vgen)
+    scales = capture_activation_scales(unet, lambda b: unet(*b), calib)
+    weights = {k: v for k, v in quantize_tree_dense_int8(
+        unet, skip_patterns=("to_out.0",)).items() if k in scales}
+    served = _own_tree(unet, weights)
+    w8a8_serving_swap(served, scales, weights)
+    out["quality"] = dict(calibrated_layers=len(weights),
+                          **int8_layers_vs_simulation(served, unet, scales, test, "26.4"))
+    with torch.inference_mode():
+        ref = unet(*test)
+        got = served(*test)
+        with w8a8_interceptor(unet, scales, set(weights)):
+            sim = unet(*test)
+    torch.cuda.synchronize()
+    _, psnr, _ = psnr_db(got, ref)
+    _, rel_float = abs_and_rel_rms(got, ref)
+    _, sim_rel = abs_and_rel_rms(got, sim)
+    out["quality"].update(psnr_vs_float_db=psnr, rel_rms_vs_float=rel_float,
+                          rel_rms_vs_simulation=sim_rel)
+    log(f"phase 26.4: calibrated W8A8 UNet call ({len(weights)} layers, scales from two "
+        f"calibration calls): PSNR {psnr:.2f} dB (rel RMS {rel_float:.3g}) against the float "
+        f"call; the whole call against the fake-quant simulation (w8a8_interceptor) rel RMS "
+        f"{sim_rel:.3g}")
+    del unet, served, ref, got, sim
+    free_card()
+    return out, pipes["w8a8"]
+
+
+def _rel_rms(got, ref) -> float:
+    """``abs_and_rel_rms``'s relative RMS, 0 where both are zero."""
+    diff = (got.float() - ref.float()).norm().item()
+    return 0.0 if diff == 0 else diff / ref.float().norm().item()
+
+
+def int8_layers_vs_simulation(served, float_module, scales, inputs, phase: str) -> dict:
+    """Each int8 Linear of one eager call of ``served`` against its float32
+    simulation on the same input, and the control: the float layer of
+    ``float_module`` (same name) on that input against the same simulation.
+    Fails unless every layer is read, every int8 reading is within
+    ``W8A8_LAYER_REL_RMS`` and every control reading above it."""
+    import torch.nn.functional as F
+
+    from ml_stable_diffusion_torch.ops.int8 import Int8Linear, quantize_weight_int8
+
+    layers = int8_layers(served)
+    readings = {}
+
+    def hook(name):
+        def fn(mod, args, y):
+            x, fl = args[0], float_module.get_submodule(name)
+            s = max(float(scales[name]), 1e-8) / 127.0
+            qx = torch.clamp(torch.round(x / torch.full((), s, dtype=x.dtype, device=x.device)),
+                             -127, 127)
+            wq, ws = quantize_weight_int8(fl.weight)
+            sim = F.linear(qx.float() * s, wq.float() * ws)
+            flo = F.linear(x, fl.weight.to(x.dtype))
+            if fl.bias is not None:
+                sim, flo = sim + fl.bias.float(), flo + fl.bias.to(x.dtype)
+            readings[name] = (_rel_rms(y, sim), _rel_rms(flo, sim))
+        return fn
+
+    if not all(isinstance(m, Int8Linear) for m in layers.values()):
+        fail(f"phase {phase}: the per-layer simulation reads Linear layers only")
+    hooks = [m.register_forward_hook(hook(k)) for k, m in layers.items()]
+    try:
+        with torch.inference_mode():
+            served(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    int8 = {k: r[0] for k, r in readings.items()}
+    control = {k: r[1] for k, r in readings.items()}
+    worst, closest = max(int8, key=int8.get), min(control, key=control.get)
+    out = dict(layers_read=len(readings), layer_bound=W8A8_LAYER_REL_RMS,
+               layer_rel_rms_vs_simulation_max=int8[worst],
+               layer_rel_rms_vs_simulation_median=statistics.median(int8.values()),
+               layer_rel_rms_vs_simulation_worst=worst,
+               float_layer_rel_rms_vs_simulation_min=control[closest],
+               float_layer_rel_rms_vs_simulation_median=statistics.median(control.values()),
+               float_layer_rel_rms_vs_simulation_closest=closest)
+    log(f"phase {phase}: {len(readings)} int8 layers of one call, each against its float32 "
+        f"simulation on its own input: median {out['layer_rel_rms_vs_simulation_median']:.3g}, "
+        f"max {int8[worst]:.3g} ({worst}); the float layer against the same simulation "
+        f"(control): min {control[closest]:.3g} ({closest}), median "
+        f"{out['float_layer_rel_rms_vs_simulation_median']:.3g}; bound {W8A8_LAYER_REL_RMS}")
+    if len(readings) != len(layers) or not (int8[worst] <= W8A8_LAYER_REL_RMS
+                                            < control[closest]):
+        fail(f"phase {phase}: {len(readings)} of {len(layers)} int8 layers read; max "
+             f"{int8[worst]} ({worst}) and control min {control[closest]} ({closest}) "
+             f"against the bound {W8A8_LAYER_REL_RMS}")
+    return out
+
+
+def denoiser_call_inputs(module, gen, hw: int) -> tuple:
+    """The inputs of one CFG-batch call of a full-width UNet (SDXL's added
+    conditions when it has them) or MMDiT at latent size ``hw``."""
+    cfg = module.config
+    x = torch.randn(2, cfg.in_channels, hw, hw, generator=gen, device="cuda")
+    t = torch.tensor(500.0, device="cuda")
+    if hasattr(cfg, "pooled_dim"):
+        return (x, t, torch.randn(2, 154, cfg.context_dim, generator=gen, device="cuda"),
+                torch.randn(2, cfg.pooled_dim, generator=gen, device="cuda"))
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, generator=gen, device="cuda")
+    if cfg.addition_embed_type is None:
+        return x, t, ctx
+    size = 8 * hw
+    text = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+    return x, t, ctx, {"text_embeds": torch.randn(2, text, generator=gen, device="cuda"),
+                       "time_ids": torch.tensor([[size, size, 0.0, 0.0, size, size]] * 2,
+                                                device="cuda")}
+
+
+def run_w8a8_family(pipe, path, counters):
+    """Phase 27 on phase 7's SDXL base or phase 5's SD3 pipeline: W8A8
+    (dense) on a copy, in turns with the bf16 pipeline.  -> (readings, the
+    W8A8 pipeline)."""
+    w8 = copy.copy(pipe)
+    _, secs = timed_call(lambda: w8.enable_w8a8())
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    layers = int8_layers_vs_simulation(
+        w8.unet, pipe.unet, w8.int8_act_scales,
+        denoiser_call_inputs(pipe.unet, gen, PATHS[path]["image_hw"][0] // 8), f"27, {path}")
+    free_card()
+    turns = run_in_turns({"bf16": pipe, "w8a8": w8}, {"bf16": path, "w8a8": f"{path}_w8a8"},
+                         counters)
+    out = dict(enable_s=secs, int8_layers=len(int8_layers(w8.unet)),
+               unet_bytes=module_bytes(w8.unet), bf16_unet_bytes=module_bytes(pipe.unet),
+               layers_vs_simulation=layers)
+    for label, t in turns.items():
+        out[label] = dict(seconds_per_step=t["seconds_per_step"],
+                          seconds_per_step_runs=t["runs"],
+                          device_busy_share=t["device_busy_share"])
+        log(f"phase 27, {path} {label}: {t['seconds_per_step'] * 1e3:.2f} ms/step (median of "
+            f"3 in turns; runs {[round(s * 1e3, 2) for s in t['runs']]}), busy "
+            f"{100 * t['device_busy_share']:.1f} % ({card_line()})")
+    out["latents_rel_vs_bf16"] = latents_rel(turns["w8a8"]["results"][0].latents,
+                                             turns["bf16"]["results"][0].latents)
+    out["latents"] = turns["w8a8"]["results"][0].latents
+    log(f"phase 27, {path}: {out['int8_layers']} int8 layers, enable_w8a8 in {secs:.2f} s; "
+        f"denoiser {out['unet_bytes'] / 2**30:.3f} GiB against {out['bf16_unet_bytes'] / 2**30:.3f}"
+        f" (bf16); latents against bf16 {out['latents_rel_vs_bf16']:.3g} (rel); launches as "
+        f"the bf16 path's")
+    return out, w8
+
+
+def run_w8a8_staged(pipe, unstaged_latents, counters):
+    """Phase 29.2: phase 7's SDXL base with W8A8, on copies of its modules
+    (offloading rebinds a module's tensors, and phase 7's pipeline goes on
+    with its own), offloaded and staged: the int8 buffers packed with the
+    base UNet (its stage moves them), latents bit-equal to phase 27's
+    unstaged generation 1."""
+    import numpy as np
+
+    w8 = copy.copy(pipe)
+    for name in ("text_encoder", "text_encoder2", "unet", "vae_decoder"):
+        setattr(w8, name, copy.deepcopy(getattr(pipe, name)))
+    w8.enable_w8a8()
+    w8.offload_params_to_host()
+    pack = w8._host_weights[id(w8.unet)]
+    base = pack.flat.untyped_storage().data_ptr()
+    inside = all(base <= t.untyped_storage().data_ptr() < base + pack.nbytes
+                 for m in int8_layers(w8.unet).values() for t in m.buffers())
+    if not inside:
+        fail("W8A8 staged: the int8 buffers are not packed with the base UNet")
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    res, launched, _ = launches_of(w8, counters, lambda: w8.generate_images(
+        main_cfg("sdxl_w8a8", 1, reduce_memory=True), image_hw=PATHS["sdxl"]["image_hw"]))
+    peak = torch.cuda.max_memory_allocated()
+    if launched != PATHS["sdxl"]["per_generation"]:
+        fail(f"W8A8 staged launched {launched}")
+    same = bool(np.array_equal(res.latents, unstaged_latents))
+    stages = [dict(stage=n, bytes=b, seconds=s) for n, b, s in w8.stage_transfers]
+    log(f"phase 29.2: SDXL base W8A8 staged: latents {'bit-equal' if same else 'DIFFERENT'} to "
+        f"phase 27's unstaged ones; peak {peak / 2**30:.3f} GiB; stages "
+        + ", ".join(f"{s['stage']} {s['bytes'] / 1e9:.3f} GB" for s in stages)
+        + "; the int8 weights move with the base UNet's stage")
+    if not same or [s["stage"] for s in stages] != ["encode", "unet", "decode"]:
+        fail(f"W8A8 staged: latents bit-equal {same}, stages {stages}")
+    return dict(latents_bit_equal=same, stages=stages, max_memory_allocated=peak,
+                int8_packed_with_unet=inside, seconds_per_step=res.seconds_per_step)
+
+
+def run_fuse_qkv(pipe, root: Path, counters, sd21_results):
+    """Phase 28: phase 20's diffusers directory loaded with fuse_qkv=True:
+    one generation bit-equal to phase 3's of the same prompt and seed (the
+    fused GEMM reduces each output over K as the three did: cuBLAS tiles N
+    = 3C as it tiles C at these shapes, and a slip in the split or concat
+    would show in every bit), 301 flash launches, s/step in turns with
+    phase 3's pipeline."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.convert.load import load_pipeline
+
+    fused = load_pipeline(root, compute_dtype=torch.bfloat16, fuse_qkv=True, device="cuda")
+    n = sum(1 for k, _ in fused.unet.named_modules() if k.endswith("attn1.to_qkv"))
+    turns = run_in_turns({"unfused": pipe, "fused": fused},
+                         {"unfused": "sd21", "fused": "sd21_fused_qkv"}, counters)
+    got = turns["fused"]["results"][0].latents
+    want = sd21_results[1].latents
+    same = bool(np.array_equal(got, want))
+    _, rel = abs_and_rel_rms(torch.from_numpy(got), torch.from_numpy(want))
+    out = dict(fused_projections=n, latents_bit_equal=same, latents_rel_rms_vs_unfused=rel,
+               **{f"{k}_seconds_per_step": t["seconds_per_step"] for k, t in turns.items()},
+               **{f"{k}_device_busy_share": t["device_busy_share"] for k, t in turns.items()})
+    log(f"phase 28: fuse_qkv ({n} fused self-attention projections): latents "
+        f"{'bit-equal' if same else 'DIFFERENT'} to phase 3's (rel RMS {rel:.3g}); s/step fused "
+        f"{out['fused_seconds_per_step'] * 1e3:.2f} ms, unfused "
+        f"{out['unfused_seconds_per_step'] * 1e3:.2f} ms (median of 3 in turns; {card_line()})")
+    if not same or n != 16:
+        fail(f"fuse_qkv: {n} fused projections, latents bit-equal {same} (rel RMS {rel})")
+    del fused
+    free_card()
+    return out
+
+
+def run_serving_preset(w8):
+    """Phase 25's preset: the dense W8A8 SD-2.1 pipeline with DeepCache at
+    interval 2 behind a server of batch 4: four submits coalesced into one
+    batch, the batch bit-equal to the pipeline's merged generation, each
+    request finite."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
+    from ml_stable_diffusion_torch.serving import GenerationServer, ServeConfig
+
+    hw = (512, 512)
+    server = GenerationServer(w8, [ServeConfig(image_hw=hw, step_count=STEPS,
+                                               scheduler="DPMSolverMultistep",
+                                               guidance_scale=7.5, deepcache_interval=2)],
+                              max_batch=4, batch_window_s=0.5)
+    out = {}
+    try:
+        _, out["precompile_s"] = timed_call(lambda: server.precompile(batch_sizes=(4,)))
+        cfgs = [PipelineConfiguration(prompt=PROMPTS[i], seed=5100 + i, step_count=STEPS,
+                                      scheduler="DPMSolverMultistep", guidance_scale=7.5,
+                                      deepcache_interval=2, rng="numpy", disable_safety=True)
+                for i in range(4)]
+        t0 = time.perf_counter()
+        results = [f.result(timeout=600) for f in [server.submit(c, image_hw=hw) for c in cfgs]]
+        out["batch_wall_s"] = time.perf_counter() - t0
+        out["requests_per_s"] = len(cfgs) / out["batch_wall_s"]
+        merged = w8.generate_images(dataclasses.replace(
+            cfgs[0], prompt=[c.prompt for c in cfgs], seed=[c.seed for c in cfgs],
+            negative_prompt=[c.negative_prompt for c in cfgs], image_count=4), image_hw=hw)
+        same = bool(np.array_equal(np.concatenate([r.latents for r in results]),
+                                   merged.latents))
+        finite = all(bool(np.isfinite(r.latents).all()) for r in results)
+        out.update(batches_run=server.batches_run, batch_bit_equal_to_merged=same,
+                   each_finite=finite)
+    finally:
+        server.shutdown()
+    log(f"phase 25, the W8A8 + DeepCache 2 + batch-4 preset: precompile {out['precompile_s']:.2f}"
+        f" s; four submits in {out['batches_run']} batch(es), {out['batch_wall_s']:.3f} s, "
+        f"{out['requests_per_s']:.2f} requests/s ({card_line()}); the batch "
+        f"{'bit-equal' if out['batch_bit_equal_to_merged'] else 'NOT equal'} to the merged "
+        f"generation; each request finite: {out['each_finite']}")
+    if out["batches_run"] != 1 or not out["batch_bit_equal_to_merged"] or not out["each_finite"]:
+        fail(f"the serving preset: {out}")
+    return out
+
+
+def run_palettized_staged(pipe, unstaged_latents):
+    """Phase 29.1: phase 9's pipeline in program mode, its weights offloaded,
+    one staged generation: the stages gather their own palettized weights,
+    the latents equal the unstaged program mode's bit for bit; the peak of
+    both."""
+    import numpy as np
+
+    out = {}
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    unstaged = fixed_latents(pipe)
+    out["unstaged_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not np.array_equal(unstaged, unstaged_latents):
+        fail("palettized program mode: a second generation differs from the first")
+    pipe.offload_params_to_host()
+    free_card()
+    at_rest = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    staged = pipe.generate_images(dataclasses.replace(fixed_cfg(), reduce_memory=True),
+                                  image_hw=PATHS["sd21"]["image_hw"]).latents
+    out.update(staged_peak_bytes=torch.cuda.max_memory_allocated(),
+               unstaged_at_rest_bytes=base, staged_at_rest_bytes=at_rest,
+               stages=[dict(stage=n, bytes=b, seconds=t) for n, b, t in pipe.stage_transfers])
+    same = bool(np.array_equal(staged, unstaged))
+    out["latents_bit_equal"] = same
+    log(f"phase 29.1: palettized program mode staged with offloaded weights: latents "
+        f"{'bit-equal' if same else 'DIFFERENT'} to unstaged program mode; peak "
+        f"{out['staged_peak_bytes'] / 2**30:.3f} GiB ({at_rest / 2**30:.3f} at rest) against "
+        f"{out['unstaged_peak_bytes'] / 2**30:.3f} GiB unstaged ({base / 2**30:.3f} at rest); "
+        f"stages {[(s['stage'], round(s['bytes'] / 1e9, 3)) for s in out['stages']]}")
+    if not same:
+        fail("palettized program mode: staged latents differ from unstaged, max abs "
+             f"{float(np.abs(staged - unstaged).max())}")
+    return out
+
+
 # -- phases 9 and 10 ----------------------------------------------------------------
 
-def fixed_latents(pipe):
-    """Latents of one SD-2.1 generation with a fixed prompt and seed."""
+def fixed_cfg():
+    """One SD-2.1 configuration with a fixed prompt and seed."""
     from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 
     spec = PATHS["sd21"]
-    return pipe.generate_images(PipelineConfiguration(
+    return PipelineConfiguration(
         prompt=PROMPTS[0], step_count=STEPS, guidance_scale=spec["guidance"], seed=2024,
-        scheduler=spec["scheduler"], rng="numpy", disable_safety=True),
-        image_hw=spec["image_hw"]).latents
+        scheduler=spec["scheduler"], rng="numpy", disable_safety=True)
+
+
+def fixed_latents(pipe):
+    """Latents of one SD-2.1 generation with a fixed prompt and seed."""
+    return pipe.generate_images(fixed_cfg(), image_hw=PATHS["sd21"]["image_hw"]).latents
 
 
 def check_installed(module, tree, label):
@@ -3024,7 +3763,10 @@ def run_palettized_path(counters):
         "program_vs_dense": latents_agreement(latents["program"], latents["dense"],
                                               "program mode vs dequantized weights handed directly"),
     }
-    del pipe, dense, unet_d, te_d
+    del dense, unet_d, te_d
+    # phase 29.1: program mode on the staged path, the weights offloaded
+    out["staged_program_mode"] = run_palettized_staged(pipe, latents["program"])
+    del pipe
     free_card()
     return out
 
@@ -3446,6 +4188,7 @@ def main():
                 "flash_split_tf32": flash_split_tf32_cuda,
                 "group_norm_silu": group_norm_silu_cuda,
                 "palettized_dense_fused": palettized_dense_fused_cuda}
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -3471,6 +4214,7 @@ def main():
             fail(f"{lib.name} holds no HGMMA instruction: its kernel does not run on wgmma")
 
     rows, pal_calls = check_kernels()
+    log(f"phases 1 and 2: {time.perf_counter() - t_start:.1f} s")
 
     main_paths, model_checks = {}, {}
 
@@ -3494,17 +4238,32 @@ def main():
     sd3_checks, adapters, results = {}, {}, {"sd21": [], "sd3": [], "sdxl": []}
     #: phase 23 by path; phases 24 and 25
     graphs, reduce_memory, serving = {}, None, None
+    #: phases 26 and 27 by path, 28, 29; seconds of the new phases
+    w8a8, fuse_qkv, staged, phase_s = {}, {}, {}, {}
 
     def sd21_more(pipe):
-        """Phases 23, 25, 12, 13 and 20 on phase 3's pipeline."""
+        """Phases 23, 26, 25, 12, 13, 20 and 28 on phase 3's pipeline."""
         nonlocal schedulers, inpainting, serving
         graphs["sd21"] = run_graphs_vs_eager(pipe, "sd21", counters)
+        t1 = time.perf_counter()
+        w8a8["sd21"], w8 = run_w8a8_sd21(pipe, counters, results["sd21"])
+        phase_s["26"] = time.perf_counter() - t1
         serving = run_serving(pipe)
+        serving["w8a8_deepcache_preset"] = run_serving_preset(w8)
+        del w8
+        free_card()
         paths, inpainting = run_img2img_paths(pipe, counters, report)
         main_paths.update(paths)
         schedulers = run_scheduler_sweep(pipe, counters)
-        main_paths["sd21_diffusers"], sd3_checks["diffusers_loader"] = run_diffusers_path(
+        main_paths["sd21_diffusers"], sd3_checks["diffusers_loader"], tmp = run_diffusers_path(
             pipe, counters, report, results["sd21"])
+        t1 = time.perf_counter()
+        try:
+            fuse_qkv.update(run_fuse_qkv(pipe, Path(tmp.name) / "sd21", counters,
+                                         results["sd21"]))
+        finally:
+            tmp.cleanup()
+        phase_s["28"] = time.perf_counter() - t1
 
     def sd3_more(pipe):
         """Phase 23, phase 14's SD3 img2img, then phases 18 and 19, on phase
@@ -3525,6 +4284,13 @@ def main():
         # phase 22's SD3 LoRA
         main_paths["sd3_lora"], adapters["sd3"] = run_sd3_lora_path(pipe, counters, report,
                                                                     results["sd3"])
+        free_card()
+        t1 = time.perf_counter()
+        w8a8["sd3"], w8 = run_w8a8_family(pipe, "sd3", counters)
+        w8a8["sd3"].pop("latents")
+        del w8
+        free_card()
+        phase_s["27 (sd3)"] = time.perf_counter() - t1
 
     for path, build, check, more in (
             ("sd21", build_sd21_pipeline, check_unet_flash_vs_plain, sd21_more),
@@ -3548,6 +4314,16 @@ def main():
         pipe = build_sdxl_pipeline(Path(tokdir))
     main_paths["sdxl"] = run_main_path(pipe, "sdxl", counters, results=results["sdxl"])
     report("sdxl", main_paths["sdxl"])
+    # phase 27: W8A8 on the base, in turns with it; then 29.2, staged
+    t1 = time.perf_counter()
+    w8a8["sdxl"], sdxl_w8 = run_w8a8_family(pipe, "sdxl", counters)
+    del sdxl_w8
+    free_card()
+    phase_s["27 (sdxl)"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    staged["sdxl_w8a8"] = run_w8a8_staged(pipe, w8a8["sdxl"].pop("latents"), counters)
+    free_card()
+    phase_s["29.2"] = time.perf_counter() - t1
     # phase 14's SDXL-base img2img, before the refiner joins
     main_paths["sdxl_img2img"] = run_main_path(
         with_encoder(pipe, 17), "sdxl_img2img", counters, timed=1, plain=False, warmup=False,
@@ -3604,8 +4380,9 @@ def main():
     for mode in ("install", "program"):
         main_paths[f"sd21_pal_{mode}"] = palettized.pop(mode)
         report(f"sd21_pal_{mode}", main_paths[f"sd21_pal_{mode}"])
+    staged["palettized_program_mode"] = palettized.pop("staged_program_mode")
     model_checks["palettized"] = check_palettized_witness(counters, pal_calls)
-    log(f"phases of the palettized path: {time.perf_counter() - t0:.1f} s")
+    log(f"phases of the palettized path (9, 29.1, 10): {time.perf_counter() - t0:.1f} s")
 
     launches = {p: r["launches"] for p, r in main_paths.items()}
     kernels = [
@@ -3633,9 +4410,11 @@ def main():
                     "inpainting": inpainting, "controlnet": controlnet, "features": features,
                     "sd3_t5_controlnet_loader": sd3_checks, "adapters": adapters,
                     "graphs_vs_eager": graphs, "reduce_memory": reduce_memory,
-                    "serving": serving,
+                    "serving": serving, "w8a8": w8a8, "fuse_qkv": fuse_qkv, "staged": staged,
                     "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
+    log(f"seconds of phases 26 to 29: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+        f"; the whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

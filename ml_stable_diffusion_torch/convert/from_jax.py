@@ -84,21 +84,50 @@ _UNET_VAE_RENAMES = (
 )
 
 
+def _unet_vae_module_name(flax_path: str) -> str:
+    """A flax module path ("/"-joined) -> the diffusers module path."""
+    for old, new in _UNET_VAE_RENAMES:
+        flax_path = flax_path.replace(old, new)
+    return flax_path.replace("/", ".")
+
+
 def _unet_vae_state_dict(params, prefix_of) -> dict[str, torch.Tensor]:
     sd = {}
     for path, value in _leaves(params):
-        name = "/".join(path[:-1])
-        for old, new in _UNET_VAE_RENAMES:
-            name = name.replace(old, new)
-        name = prefix_of(name.replace("/", "."))
+        name = prefix_of(_unet_vae_module_name("/".join(path[:-1])))
         leaf, tensor = _tensor(path[-1], value)
         sd[f"{name}.{leaf}"] = tensor
     return sd
 
 
 def unet_state_dict(params) -> dict[str, torch.Tensor]:
-    """Flax ``UNet2DConditionModel`` params -> port UNet state dict."""
+    """Flax ``UNet2DConditionModel`` params -> port UNet state dict.  A
+    fused self-attention projection ``attn1/to_qkv`` (JAX
+    ``convert/optimize.fuse_qkv_params``) maps to ``attn1.to_qkv``."""
     return _unet_vae_state_dict(params, lambda name: name)
+
+
+def unet_module_name(flax_path: str) -> str:
+    """A Flax UNet module path (``down_blocks_0_attentions_0/
+    transformer_blocks_0/attn1/to_q``, as the JAX package keys W8A8 scales
+    and int8 weights) -> the port's module name (``down_blocks.0.attentions.0
+    .transformer_blocks.0.attn1.to_q``): ``unet_state_dict``'s map."""
+    return _unet_vae_module_name(flax_path)
+
+
+def unet_flax_path(name: str) -> str:
+    """The inverse of ``unet_module_name``: the renames undone in reverse
+    order (the VAE's ``mid_block/`` forms are never reached: the UNet's
+    ``.resnets.`` and ``.attentions.`` come first), then the remaining dots
+    made module separators.  ``KeyError`` when the result does not map back
+    to ``name``."""
+    path = name
+    for old, new in reversed(_UNET_VAE_RENAMES):
+        path = path.replace(new.replace("/", "."), old)
+    path = path.replace(".", "/")
+    if unet_module_name(path) != name:
+        raise KeyError(f"no Flax UNet path maps to {name!r}")
+    return path
 
 
 def controlnet_state_dict(params) -> dict[str, torch.Tensor]:
@@ -227,21 +256,45 @@ def mmdit_state_dict(params) -> dict[str, torch.Tensor]:
     Flax (M, M, D) grid to the diffusers (1, M*M, D) layout."""
     sd = {}
     for path, value in _leaves(params):
-        head = path[0]
-        if head == "pos_embed":
+        if path[0] == "pos_embed":
             M1, M2, D = value.shape
             sd["pos_embed.pos_embed"] = value.reshape(1, M1 * M2, D).contiguous()
             continue
         leaf, tensor = _tensor(path[-1], value)
-        m = re.fullmatch(r"blocks_(\d+)", head)
-        if m:
-            name = f"transformer_blocks.{m.group(1)}.{_MMDIT_BLOCK[path[1]]}"
-        elif head in _MMDIT_TOP:
-            name = ".".join([_MMDIT_TOP[head], *path[1:-1]])
-        else:
-            raise KeyError(f"unexpected MMDiT parameter {'/'.join(path)}")
-        sd[f"{name}.{leaf}"] = tensor
+        sd[f"{_mmdit_module_name(path[:-1])}.{leaf}"] = tensor
     return sd
+
+
+def _mmdit_module_name(path: tuple) -> str:
+    head = path[0]
+    m = re.fullmatch(r"blocks_(\d+)", head)
+    if m:
+        return f"transformer_blocks.{m.group(1)}.{_MMDIT_BLOCK[path[1]]}"
+    if head in _MMDIT_TOP:
+        return ".".join([_MMDIT_TOP[head], *path[1:]])
+    raise KeyError(f"unexpected MMDiT module {'/'.join(path)}")
+
+
+def mmdit_module_name(flax_path: str) -> str:
+    """A Flax MMDiT module path (``blocks_3/to_q``) -> the port's module
+    name (``transformer_blocks.3.attn.to_q``): ``mmdit_state_dict``'s map."""
+    return _mmdit_module_name(tuple(flax_path.split("/")))
+
+
+def mmdit_flax_path(name: str) -> str:
+    """The inverse of ``mmdit_module_name``, read off the same two maps
+    inverted; ``KeyError`` for a name no Flax path maps to."""
+    m = re.fullmatch(r"transformer_blocks\.(\d+)\.(.+)", name)
+    if m:
+        inv = {v: k for k, v in _MMDIT_BLOCK.items()}
+        if m.group(2) in inv:
+            return f"blocks_{m.group(1)}/{inv[m.group(2)]}"
+    for head, top in _MMDIT_TOP.items():
+        if name == top or name.startswith(top + "."):
+            path = "/".join([head, *name[len(top) + 1:].split(".")]) if name != top else head
+            if mmdit_module_name(path) == name:
+                return path
+    raise KeyError(f"no Flax MMDiT path maps to {name!r}")
 
 
 # flax T5Block module name -> transformers T5 block path

@@ -13,8 +13,10 @@ as the JAX loader's porting does: a 1x1 convolution kernel stored for a
 linear layer (SD-1.x ``proj_in``/``proj_out``) is squeezed, and the
 ``embeddings.position_ids`` index buffers of older transformers checkpoints
 are dropped (as is T5's tied ``encoder.embed_tokens.weight``).
-``fuse_qkv=True`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 17);
-there is no ``mesh`` argument.
+``fuse_qkv=True`` serves the SD and SDXL UNets (the refiner too) on fused
+self-attention projections (``convert/optimize.py:fuse_qkv_params``,
+``UNetConfig.fuse_qkv``), as the JAX loader does; their ControlNets and the
+SD3 MMDiT stay as they are.  There is no ``mesh`` argument.
 
 ``load_pipeline_from_artifacts``: a directory of ``convert/artifacts``
 modules (``Unet``, ``TextEncoder``, ``VAEDecoder``, ...; SDXL adds
@@ -70,6 +72,7 @@ from .from_jax import (
     vae_decoder_state_dict,
     vae_encoder_state_dict,
 )
+from .optimize import fuse_qkv_params
 
 
 def scheduler_config_from_diffusers(cfg: dict) -> SchedulerConfig:
@@ -274,17 +277,18 @@ def load_text_encoder(module_dir: str | Path, with_projection: bool | None = Non
                   load_safetensors_state_dict(module_dir), torch.float32, device)
 
 
-def _no_fuse_qkv(fuse_qkv: bool):
-    if fuse_qkv:
-        raise NotImplementedError("fuse_qkv serving params: ROADMAP Queue 1 item 17")
-
-
 def load_unet(module_dir: str | Path, dtype=torch.bfloat16, fuse_qkv: bool = False,
               device: str | torch.device = "cuda"):
+    """A diffusers ``unet/`` directory -> ``UNet2DConditionModel`` in
+    ``dtype``; with ``fuse_qkv`` its self attentions on one fused
+    projection."""
     module_dir = Path(module_dir)
-    _no_fuse_qkv(fuse_qkv)
-    return _build(UNet2DConditionModel, unet_config_from_diffusers(_config_json(module_dir)),
-                  load_safetensors_state_dict(module_dir), dtype, device)
+    cfg = unet_config_from_diffusers(_config_json(module_dir))
+    sd = load_safetensors_state_dict(module_dir)
+    if fuse_qkv:
+        cfg = dataclasses.replace(cfg, fuse_qkv=True)
+        sd = fuse_qkv_params(sd)
+    return _build(UNet2DConditionModel, cfg, sd, dtype, device)
 
 
 def load_vae(module_dir: str | Path, device: str | torch.device = "cuda"):
@@ -355,7 +359,6 @@ def load_pipeline(checkpoint_dir: str | Path, custom_vae_dir=None, refiner_dir=N
         StableDiffusionXLPipeline,
     )
 
-    _no_fuse_qkv(fuse_qkv)
     root = Path(checkpoint_dir)
     index = json.loads((root / "model_index.json").read_text())
     family = index["_class_name"]
@@ -372,12 +375,12 @@ def load_pipeline(checkpoint_dir: str | Path, custom_vae_dir=None, refiner_dir=N
         tok2 = CLIPTokenizer.from_pretrained_dir(root / "tokenizer_2", pad_token="!")
         te = (load_text_encoder(root / "text_encoder", device=device)
               if (root / "text_encoder").exists() else None)
-        refiner = (load_unet(Path(refiner_dir) / "unet", compute_dtype, device=device)
+        refiner = (load_unet(Path(refiner_dir) / "unet", compute_dtype, fuse_qkv, device)
                    if refiner_dir else None)
         return StableDiffusionXLPipeline(
             tokenizer=tok, tokenizer2=tok2, text_encoder=te,
             text_encoder2=load_text_encoder(root / "text_encoder_2", True, device),
-            unet=load_unet(root / "unet", compute_dtype, device=device), refiner_unet=refiner,
+            unet=load_unet(root / "unet", compute_dtype, fuse_qkv, device), refiner_unet=refiner,
             vae_decoder=dec, vae_encoder=enc, safety_checker=safety, scheduler_config=sched_cfg,
             force_zeros_for_empty_prompt=index.get("force_zeros_for_empty_prompt", True),
             device=device)
@@ -400,7 +403,7 @@ def load_pipeline(checkpoint_dir: str | Path, custom_vae_dir=None, refiner_dir=N
 
     return StableDiffusionPipeline(
         tokenizer=tok, text_encoder=load_text_encoder(root / "text_encoder", device=device),
-        unet=load_unet(root / "unet", compute_dtype, device=device), vae_decoder=dec,
+        unet=load_unet(root / "unet", compute_dtype, fuse_qkv, device), vae_decoder=dec,
         vae_encoder=enc, safety_checker=safety, scheduler_config=sched_cfg,
         multilingual_encoder=multilingual_encoder, controlnets=controlnets, device=device)
 

@@ -241,7 +241,8 @@ class MMDiT(nn.Module):
         cfg = self.config
         P, C = cfg.patch_size, cfg.out_channels
         B, _, H, W = latents.shape
-        dtype = self.proj_out.weight.dtype
+        # the positional table: a W8A8 proj_out holds no float weight
+        dtype = self.pos_embed.pos_embed.dtype
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(B)
 

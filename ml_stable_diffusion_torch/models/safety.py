@@ -145,11 +145,14 @@ def resize_uint8(images, size: int) -> torch.Tensor:
 @torch.inference_mode()
 def check_images(model: SafetyChecker, images: np.ndarray, adjustment: float = 0.0):
     """(N, H, W, 3) uint8 images -> (images with the flagged ones zeroed,
-    flags).  Runs on the checker's device."""
+    flags).  Runs on the checker's device.  ``adjustment`` is taken and not
+    applied, as the JAX ``check_images`` takes it: the flags are the
+    checker's unadjusted ones (``SafetyChecker`` itself applies one)."""
+    del adjustment
     device = next(model.parameters()).device
     x = resize_uint8(torch.from_numpy(np.ascontiguousarray(images)).to(device),
                      model.config.image_size)
-    flags = [bool(f) for f in model(x, adjustment)["has_nsfw"].cpu()]
+    flags = [bool(f) for f in model(x)["has_nsfw"].cpu()]
     out = np.array(images, copy=True)
     out[np.asarray(flags, bool)] = 0
     return out, flags

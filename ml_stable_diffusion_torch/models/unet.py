@@ -41,9 +41,13 @@ diffusers checkpoint keys (``down_blocks.0.attentions.0.transformer_blocks.0
   ``Attention`` does (``ip_scale=0`` leaves the output as it is without
   them, bit for bit).  Self attention and the ControlNet take no tokens.
 
+- ``fuse_qkv``: each self attention (attn1) projects q, k and v with one
+  ``to_qkv`` Linear of 3C outputs (the three weights concatenated on the
+  output dim, ``convert/optimize.py:fuse_qkv_params``) and splits it in
+  three, as the JAX ``Attention`` does; cross attention keeps its three.
+
 The down and mid blocks are built and run by ``down_and_mid_blocks``,
-``run_down`` and ``run_mid``, which the ControlNet shares.  Fused qkv raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+``run_down`` and ``run_mid``, which the ControlNet shares.
 """
 
 from __future__ import annotations
@@ -90,7 +94,7 @@ class UNetConfig:
     #: LCM guidance-embedding input width (diffusers ``time_cond_proj_dim``,
     #: e.g. 256): the guidance scale is an input, not applied by CFG
     time_cond_proj_dim: int | None = None
-    #: single fused qkv matmul (not ported yet)
+    #: self attention on one fused q/k/v projection (``to_qkv``)
     fuse_qkv: bool = False
     #: resnet GroupNorm+SiLU on the CUDA kernel (ops/groupnorm.py)
     fused_groupnorm: bool = False
@@ -237,15 +241,22 @@ class ResnetBlock2D(nn.Module):
 class Attention(nn.Module):
     """QKV attention over (B, S, C) through the shared dispatch.  ``ip``:
     (IP-Adapter tokens (B, S_ip, C_ctx), scale) for a cross attention that
-    ``load_ip_adapter`` gave ``to_k_ip``/``to_v_ip``."""
+    ``load_ip_adapter`` gave ``to_k_ip``/``to_v_ip``.  ``fuse_qkv`` (self
+    attention only): one ``to_qkv`` projection, split in three."""
 
-    def __init__(self, query_dim: int, heads: int, context_dim: int | None = None):
+    def __init__(self, query_dim: int, heads: int, context_dim: int | None = None,
+                 fuse_qkv: bool = False):
         super().__init__()
-        context_dim = context_dim or query_dim
         self.heads = heads
-        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_k = nn.Linear(context_dim, query_dim, bias=False)
-        self.to_v = nn.Linear(context_dim, query_dim, bias=False)
+        if fuse_qkv:
+            if context_dim is not None:
+                raise ValueError("fuse_qkv is for self attention: its k and v read x")
+            self.to_qkv = nn.Linear(query_dim, 3 * query_dim, bias=False)
+        else:
+            context_dim = context_dim or query_dim
+            self.to_q = nn.Linear(query_dim, query_dim, bias=False)
+            self.to_k = nn.Linear(context_dim, query_dim, bias=False)
+            self.to_v = nn.Linear(context_dim, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
 
     def forward(self, x, context=None, ip=None):
@@ -253,9 +264,12 @@ class Attention(nn.Module):
         B, Sq, C = x.shape
         Sk = context.shape[1]
         H = self.heads
-        q = self.to_q(x).view(B, Sq, H, C // H)
-        k = self.to_k(context).view(B, Sk, H, C // H)
-        v = self.to_v(context).view(B, Sk, H, C // H)
+        if hasattr(self, "to_qkv"):
+            q, k, v = (t.view(B, Sq, H, C // H) for t in self.to_qkv(x).chunk(3, dim=-1))
+        else:
+            q = self.to_q(x).view(B, Sq, H, C // H)
+            k = self.to_k(context).view(B, Sk, H, C // H)
+            v = self.to_v(context).view(B, Sk, H, C // H)
         out = dot_product_attention(q, k, v)
         if ip is not None:
             tokens, scale = ip
@@ -293,10 +307,11 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """self-attn + cross-attn + GEGLU FF, pre-LN (flax LayerNorm eps 1e-6)."""
 
-    def __init__(self, dim: int, heads: int, context_dim: int, fast_gelu: bool = False):
+    def __init__(self, dim: int, heads: int, context_dim: int, fast_gelu: bool = False,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn1 = Attention(dim, heads)
+        self.attn1 = Attention(dim, heads, fuse_qkv=fuse_qkv)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.attn2 = Attention(dim, heads, context_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
@@ -313,12 +328,13 @@ class SpatialTransformer(nn.Module):
     proj_out, + residual (diffusers Transformer2DModel, linear projection)."""
 
     def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
-                 groups: int = 32, eps: float = 1e-6, fast_gelu: bool = False):
+                 groups: int = 32, eps: float = 1e-6, fast_gelu: bool = False,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.norm = nn.GroupNorm(groups, channels, eps=eps)
         self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(channels, heads, context_dim, fast_gelu)
+            BasicTransformerBlock(channels, heads, context_dim, fast_gelu, fuse_qkv)
             for _ in range(depth))
         self.proj_out = nn.Linear(channels, channels)
 
@@ -373,9 +389,6 @@ class _Block(nn.Module):
 def _check_supported(cfg: UNetConfig):
     if cfg.addition_embed_type not in (None, "text_time"):
         raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
-    if cfg.fuse_qkv:
-        raise NotImplementedError("UNetConfig.fuse_qkv: fused qkv serving params: "
-                                  "ROADMAP Queue 1 item 17 is not ported yet")
 
 
 def down_and_mid_blocks(cfg: UNetConfig, gn: str = "plain", fast_gelu: bool = False):
@@ -389,7 +402,8 @@ def down_and_mid_blocks(cfg: UNetConfig, gn: str = "plain", fast_gelu: bool = Fa
     def transformer(c, bi):
         return SpatialTransformer(c, cfg.num_attention_heads[bi],
                                   cfg.transformer_layers_per_block[bi],
-                                  cfg.cross_attention_dim, G, fast_gelu=fast_gelu)
+                                  cfg.cross_attention_dim, G, fast_gelu=fast_gelu,
+                                  fuse_qkv=cfg.fuse_qkv)
 
     skip_ch = [ch[0]]
     down = []
@@ -484,7 +498,7 @@ class UNet2DConditionModel(nn.Module):
             return SpatialTransformer(c, cfg.num_attention_heads[bi],
                                       cfg.transformer_layers_per_block[bi],
                                       cfg.cross_attention_dim, G,
-                                      fast_gelu=cfg.fast_gelu)
+                                      fast_gelu=cfg.fast_gelu, fuse_qkv=cfg.fuse_qkv)
 
         self.time_embedding = TimestepEmbedding(ch[0], temb, cfg.time_cond_proj_dim)
         if cfg.addition_embed_type == "text_time":
@@ -532,7 +546,8 @@ class UNet2DConditionModel(nn.Module):
                 raise ValueError("deep_feature and return_deep_feature exclude each other")
             if len(cfg.up_block_types) < 2:
                 raise ValueError("DeepCache needs at least two up blocks")
-        dtype = self.conv_in.weight.dtype
+        # a norm's weight: a W8A8 conv_in holds no float weight
+        dtype = self.conv_norm_out.weight.dtype
         if cfg.time_cond_proj_dim is not None and timestep_cond is None:
             raise ValueError(
                 f"this UNet is guidance-embedded (time_cond_proj_dim={cfg.time_cond_proj_dim}); "

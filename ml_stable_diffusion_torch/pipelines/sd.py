@@ -69,8 +69,9 @@ How a generation runs, as the JAX ``generate_images`` dispatches:
   decode and the checker each get only their modules' weights
   (``_stage_bundle``); after ``offload_params_to_host`` those weights wait
   in pinned host memory and move to the card for their stage and leave it
-  after.  The stages run eagerly: their weights land at new addresses on
-  every call;
+  after, and a module served palettized in program mode is gathered in its
+  own stage only (the JAX stage bundle's ``palettized`` side).  The stages
+  run eagerly: their weights land at new addresses on every call;
 - ``execution = "eager"`` (a pipeline attribute, not a configuration
   field): the same body, launched op by op from the host; so do a pipeline
   whose weights were offloaded and a palettized pipeline in program mode,
@@ -86,13 +87,20 @@ converts).
 Palettized weights (``install_palettized``) are served as the JAX package
 serves them: dequantized once on the host (``mode="install"``), or kept on
 the card as uint8 indices and float32 LUTs and gathered into the module's
-parameters at the start of each ``generate_images`` call, inside its timed
-window, and freed at its end (``mode="program"``).
+parameters for each ``generate_images`` call, inside its timed window, and
+freed at its end (``mode="program"``; on the staged path each stage
+gathers its own modules').
+
+W8A8 (``enable_w8a8``): the denoiser's large Linear (and optionally
+Conv2d) layers served as int8 products with per-tensor activation scales
+(``ops/int8.py``, ``compress/w8a8.py``), swapped on the pipeline's own copy
+of the module tree; the int8 layers run inside the captured programs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import time
 from typing import Any
@@ -273,6 +281,29 @@ class _HostWeights:
             t.data = self._view(self.flat, t, off)
 
 
+def _own_tree(module: torch.nn.Module, names) -> torch.nn.Module:
+    """A copy of ``module`` in which every module on the way to one of
+    ``names`` (dotted submodule names) is a shallow copy with its own table
+    of children, so that swapping those children leaves ``module`` as it
+    is; parameters, buffers and every other submodule are shared."""
+
+    def own(m):
+        c = copy.copy(m)
+        c._modules = type(m._modules)(m._modules)
+        owned.add(id(c))
+        return c
+
+    owned: set[int] = set()
+    root = own(module)
+    for name in names:
+        node = root
+        for part in name.split(".")[:-1]:
+            if id(node._modules[part]) not in owned:
+                node._modules[part] = own(node._modules[part])
+            node = node._modules[part]
+    return root
+
+
 def _mask_pixels(mask, N: int, H: int, W: int) -> np.ndarray:
     """A repaint mask (PIL image or array: (H, W), (H, W, 1|3), (N, H, W) or
     (N, H, W, 1|3)) -> (N, H, W, 1) float32 in [0, 1], as the JAX pipeline
@@ -354,6 +385,12 @@ class StableDiffusionPipeline:
         self._host_weights: dict[int, _HostWeights] = {}
         #: the staged path's last transfers: (stage, bytes, seconds)
         self.stage_transfers: list[tuple[str, int, float]] = []
+        #: enable_w8a8: {module name: (int8 weight, float32 scale)} of the
+        #: denoiser layers served as int8, their activation scales and the
+        #: skip patterns in effect
+        self.int8_weights: dict | None = None
+        self.int8_act_scales = None
+        self.int8_skip_patterns: tuple = ()
 
     def __copy__(self):
         """A shallow copy shares the modules but not the programs, which
@@ -589,23 +626,80 @@ class StableDiffusionPipeline:
                 raise ValueError(f"unknown mode {mode!r}")
         self._weights_changed()
 
-    @torch.no_grad()
-    def _materialize_palettized(self):
-        """Program mode: gather each LUT into its parameter, rounded through
-        the install dtype, held in the parameter's dtype."""
+    def _palettized_modules(self, modules=None):
+        """(module, {parameter key: PalettizedTensor}, install dtype) of each
+        module served in program mode (of those in ``modules``, a set of
+        ids, when given)."""
         for mk, (pal, dtype) in self.palettized_side.items():
             module = getattr(self, self._PALETTIZED_ATTRS[mk])
+            if modules is None or id(module) in modules:
+                yield module, pal, dtype
+
+    @torch.no_grad()
+    def _materialize_palettized(self, modules=None):
+        """Program mode: gather each LUT into its parameter on the
+        parameter's device (the indices and LUT moved there when they wait
+        in host memory), rounded through the install dtype, held in the
+        parameter's dtype."""
+        for module, pal, dtype in self._palettized_modules(modules):
             for key, pt in pal.items():
                 p = module.get_parameter(key)
-                p.data = pt.dequantize().to(dtype).to(p.dtype)
+                p.data = pt.to(p.device).dequantize().to(dtype).to(p.dtype)
 
-    def _release_palettized(self):
+    def _release_palettized(self, modules=None):
         """Program mode: free the dense copies (empty parameters)."""
-        for mk, (pal, _) in self.palettized_side.items():
-            module = getattr(self, self._PALETTIZED_ATTRS[mk])
+        for module, pal, _ in self._palettized_modules(modules):
             for key in pal:
                 p = module.get_parameter(key)
                 p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    # -- W8A8 ------------------------------------------------------------------
+
+    def enable_w8a8(self, act_scales=None, include_convs: bool = False,
+                    min_size: int = 1 << 14, skip_patterns=None):
+        """Serve the denoiser's large Linear (and with ``include_convs``
+        Conv2d) layers as int8 products (``ops/int8.py``), as the JAX
+        ``enable_w8a8`` does.  ``act_scales``: {module name or JAX path:
+        input absmax} from ``compress.w8a8.capture_activation_scales`` (or
+        the JAX package's), or None for ``ConstantScales()``; only the layers
+        it has a scale for are served.  ``skip_patterns`` (default
+        ``DEFAULT_SKIP_PATTERNS``) are substrings of the port's module names;
+        with ``include_convs`` the upsamplers are skipped too when the UNet's
+        config names its fused or parity upsamplers, as in JAX.
+
+        The layers are swapped on the pipeline's own copy of the module tree
+        (every module on the way to a swapped layer copied, the rest shared):
+        the caller's module keeps its float layers, and the pipeline's holds
+        the int8 weights in their place.  The int8 layers are the denoiser's
+        children, so they travel with it: offloaded to pinned host memory,
+        and on the staged path with the base "unet" stage only (the SDXL
+        refiner stays as it is).  The programs are dropped: a graph holds the
+        activation scales as kernel arguments."""
+        from ..compress.w8a8 import (
+            DEFAULT_SKIP_PATTERNS,
+            ConstantScales,
+            port_keys,
+            quantize_tree_dense_int8,
+            w8a8_serving_swap,
+        )
+
+        skip = tuple(DEFAULT_SKIP_PATTERNS if skip_patterns is None else skip_patterns)
+        cfg = self.unet.config
+        if include_convs and (getattr(cfg, "fused_upsample", False)
+                              or getattr(cfg, "parity_upsample", False)):
+            skip += ("upsamplers.0",)
+        scales = ConstantScales() if act_scales is None else port_keys(act_scales, self.unet)
+        weights = quantize_tree_dense_int8(self.unet, min_size=min_size, skip_patterns=skip,
+                                           include_convs=include_convs)
+        weights = {k: v for k, v in weights.items() if k in scales}
+        self.unet = _own_tree(self.unet, weights)
+        w8a8_serving_swap(self.unet, scales, weights, skip)
+        self.int8_weights = {k: (self.unet.get_submodule(k).weight_q,
+                                 self.unet.get_submodule(k).w_scale) for k in weights}
+        self.int8_act_scales = scales
+        self.int8_skip_patterns = skip
+        self._weights_changed()
+        return self
 
     # -- weights: offload and stages -------------------------------------------
 
@@ -654,6 +748,15 @@ class StableDiffusionPipeline:
         each generation.  Generations with offloaded weights run eagerly."""
         pin = self.device.type == "cuda"
         self._host_weights = {id(m): _HostWeights(m, pin) for m in self._all_modules()}
+
+        def host(t):
+            t = t.cpu()
+            return t.pin_memory() if pin else t
+
+        self.palettized_side = {
+            mk: ({k: dataclasses.replace(pt, indices=host(pt.indices), lut=host(pt.lut))
+                  for k, pt in pal.items()}, dtype)
+            for mk, (pal, dtype) in self.palettized_side.items()}
         self._programs.clear()
         return self
 
@@ -666,27 +769,30 @@ class StableDiffusionPipeline:
 
     @contextlib.contextmanager
     def _stage(self, name: str, bundle: dict):
-        """The offloaded modules of ``bundle`` on the card for the block
-        (a module that was not offloaded stays where it is); the copy's
-        bytes and seconds go to ``stage_transfers``."""
-        packs = list({id(m): self._host_weights[id(m)] for ms in bundle.values() for m in ms
-                      if id(m) in self._host_weights}.values())
-        if not packs:
-            yield
-            return
-        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda *a: None)
-        sync(self.device)
-        t0 = time.perf_counter()
-        with torch.inference_mode(False):  # parameters take normal tensors
-            for pack in packs:
-                pack.to(self.device)
-        sync(self.device)
-        self.stage_transfers.append((name, sum(p.nbytes for p in packs),
-                                     time.perf_counter() - t0))
+        """The modules of ``bundle`` ready for the block: the offloaded ones
+        on the card (a module that was not offloaded stays where it is; the
+        copy's bytes and seconds go to ``stage_transfers``), and those served
+        in program mode with their palettized weights gathered (the JAX stage
+        bundle's own ``palettized`` side), freed again after the block."""
+        ids = {id(m) for ms in bundle.values() for m in ms}
+        packs = list({i: self._host_weights[i] for i in ids if i in self._host_weights}.values())
+        if packs:
+            sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda *a: None)
+            sync(self.device)
+            t0 = time.perf_counter()
+            with torch.inference_mode(False):  # parameters take normal tensors
+                for pack in packs:
+                    pack.to(self.device)
+            sync(self.device)
+            self.stage_transfers.append((name, sum(p.nbytes for p in packs),
+                                         time.perf_counter() - t0))
+        with torch.inference_mode(False):
+            self._materialize_palettized(ids)
         try:
             yield
         finally:
             with torch.inference_mode(False):
+                self._release_palettized(ids)
                 for pack in packs:
                     pack.back()
 
@@ -1207,9 +1313,6 @@ class StableDiffusionPipeline:
         """The staged path: the encode stage, then each denoise phase, each
         with only its modules' weights on the card (the JAX ``prog["init"]``
         and ``prog["phase_scans"]``)."""
-        if self.palettized_side:
-            raise NotImplementedError("reduce_memory with palettized weights in program mode "
-                                      "is not ported yet (ROADMAP Queue 1 item 17)")
         inputs = {k: self._dev(v) if isinstance(v, np.ndarray) else v for k, v in inputs.items()}
         with self._stage("encode", self._stage_bundle("encode", gen.img2img,
                                                       len(gen.cfg.controlnet_inputs))):
@@ -1237,22 +1340,18 @@ class StableDiffusionPipeline:
         self.stage_transfers = []
 
         t0 = time.perf_counter()
-        self._materialize_palettized()
-        try:
-            with torch.inference_mode():
-                if cfg.reduce_memory:
-                    latents = self._run_staged(gen, inputs, progress_handler)
-                elif self._captures(progress_handler):
-                    latents = self._program(gen, inputs)(inputs)
-                else:
-                    with self._stage("all", self._params_bundle()):
-                        latents = self._body(gen, {k: self._dev(v) if isinstance(v, np.ndarray)
-                                                   else v for k, v in inputs.items()},
-                                             progress_handler)
-                # the host fetch waits for the device
-                latents = _host_nhwc(latents)
-        finally:
-            self._release_palettized()
+        with torch.inference_mode():
+            if cfg.reduce_memory:
+                latents = self._run_staged(gen, inputs, progress_handler)
+            elif self._captures(progress_handler):
+                latents = self._program(gen, inputs)(inputs)
+            else:
+                with self._stage("all", self._params_bundle()):
+                    latents = self._body(gen, {k: self._dev(v) if isinstance(v, np.ndarray)
+                                               else v for k, v in inputs.items()},
+                                         progress_handler)
+            # the host fetch waits for the device
+            latents = _host_nhwc(latents)
         dt = (time.perf_counter() - t0) / gen.plan.num_steps
 
         images = self.decode_latents(latents, cfg)

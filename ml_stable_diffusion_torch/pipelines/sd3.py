@@ -28,6 +28,8 @@ What differs from the SD-2.x pipeline it extends:
   vector, and their residuals add to the MMDiT's latent stream.
 
 ``deepcache_interval > 1`` raises ``ValueError``, as in the JAX pipeline.
+``enable_w8a8`` (inherited) serves the MMDiT's layers as int8, the 2x2
+patch convolution too with ``include_convs``.
 LoRA adapters address the MMDiT as ``transformer`` (kohya
 ``lora_transformer_``, PEFT ``transformer.``); ``load_ip_adapter`` raises
 ``ValueError``: the IP-Adapter checkpoints are UNets'.  A textual-inversion

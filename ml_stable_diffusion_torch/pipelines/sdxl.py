@@ -39,7 +39,9 @@ IP projections).
 The refiner phase runs inside the same program as the base phase (two
 phases, one graph); under ``reduce_memory`` each phase is a stage with its
 own UNet (the JAX ``_stage_bundle`` keys "unet" and "refiner"), and the
-encode stage takes both text encoders.
+encode stage takes both text encoders.  ``enable_w8a8`` serves the base
+UNet only; the refiner keeps its float layers (the JAX bundle's "int8" key
+rides with "unet").
 """
 
 from __future__ import annotations

@@ -14,6 +14,9 @@ What an app server needs around a pipeline:
   support), which replays one captured program for all of them; requests
   that cannot merge go to a worker pool, still ordered by the lock;
 - rolling latency statistics (``utils.timer.SampleTimer``).
+
+A W8A8 pipeline with a DeepCache bucket serves as any other: its batch is
+one merged program (the JAX max-throughput preset).
 """
 
 from __future__ import annotations

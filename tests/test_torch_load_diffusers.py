@@ -210,11 +210,24 @@ def test_checkpoint_entries_that_are_not_weights(sd_checkpoint, tmp_path):
 
 
 def test_load_pipeline_options_raise(sd_checkpoint, sdxl_checkpoints):
-    """``fuse_qkv`` is not ported; a multilingual encoder on SDXL is the
-    JAX ``ValueError``."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        load_pipeline(sd_checkpoint, fuse_qkv=True, device="cpu")
-    root, _ = sdxl_checkpoints
+    """``fuse_qkv=True``: the SD pipeline against the JAX one loaded with it
+    (atol 1e-3, its self attentions on ``to_qkv``), and SDXL with its
+    refiner, both UNets fused, against the port's unfused load (f32: the
+    same products, one GEMM for three; atol 1e-5).  A multilingual encoder
+    on SDXL is the JAX ``ValueError``."""
+    _, _, pipe = _compare(sd_checkpoint, dict(fuse_qkv=True), dict(fuse_qkv=True),
+                          _kw(scheduler="DDIM"))
+    names = dict(pipe.unet.named_modules())
+    assert pipe.unet.config.fuse_qkv and any(k.endswith("attn1.to_qkv") for k in names)
+    assert not any(k.endswith(("attn1.to_q", "attn2.to_qkv")) for k in names)
+    root, refiner = sdxl_checkpoints
+    kw = _kw(step_count=3, refiner_start=0.5, scheduler="DDIM")
+    fused, plain = (load_pipeline(root, refiner_dir=refiner, compute_dtype=torch.float32,
+                                  fuse_qkv=f, device="cpu") for f in (True, False))
+    assert fused.unet.config.fuse_qkv and fused.refiner_unet.config.fuse_qkv
+    np.testing.assert_allclose(
+        fused.generate_images(PipelineConfiguration(**kw), image_hw=HW).latents,
+        plain.generate_images(PipelineConfiguration(**kw), image_hw=HW).latents, atol=1e-5)
     for loader in (jax_load_pipeline, load_pipeline):
         with pytest.raises(ValueError, match="SD 1.x/2.x feature"):
             loader(root, multilingual_encoder=(object(), object()))

@@ -150,7 +150,8 @@ def test_import_pulls_in_no_jax():
         "        'models.multilingual', 'tokenizer.prompt_weights', 'utils.latent_preview',\n"
         "        'tokenizer.t5', 'models.t5', 'models.controlnet_sd3', 'convert.lora',\n"
         "        'convert.textual_inversion', 'convert.ip_adapter', 'convert.clip_vision',\n"
-        "        'models.clip_vision', 'models.ip_adapter', 'pipelines.program', 'serving'}\n"
+        "        'models.clip_vision', 'models.ip_adapter', 'pipelines.program', 'serving',\n"
+        "        'ops.int8', 'compress.w8a8', 'convert.optimize'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -133,3 +133,43 @@ def test_stage_bundles_are_the_jax_ones(sd_pair, tmp_path):
     assert _keys_and_modules(port_xl, jax_xl, "unet")["unet"] == [port_xl.unet]
     ref = _keys_and_modules(port_xl, jax_xl, "refiner")
     assert ref == {"refiner": [port_xl.refiner_unet], "controlnets": []}
+
+
+@pytest.mark.parametrize("offload", [True, False], ids=["offloaded", "in-place"])
+def test_staged_palettized_program_mode_matches_unstaged(offload, tmp_path):
+    """SDXL with its refiner, the base UNet, the refiner and CLIP-G served
+    palettized in program mode: each stage gathers only its own modules'
+    palettized weights (the JAX stage bundle's ``palettized`` side), and the
+    staged latents equal the unstaged program mode's bit for bit; between
+    calls the parameters are empty again, and offloaded indices wait in host
+    memory."""
+    import torch
+
+    from ml_stable_diffusion_torch.compress.palettize import palettize_tree
+
+    pipe = port_sdxl_pipeline(tmp_path)
+    for key, module in (("unet", pipe.unet), ("refiner", pipe.refiner_unet),
+                        ("text_encoder2", pipe.text_encoder2)):
+        tree, _ = palettize_tree(module, 4, min_size=256)
+        pipe.install_palettized(key, tree, dtype=torch.float32, mode="program")
+    kw = _kw(refiner_start=0.6)
+    ref = pipe.generate_images(PipelineConfiguration(**kw), image_hw=HW)
+    gathered = []
+    real = pipe._materialize_palettized
+
+    def spy(modules=None):
+        gathered.append({m for m, _, _ in pipe._palettized_modules(modules)})
+        return real(modules)
+
+    if offload:
+        pipe.offload_params_to_host()
+        pal = next(iter(pipe.palettized_side["unet"][0].values()))
+        assert pal.indices.device.type == "cpu"
+    pipe._materialize_palettized = spy
+    got = pipe.generate_images(PipelineConfiguration(**kw, reduce_memory=True), image_hw=HW)
+    np.testing.assert_array_equal(got.latents, ref.latents)
+    np.testing.assert_array_equal(got.images, ref.images)
+    stage_sets = [s for s in gathered if s]
+    assert stage_sets == [{pipe.text_encoder2}, {pipe.unet}, {pipe.refiner_unet}]
+    key = next(iter(pipe.palettized_side["unet"][0]))
+    assert pipe.unet.get_parameter(key).numel() == 0

@@ -117,18 +117,20 @@ def test_check_images_flags_and_blanks_as_in_jax():
 
 
 def test_check_images_applies_its_adjustment():
-    """The JAX ``check_images`` takes ``adjustment`` but does not pass it to
-    the model (its flags stay the unadjusted ones); the port's applies it,
-    as the JAX model does when it is given one."""
+    """``check_images`` takes ``adjustment`` and, as the JAX function does,
+    does not pass it to the model: the flags of both packages are the
+    unadjusted ones, equal, where the model given the adjustment flags
+    both images."""
     model, params, ims = _red_and_noise()
     pil = [Image.fromarray(im) for im in ims]
     batch = np.stack([np.asarray(im.resize((32, 32), Image.BICUBIC), np.float32) / 255.0
                       for im in pil])
-    want = [bool(f) for f in np.asarray(
+    adjusted = [bool(f) for f in np.asarray(
         model.apply({"params": params}, jnp.asarray(batch), adjustment=1.0)["has_nsfw"])]
-    assert want == [True, True]
+    assert adjusted == [True, True]
+    want = jax_check_images(model, params, pil, adjustment=1.0)[1]
+    assert sorted(want) == [False, True]
     assert check_images(port_safety_checker(model, params), ims, adjustment=1.0)[1] == want
-    assert sorted(jax_check_images(model, params, pil, adjustment=1.0)[1]) == [False, True]
 
 
 def test_safety_checker_stays_on_the_plain_path(monkeypatch):
