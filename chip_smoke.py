@@ -159,7 +159,7 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    after its main path: one eager generation (``execution = "eager"``) and
    one captured with the same prompt and seed, their latents and images
    bit-equal and their own launch counts the main path's; the eager
-   generation's s/step and the median of 3 captured replays'; the program's capture
+   generation's s/step and one captured replay's; the program's capture
    seconds and pool bytes; the device's busy share of one generation of
    each under the profiler, and the profiler's kernel records of the
    port's kernels held against the credited launch counts.
@@ -183,7 +183,7 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    shapes and its largest 3x3 convolution; ``enable_w8a8()`` (ConstantScales,
    dense) and ``enable_w8a8(include_convs=True)``: int8 layers against the
    profiler's ``aten::_int_mm`` records in one UNet call, 301 flash a
-   generation, warm-up then the median of 3 captured s/step in turns with
+   generation, warm-up then one captured replay's s/step in turns with
    phase 3's pipeline (whose UNet stays byte for byte, and whose replay
    gives its own latents again), busy share, the UNet's bytes; a calibrated
    (two calls) W8A8 UNet with variance-preserving weights against the float
@@ -191,7 +191,7 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    each distinct int8 layer shape's quantize, ``_int_mm`` and rescale
    device ms against bf16 ``F.linear``/``F.conv2d``, with bounds.
 27. W8A8 (dense) on phase 7's SDXL base and phase 5's SD3 modules: warm-up
-   and the median of 3 captured s/step in turns with the bf16 pipeline,
+   and one captured replay's s/step in turns with the bf16 pipeline,
    every generation's counts the bf16 path's (1401 flash and 680 GroupNorm;
    480 multi-stream), busy share, the denoiser's bytes.
 28. Phase 20's diffusers directory, kept until here, loaded with
@@ -202,6 +202,18 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    program mode, both peaks; SDXL base W8A8 on copies of phase 7's modules,
    offloaded and staged, latents bit-equal to phase 27's unstaged ones,
    the int8 buffers packed with the base UNet, each stage's bytes.
+30. Training at full width (``parallel/train.py``), run after phase 23 on
+   phase 3's pipeline: one captured SD-2.1 generation under
+   ``utils.profiling.trace``, its flash family the kernels of its 301
+   launches, and ``cost_summary``'s flops for one UNet forward at batch 2
+   beside a count from the layers' shapes; then the SD-2.1 UNet in float32
+   (seeded N(0, 0.02) weights), AdamW at lr 1e-5, one batch of 2 latents
+   of 4x64x64 and a 77x1024 context: three steps with fixed draws without
+   and with remat, the loss falling, s/step, samples/s and peak memory, no
+   kernel launched; every kernel wrapper raising on CUDA inputs that
+   require grad; the state saved and restored bit for bit, the next step's
+   loss equal from both under deterministic algorithms; one step under the
+   trace.
    Each phase group's seconds and the whole run's are printed.
 
 The main paths run their captured programs (pipelines/program.py): each
@@ -2673,7 +2685,7 @@ def run_graphs_vs_eager(pipe, path, counters):
     """Phase 23 on ``path``'s pipeline, its programs cleared first: one eager
     and one captured generation of one prompt and seed (latents and images
     bit-equal, each launching the path's counts), the eager one's s/step and
-    the median of 3 captured replays', the captures' seconds and pool bytes,
+    one captured replay's, the captures' seconds and pool bytes,
     and one generation of each under the profiler: busy share, and the
     port's kernel records against the launches counted (credited, for the
     replay)."""
@@ -2715,13 +2727,10 @@ def run_graphs_vs_eager(pipe, path, counters):
                      capture_s=secs, pool_bytes=pool)
                 for key, secs, pool in pipe.programs.captures[first:]]
     # the eager loop's s/step is its one generation's above; the captured
-    # program's the median of 3 replays
-    sps = {"eager": [eager.seconds_per_step],
-           "program": [run("program", 1 + i)[0].seconds_per_step for i in range(3)]}
+    # program's one replay's (captured s/step moves under 3 % between replays)
+    sps = {"eager": [eager.seconds_per_step], "program": [run("program", 1)[0].seconds_per_step]}
     profiled = {}
     for mode in ("eager", "program"):
-        if mode == "program":
-            run(mode, 4)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2742,7 +2751,7 @@ def run_graphs_vs_eager(pipe, path, counters):
                profiled=profiled, memory_reserved_gib=reserved_gib())
     log(f"phase 23, {path}: captured latents and images bit-equal to the eager loop's; "
         f"s/step eager {out['seconds_per_step']['eager'] * 1e3:.2f} ms (one generation), "
-        f"captured {out['seconds_per_step']['program'] * 1e3:.2f} ms (median of 3); device "
+        f"captured {out['seconds_per_step']['program'] * 1e3:.2f} ms (one replay); device "
         f"busy {100 * profiled['eager']['device_busy_share']:.1f} % eager, "
         f"{100 * profiled['program']['device_busy_share']:.1f} % captured; captures "
         + ", ".join(f"{c['program']} {c['capture_s']:.2f} s, pool {c['pool_bytes'] / 2**30:.3f} "
@@ -2960,9 +2969,9 @@ def generation_busy(pipe, path, i):
     return busy / 1e6 / wall, names
 
 
-def run_in_turns(pipes: dict, paths: dict, counters, rounds: int = 3):
+def run_in_turns(pipes: dict, paths: dict, counters, rounds: int = 1):
     """Each pipeline's warm-up (its capture) with generation 0 of its path,
-    then ``rounds`` generations of each in turns (1, 2, 3: phase 3's prompts
+    then ``rounds`` generations of each in turns (1, 2, ...: phase 3's prompts
     and seeds), every generation's own launches held to its path's; then one
     more of each under the profiler.  -> {label: dict(s/step median and
     runs, busy share, the results)}."""
@@ -3271,8 +3280,8 @@ def run_w8a8_sd21(pipe, counters, sd21_results):
         out.setdefault(label, {}).update(
             seconds_per_step=t["seconds_per_step"], seconds_per_step_runs=t["runs"],
             device_busy_share=t["device_busy_share"], latents_rel_vs_bf16=rel)
-        log(f"phase 26, {label}: {t['seconds_per_step'] * 1e3:.2f} ms/step (median of 3 in "
-            f"turns; runs {[round(s * 1e3, 2) for s in t['runs']]}), busy "
+        log(f"phase 26, {label}: {t['seconds_per_step'] * 1e3:.2f} ms/step (median of "
+            f"{len(t['runs'])} in turns; runs {[round(s * 1e3, 2) for s in t['runs']]}), busy "
             f"{100 * t['device_busy_share']:.1f} %, latents against bf16 {rel:.3g} (rel) "
             f"({card_line()})")
     out["phase3_replay_bit_equal"] = True
@@ -3422,7 +3431,7 @@ def run_w8a8_family(pipe, path, counters):
                           seconds_per_step_runs=t["runs"],
                           device_busy_share=t["device_busy_share"])
         log(f"phase 27, {path} {label}: {t['seconds_per_step'] * 1e3:.2f} ms/step (median of "
-            f"3 in turns; runs {[round(s * 1e3, 2) for s in t['runs']]}), busy "
+            f"{len(t['runs'])} in turns; runs {[round(s * 1e3, 2) for s in t['runs']]}), busy "
             f"{100 * t['device_busy_share']:.1f} % ({card_line()})")
     out["latents_rel_vs_bf16"] = latents_rel(turns["w8a8"]["results"][0].latents,
                                              turns["bf16"]["results"][0].latents)
@@ -3498,7 +3507,8 @@ def run_fuse_qkv(pipe, root: Path, counters, sd21_results):
     log(f"phase 28: fuse_qkv ({n} fused self-attention projections): latents "
         f"{'bit-equal' if same else 'DIFFERENT'} to phase 3's (rel RMS {rel:.3g}); s/step fused "
         f"{out['fused_seconds_per_step'] * 1e3:.2f} ms, unfused "
-        f"{out['unfused_seconds_per_step'] * 1e3:.2f} ms (median of 3 in turns; {card_line()})")
+        f"{out['unfused_seconds_per_step'] * 1e3:.2f} ms (one replay each, in turns; "
+        f"{card_line()})")
     if not same or n != 16:
         fail(f"fuse_qkv: {n} fused projections, latents bit-equal {same} (rel RMS {rel})")
     del fused
@@ -3586,6 +3596,302 @@ def run_palettized_staged(pipe, unstaged_latents):
     if not same:
         fail("palettized program mode: staged latents differ from unstaged, max abs "
              f"{float(np.abs(staged - unstaged).max())}")
+    return out
+
+
+# -- phase 30 -----------------------------------------------------------------------
+
+TRAIN_LR = 1e-5
+TRAIN_STEPS = 3
+TRAIN_BATCH = 2
+#: parameters of UNetConfig.sd21()
+SD21_UNET_PARAMS = 865_910_724
+
+
+def layer_flops_by_shapes(model, *inputs) -> int:
+    """One forward's flops worked out from shapes: 2 x the multiply-adds of
+    every convolution and linear layer (weight and output shapes), plus
+    attention's two products, 4 B Sq Sk C."""
+    from ml_stable_diffusion_torch.models.unet import Attention
+
+    total = 0
+
+    def conv(m, args, out):
+        nonlocal total
+        total += 2 * out.numel() * m.weight[0].numel()
+
+    def linear(m, args, out):
+        nonlocal total
+        total += 2 * out.numel() * m.in_features
+
+    def attn(m, args, out):
+        nonlocal total
+        x = args[0]
+        context = args[1] if len(args) > 1 and args[1] is not None else x
+        total += 4 * x.shape[0] * x.shape[1] * context.shape[1] * x.shape[2]
+
+    kinds = {torch.nn.Conv2d: conv, torch.nn.Linear: linear, Attention: attn}
+    hooks = [m.register_forward_hook(kinds[type(m)]) for m in model.modules()
+             if type(m) in kinds]
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total
+
+
+def print_summary(label: str, summary: dict, rows: int = 6):
+    log(f"{label}: {summary['total_ms_per_step']:.3f} ms of device time")
+    for key in ("by_category", "by_source"):
+        for r in summary[key][:rows]:
+            tf = "" if r["tflops"] is None else f", {r['tflops']:.2f} TFLOP/s"
+            log(f"  {key} {r['name']}: {r['us_per_step']:.1f} us, "
+                f"{r['launches_per_step']:g} launches{tf}")
+
+
+def run_generation_trace(pipe, counters) -> dict:
+    """Phase 30.4-30.5 on phase 3's pipeline, its program captured: one
+    SD-2.1 generation (a replay) under ``utils.profiling.trace``, its flash
+    family held to the kernels of the path's 301 wrapper launches; then
+    ``cost_summary`` of one UNet forward at CFG batch 2 on the plain
+    attention path, beside the count worked out from the layers' shapes."""
+    from ml_stable_diffusion_torch.ops.attention import AttentionImpl, set_attention_implementation
+    from ml_stable_diffusion_torch.ops.flash_attention import wide_f32_plan
+    from ml_stable_diffusion_torch.utils.profiling import cost_summary, trace, trace_summary
+
+    spec = PATHS["sd21"]
+    flash = spec["per_generation"]["flash_attention"]
+    # the VAE head is one wrapper launch of three kernels: the split pre-pass,
+    # the 3xTF32 kernel and, with kv splits, the combine pass
+    wide = 2 + int(wide_f32_plan([4096], 4096, 1, 1).splits > 1)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with trace(d):
+            _, launched, _ = launches_of(pipe, counters, lambda: pipe.generate_images(
+                main_cfg("sd21", 0), image_hw=spec["image_hw"]))
+        traced_s = time.perf_counter() - t0
+        summary = trace_summary(d, steps=1, top=8)
+    if launched != spec["per_generation"]:
+        fail(f"phase 30: the traced generation launched {launched}")
+    families = {r["name"]: r for r in summary["by_category"]}
+    got = families.get("flash", {}).get("launches_per_step")
+    if got != flash - 1 + wide:
+        fail(f"phase 30: the trace's flash family holds {got} kernels, want {flash - 1} bf16 "
+             f"+ {wide} for the VAE head")
+    print_summary("phase 30.4: SD-2.1 generation (captured) under trace", summary)
+
+    unet = pipe.unet
+    g = torch.Generator().manual_seed(30)
+    inputs = (torch.randn(2, 4, 64, 64, generator=g).cuda(), torch.tensor([999.0, 999.0]).cuda(),
+              torch.randn(2, 77, 1024, generator=g).cuda())
+    set_attention_implementation(AttentionImpl.PLAIN)
+    try:
+        with torch.inference_mode():
+            cost = cost_summary(unet, *inputs)
+        by_shapes = layer_flops_by_shapes(unet, *inputs)
+    finally:
+        set_attention_implementation(AttentionImpl.AUTO)
+    log(f"phase 30.5: cost_summary of one SD-2.1 UNet forward at batch 2 (bf16, plain "
+        f"attention): {cost['flops'] / 1e12:.4f} TFLOP against {by_shapes / 1e12:.4f} from the "
+        f"layers' shapes; compute bound {cost['compute_bound_ms']:.3f} ms, bandwidth bound "
+        f"{cost['bandwidth_bound_ms']:.3f} ms")
+    if cost["flops"] != by_shapes:
+        fail(f"phase 30.5: cost_summary counts {cost['flops']} flops, the shapes {by_shapes}")
+    return dict(generation_trace=summary, traced_generation_s=traced_s, flash_kernels=got,
+                unet_forward_cost=cost, unet_forward_flops_by_shapes=by_shapes)
+
+
+def check_kernels_refuse_grad(counters):
+    """Phase 30.2: each kernel wrapper on CUDA inputs that require grad
+    raises, and launches nothing."""
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_multi_q_cuda,
+        flash_attention_wide_f32_cuda,
+    )
+    from ml_stable_diffusion_torch.ops.groupnorm import group_norm_silu_cuda
+    from ml_stable_diffusion_torch.ops.palettized import palettized_dense_fused_cuda
+
+    def leaf(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device="cuda", dtype=dtype).requires_grad_(True)
+
+    q, k = leaf(2, 4096, 5, 64), leaf(2, 4096, 5, 64)
+    wide = leaf(1, 4096, 1, 512, dtype=torch.float32)
+    calls = {
+        "flash_attention_cuda": lambda: flash_attention_cuda(q, k, k),
+        "flash_attention_multi_q_cuda": lambda: flash_attention_multi_q_cuda([q], k, k),
+        "flash_attention_wide_f32_cuda": lambda: flash_attention_wide_f32_cuda([wide], wide, wide),
+        "group_norm_silu_cuda": lambda: group_norm_silu_cuda(
+            leaf(2, 320, 64, 64), leaf(320), leaf(320)),
+        "palettized_dense_fused_cuda": lambda: palettized_dense_fused_cuda(
+            leaf(64, 320), torch.zeros(320 * 320 * 6 // 8, dtype=torch.uint8, device="cuda"),
+            leaf(64), (320, 320)),
+    }
+    before = {name: fn.launches for name, fn in counters.items()}
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            raised[name] = str(e)
+        else:
+            fail(f"phase 30.2: {name} ran on inputs that require grad")
+    if {name: fn.launches for name, fn in counters.items()} != before:
+        fail("phase 30.2: a wrapper launched its kernel under grad")
+    log(f"phase 30.2: every wrapper raised under grad: {raised['flash_attention_cuda']}")
+    return sorted(raised)
+
+
+def train_steps(step_fn, state, batch, steps: int = TRAIN_STEPS):
+    """``steps`` steps on the fixed batch, the draws fixed (the generator
+    seeded alike before each) -> (state, losses, ms per step by CUDA
+    events)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        batch["generator"].manual_seed(TRAIN_BATCH * 1000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, loss = step_fn(state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    return state, losses, ms
+
+
+def check_restored_state(state, restored):
+    """Every parameter and optimizer moment, and the step, bit for bit."""
+    if restored.step != state.step:
+        fail(f"phase 30.3: restored step {restored.step}, saved {state.step}")
+    for name, p in state.params.items():
+        if not torch.equal(restored.params[name], p):
+            fail(f"phase 30.3: restored parameter {name} differs")
+    live, back = state.optimizer.state_dict(), restored.optimizer.state_dict()
+    moments = 0
+    for i, entry in live["state"].items():
+        for key, x in entry.items():
+            if not torch.equal(back["state"][i][key].to(x.device), x):
+                fail(f"phase 30.3: restored optimizer {key} of parameter {i} differs")
+            moments += key != "step"
+    return moments
+
+
+def run_training(counters) -> dict:
+    """Phase 30: the training step on the card at full width.  The SD-2.1
+    UNet (``UNetConfig.sd21()``, float32, seeded N(0, 0.02) weights), AdamW
+    at lr 1e-5, one batch of 2 latents of 4x64x64 and a 77x1024 context from
+    seeded host noise; three steps on it with fixed draws, without and then
+    with remat: the loss finite and falling, s/step (median, CUDA events),
+    samples/s, peak memory, and no kernel launched.  Then each wrapper's
+    raise under grad (30.2), the checkpoint saved and restored bit for bit
+    with the next step's loss equal under deterministic algorithms (30.3),
+    and one step under ``utils.profiling.trace`` (30.4)."""
+    import os
+
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from ml_stable_diffusion_torch.parallel import (
+        adamw,
+        make_train_step,
+        restore_train_state,
+        save_train_state,
+    )
+    from ml_stable_diffusion_torch.utils.profiling import trace, trace_summary
+
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(UNetConfig.sd21())
+    unet = materialize(unet, torch.Generator(device="cuda").manual_seed(30), torch.float32)
+    n_params = sum(p.numel() for p in unet.parameters())
+    if n_params != SD21_UNET_PARAMS:
+        fail(f"phase 30: the SD-2.1 UNet has {n_params} parameters, want {SD21_UNET_PARAMS}")
+    host = torch.Generator().manual_seed(30)
+    batch = {"latents": torch.randn(TRAIN_BATCH, 4, 64, 64, generator=host).cuda(),
+             "context": torch.randn(TRAIN_BATCH, 77, 1024, generator=host).cuda(),
+             "generator": torch.Generator(device="cuda")}
+    out = {"parameters": n_params}
+    states = {}
+    reset_counters(counters)
+    for remat in (False, True):
+        init_fn, step_fn = make_train_step(unet, adamw(TRAIN_LR), remat=remat, device="cuda")
+        free_card()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, ms = train_steps(step_fn, init_fn(), batch)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"phase 30 (remat={remat}): losses {losses} not finite and falling")
+        sps = statistics.median(ms) / 1e3
+        key = "remat" if remat else "no_remat"
+        out[key] = dict(losses=losses, ms_per_step=ms, seconds_per_step=sps,
+                        samples_per_s=TRAIN_BATCH / sps, peak_gib=peak / 2**30,
+                        peak_over_start_gib=(peak - base) / 2**30)
+        log(f"phase 30 (remat={remat}): losses {losses}; {sps * 1e3:.2f} ms/step (median of "
+            f"{TRAIN_STEPS}, events: {[round(x, 2) for x in ms]}), {TRAIN_BATCH / sps:.2f} "
+            f"samples/s, peak {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} over the "
+            f"{base / 2**30:.3f} GiB at its start)")
+        states[key] = (state, init_fn, step_fn)
+        if remat:
+            if not torch.equal(torch.tensor(losses), torch.tensor(out["no_remat"]["losses"])):
+                log(f"phase 30: remat losses {losses} against {out['no_remat']['losses']}")
+            del state
+            states.pop(key)
+    launched = {name: fn.launches for name, fn in counters.items()}
+    if any(launched.values()):
+        fail(f"phase 30: training launched {launched}; its paths are the plain ones")
+    out["launches_in_training"] = launched
+    out["refused_under_grad"] = check_kernels_refuse_grad(counters)
+
+    # 30.3: the checkpoint round trip of the remat=False state
+    state, init_fn, step_fn = states.pop("no_remat")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_train_state(d, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = restore_train_state(d, init_fn())
+        restore_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).iterdir())
+    moments = check_restored_state(state, restored)
+    wanted = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        next_losses = []
+        for s in (state, restored):
+            batch["generator"].manual_seed(TRAIN_BATCH * 1000)
+            next_losses.append(float(step_fn(s, batch)[1]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if wanted is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = wanted
+    if next_losses[0] != next_losses[1]:
+        fail(f"phase 30.3: the next step's loss {next_losses[1]} from the restored state, "
+             f"{next_losses[0]} from the live one")
+    out["checkpoint"] = dict(bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s,
+                             moments=moments, next_step_loss=next_losses[0])
+    log(f"phase 30.3: checkpoint of {ckpt_bytes / 2**30:.3f} GiB saved in {save_s:.2f} s, "
+        f"restored in {restore_s:.2f} s; {len(state.params)} parameters, {moments} AdamW "
+        f"moments and the step bit-equal; the next step's loss {next_losses[0]!r} from both")
+    del state
+
+    # 30.4: one training step under the trace
+    with tempfile.TemporaryDirectory() as d:
+        reset_counters(counters)
+        with trace(d):
+            batch["generator"].manual_seed(TRAIN_BATCH * 1000)
+            step_fn(restored, batch)
+        summary = trace_summary(d, steps=1, top=8)
+    if any(fn.launches for fn in counters.values()) or any(
+            r["name"] == "flash" for r in summary["by_category"]):
+        fail("phase 30.4: the traced training step launched a hand-written kernel")
+    print_summary("phase 30.4: one training step (remat=False) under trace", summary)
+    out["step_trace"] = summary
+    del restored, unet
+    free_card()
     return out
 
 
@@ -4230,7 +4536,7 @@ def main():
         log(f"main path {path}: {PATHS[path]['label']}: "
             f"{res['seconds_per_step'] * 1e3:.2f} ms/step, {res['iter_per_s']:.2f} iter/s, "
             f"{res['seconds_per_image']:.3f} s/image ({card}){plain}; "
-            f"launches {res['launches']}{captured}")
+            f"launches {res['launches']}{captured}; at {time.perf_counter() - t_start:.1f} s")
 
     check_unet_calls()
     schedulers = inpainting = None
@@ -4238,13 +4544,17 @@ def main():
     sd3_checks, adapters, results = {}, {}, {"sd21": [], "sd3": [], "sdxl": []}
     #: phase 23 by path; phases 24 and 25
     graphs, reduce_memory, serving = {}, None, None
-    #: phases 26 and 27 by path, 28, 29; seconds of the new phases
-    w8a8, fuse_qkv, staged, phase_s = {}, {}, {}, {}
+    #: phases 26 and 27 by path, 28, 29, 30; seconds of phases 26 to 30
+    w8a8, fuse_qkv, staged, training, phase_s = {}, {}, {}, {}, {}
 
     def sd21_more(pipe):
-        """Phases 23, 26, 25, 12, 13, 20 and 28 on phase 3's pipeline."""
+        """Phases 23, 30, 26, 25, 12, 13, 20 and 28 on phase 3's pipeline."""
         nonlocal schedulers, inpainting, serving
         graphs["sd21"] = run_graphs_vs_eager(pipe, "sd21", counters)
+        t1 = time.perf_counter()
+        training.update(run_generation_trace(pipe, counters))
+        training.update(run_training(counters))
+        phase_s["30"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         w8a8["sd21"], w8 = run_w8a8_sd21(pipe, counters, results["sd21"])
         phase_s["26"] = time.perf_counter() - t1
@@ -4411,9 +4721,10 @@ def main():
                     "sd3_t5_controlnet_loader": sd3_checks, "adapters": adapters,
                     "graphs_vs_eager": graphs, "reduce_memory": reduce_memory,
                     "serving": serving, "w8a8": w8a8, "fuse_qkv": fuse_qkv, "staged": staged,
+                    "training": training,
                     "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
-    log(f"seconds of phases 26 to 29: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+    log(f"seconds of phases 26 to 30: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f"; the whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

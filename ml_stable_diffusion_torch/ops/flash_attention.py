@@ -369,6 +369,9 @@ def _checked(who, qs, k, v):
     return [_vector_ready(q) for q in qs], _vector_ready(k), _vector_ready(v)
 
 
+_PLAIN = "the plain attention path (AttentionImpl.PLAIN)"
+
+
 def _raise_on(rc, what, k):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error {rc} "
@@ -441,6 +444,7 @@ def flash_attention_wide_f32_cuda(qs, k, v):
     pre-pass (``flash_split_tf32_cuda``), then the main kernel and, with kv
     splits, the combine pass; -> one output per stream.  Takes what
     ``_checked`` has passed, and checks it again."""
+    cuda_build.refuse_grad("flash_attention_wide_f32_cuda", _PLAIN, *qs, k, v)
     qs, k, v = _checked("flash_attention_wide_f32_cuda", list(qs), k, v)
     B, Sk, H, D = k.shape
     if k.dtype != torch.float32 or D != WIDE_D:
@@ -467,6 +471,7 @@ def _wide_f32(q):
 def flash_attention_cuda(q, k, v):
     """softmax(q k^T / sqrt(D)) v over (B, S, H, D) CUDA tensors, by the
     hand-written kernel.  Raises for anything the kernel does not take."""
+    cuda_build.refuse_grad("flash_attention_cuda", _PLAIN, q, k, v)
     (q,), k, v = _checked("flash_attention_cuda", [q], k, v)
     if _wide_f32(q):
         out = flash_attention_wide_f32_cuda([q], k, v)[0]
@@ -494,6 +499,7 @@ def flash_attention_multi_q_cuda(qs, k, v):
     one launch of the hand-written kernel; -> one output per stream.
     Raises for anything the kernel does not take."""
     qs = list(qs)
+    cuda_build.refuse_grad("flash_attention_multi_q_cuda", _PLAIN, *qs, k, v)
     if not 1 <= len(qs) <= MAX_STREAMS:
         raise ValueError(f"flash_attention_multi_q_cuda takes 1 to {MAX_STREAMS} "
                          f"query streams, got {len(qs)}")

@@ -158,6 +158,8 @@ def group_norm_silu_cuda(x, gamma, beta, groups: int = 32, eps: float = 1e-5,
                          apply_silu: bool = True):
     """GroupNorm(+SiLU) of a contiguous NCHW CUDA tensor by the hand-written
     kernel.  Raises for anything the kernel does not take."""
+    cuda_build.refuse_grad("group_norm_silu_cuda", "the plain path (a UNet built with "
+                           "fused_groupnorm=False, or group_norm_silu_reference)", x, gamma, beta)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_silu_cuda needs CUDA tensors; x is on {x.device}")
     _check_groups(x, groups)

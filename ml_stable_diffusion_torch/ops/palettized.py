@@ -222,6 +222,8 @@ def _kernel():
 def palettized_dense_fused_cuda(x, indices, lut, shape, bias=None):
     """The fused op on CUDA tensors by the hand-written kernel.  Raises for
     anything the kernel does not take."""
+    cuda_build.refuse_grad("palettized_dense_fused_cuda",
+                           "palettized_dense (the gathered weight's matmul)", x, lut, bias)
     if x.device.type != "cuda":
         raise ValueError(f"palettized_dense_fused_cuda needs CUDA tensors; x is on {x.device}")
     _check(x, indices, lut, shape)

@@ -20,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -28,6 +30,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: dict[str, ctypes.CDLL] = {}
 #: name -> (seconds, nvcc's ptxas report) of the build this process ran
 build_reports: dict[str, tuple[float, str]] = {}
+
+
+def refuse_grad(who: str, plain: str, *tensors):
+    """Raise ``RuntimeError`` when autograd would need a gradient through a
+    hand-written kernel.  A kernel fills a ``torch.empty`` through ctypes, so
+    its output has no ``grad_fn`` and a backward pass would stop there
+    without a word; the kernels have no backward, as the JAX package's
+    Pallas kernels have none.  ``plain``: the differentiable path to name."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{who} has no backward: an input requires grad with grad mode "
+                           f"on; run {plain}")
 
 
 def _nvcc() -> str:

@@ -17,6 +17,8 @@ Tolerances, each with its reason:
 - artifacts and ``from_jax``: exact.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import json
 
 import jax

@@ -12,6 +12,8 @@
   atol 1e-3; each generation moved by its nets.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np
@@ -46,8 +48,16 @@ from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
 from ml_stable_diffusion_torch.pipelines import PipelineConfiguration, StableDiffusionXLPipeline
 from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
 
-from helpers import CTX_DIM, randomize_params, tiny_text_encoder, tiny_tokenizer, tiny_unet, tiny_vae
-from torch_helpers import _load, pipelines, port_controlnet
+from helpers import CTX_DIM, randomize_params, tiny_tokenizer
+from torch_helpers import (
+    _load,
+    pipelines,
+    port_controlnet,
+    tiny_text_encoder,
+    tiny_unet,
+    tiny_vae,
+    traced,
+)
 
 HW = (64, 64)
 XL_CTX = 2 * CTX_DIM
@@ -57,17 +67,18 @@ POOLED = 32
 def _controlnet(seed, xl=False, cross_dim=CTX_DIM):
     """A tiny Flax ControlNet on the tiny UNet's config (SDXL: ``text_time``,
     no up blocks), seeded N(0, 0.2) weights."""
-    cfg = tiny_unet(cross_dim=cross_dim, xl=xl)[0].config
+    cfg = traced(tiny_unet, cross_dim=cross_dim, xl=xl)[0].config
     if xl:
         cfg = dataclasses.replace(cfg, up_block_types=())
     model = JaxControlNet(cfg)
     kw = {}
     if xl:
         kw["added_cond"] = {"text_embeds": jnp.zeros((1, POOLED)), "time_ids": jnp.zeros((1, 6))}
-    params = jax.jit(lambda k: model.init(k, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
-                                          jnp.zeros((1, 77, cross_dim)),
-                                          jnp.zeros((1, 64, 64, 3)), **kw))(
-        jax.random.key(5))["params"]
+    # the seeded weights replace the init's: its shapes are enough
+    params = jax.eval_shape(lambda k: model.init(k, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
+                                                 jnp.zeros((1, 77, cross_dim)),
+                                                 jnp.zeros((1, 64, 64, 3)), **kw),
+                            jax.random.key(5))["params"]
     return model, randomize_params(params, seed)
 
 
@@ -160,7 +171,7 @@ def test_unet_with_residuals_matches_flax(shallow):
     """Random residuals (float32, as a ControlNet gives them) into every skip
     and the mid block; on the DeepCache shallow pass the first skips take
     theirs and the mid residual is dropped."""
-    model, params = tiny_unet()
+    model, params = traced(tiny_unet)
     params = randomize_params(params, 62)
     port = _load(UNet2DConditionModel, UNetConfig, model, params, unet_state_dict)
     rng = np.random.RandomState(3)
@@ -238,10 +249,11 @@ def test_controlnet_count_mismatch_raises_as_in_jax(sd_pairs):
 def test_nine_channel_unet_with_controlnet_matches_jax(tmp_path):
     """A 9-channel inpainting UNet: the ControlNet sees the 4-channel
     latents."""
-    model, _ = tiny_unet()
+    model, _ = traced(tiny_unet)
     unet = JaxUNet(dataclasses.replace(model.config, in_channels=9))
-    unet_p = jax.jit(unet.init)(jax.random.key(1), jnp.zeros((1, 8, 8, 9)), jnp.zeros((1,)),
-                                jnp.zeros((1, 77, CTX_DIM)))["params"]
+    # pipelines() seeds every weight: the init's shapes are enough
+    unet_p = jax.eval_shape(unet.init, jax.random.key(1), jnp.zeros((1, 8, 8, 9)),
+                            jnp.zeros((1,)), jnp.zeros((1, 77, CTX_DIM)))["params"]
     jax_pipe, port_pipe = pipelines(tmp_path, weight_seed=73, unet=(unet, unet_p), encoder=True,
                                     controlnets=[_controlnet(74)])
     mask = np.zeros((64, 64), np.float32)
@@ -262,9 +274,10 @@ def test_sdxl_pipeline_with_controlnet_matches_jax(tmp_path):
     tok1, tok2 = tmp_path / "l", tmp_path / "g"
     tok1.mkdir()
     tok2.mkdir()
-    (te1, p1), (te2, p2) = tiny_text_encoder(), tiny_text_encoder(use_projection=True)
-    unet, up = tiny_unet(cross_dim=XL_CTX, xl=True)
-    (dec, dp), _ = tiny_vae()
+    (te1, p1), (te2, p2) = traced(tiny_text_encoder), traced(tiny_text_encoder,
+                                                             use_projection=True)
+    unet, up = traced(tiny_unet, cross_dim=XL_CTX, xl=True)
+    (dec, dp), _ = traced(tiny_vae)
     p1, p2, up, dp = (randomize_params(p, s) for p, s in ((p1, 81), (p2, 82), (up, 83), (dp, 84)))
     net = _controlnet(85, xl=True, cross_dim=XL_CTX)
     jax_pipe = JaxSDXL(tokenizer=tiny_tokenizer(tok1), tokenizer2=tiny_tokenizer(tok2),

@@ -20,6 +20,8 @@ embedding and projections too, so the residuals move the latents):
   together, and the T5 encoder on (tests/test_torch_sd3.py runs it off).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import copy
 import dataclasses
 
@@ -74,8 +76,9 @@ def _rel_rms(got, ref):
 
 def _flax_mmdit(depth, seed):
     model = JaxMMDiT(JaxMMDiTConfig(depth=depth, **MM))
-    params = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 8, 8, 16)), jnp.zeros((1,)),
-                                 jnp.zeros((1, 10, MM_CTX)), jnp.zeros((1, POOLED)))["params"]
+    params = jax.eval_shape(model.init, jax.random.key(0), jnp.zeros((1, 8, 8, 16)),
+                            jnp.zeros((1,)), jnp.zeros((1, 10, MM_CTX)),
+                            jnp.zeros((1, POOLED)))["params"]
     return model, randomize_params(params, seed)
 
 
@@ -84,8 +87,8 @@ def _flax_controlnet(num_layers, seed, force_zeros=True, depth=2):
                       force_zeros_for_pooled_projection=force_zeros)
     model = JaxCN(cfg)
     z = jnp.zeros((1, 8, 8, 16))
-    params = jax.jit(model.init)(jax.random.key(1), z, jnp.zeros((1,)),
-                                 jnp.zeros((1, 10, MM_CTX)), jnp.zeros((1, POOLED)), z)["params"]
+    params = jax.eval_shape(model.init, jax.random.key(1), z, jnp.zeros((1,)),
+                            jnp.zeros((1, 10, MM_CTX)), jnp.zeros((1, POOLED)), z)["params"]
     return model, randomize_params(params, seed)
 
 
@@ -202,7 +205,7 @@ def parts(pair):
     cfg = JaxVAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
                        norm_num_groups=4, latent_channels=16, use_quant_conv=False)
     enc = JaxVAEEncoder(cfg)
-    ep = randomize_params(jax.jit(enc.init)(jax.random.key(5), jnp.zeros((1, 64, 64, 3)))[
+    ep = randomize_params(jax.eval_shape(enc.init, jax.random.key(5), jnp.zeros((1, 64, 64, 3)))[
         "params"], 35)
     nets = [_flax_controlnet(2, 43 + i, force_zeros=fz) for i, fz in enumerate((True, False))]
     return dict(jax_pipe=jax_pipe, port_pipe=port_pipe, enc=(enc, ep),
@@ -250,8 +253,8 @@ def test_generation_with_t5_matches_jax(parts, tmp_path):
     tok_json = _unigram_json(tmp_path)
     cfg = dict(vocab_size=256, d_model=MM_CTX, d_kv=16, d_ff=64, num_layers=2, num_heads=4)
     t5 = JaxT5Encoder(JaxT5Config(**cfg))
-    t5_p = randomize_params(jax.jit(t5.init)(jax.random.key(6), jnp.ones((1, T5_LEN), jnp.int32),
-                                             jnp.ones((1, T5_LEN), jnp.int32))["params"], 36)
+    ids = jnp.ones((1, T5_LEN), jnp.int32)
+    t5_p = randomize_params(jax.eval_shape(t5.init, jax.random.key(6), ids, ids)["params"], 36)
     port_t5 = T5Encoder(T5Config(**cfg))
     port_t5.load_state_dict(t5_state_dict(jax.tree.map(np.asarray, t5_p)), strict=True)
     jax_pipe, port_pipe = (copy.copy(parts[k]) for k in ("jax_pipe", "port_pipe"))

@@ -11,6 +11,8 @@ a feature from a full pass on the same inputs equal to that pass bit for
 bit.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch
@@ -33,14 +35,8 @@ from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
 from ml_stable_diffusion_torch.tokenizer import prompt_weights as port_pw
 from ml_stable_diffusion_torch.utils.latent_preview import latent_to_rgb_preview
 
-from helpers import (
-    CTX_DIM,
-    fake_multilingual_embedder,
-    randomize_params,
-    tiny_tokenizer,
-    tiny_unet,
-)
-from torch_helpers import _load, pipelines, port_multilingual
+from helpers import CTX_DIM, fake_multilingual_embedder, randomize_params, tiny_tokenizer
+from torch_helpers import _load, pipelines, port_multilingual, tiny_unet, traced
 
 HW = (64, 64)
 WORDS = ["cat", "dog", "fox", "owl", "bat", "elk", "hen", "ram"]
@@ -230,7 +226,7 @@ def test_deepcache_guards_match_jax(pair, kw, handler):
 
 @pytest.fixture(scope="module")
 def unet_pair():
-    model, params = tiny_unet()
+    model, params = traced(tiny_unet)
     params = randomize_params(params, 91)
     return model, params, _load(UNet2DConditionModel, UNetConfig, model, params,
                                 unet_state_dict)
@@ -284,7 +280,7 @@ def test_shallow_pass_on_its_own_feature_is_the_full_forward(unet_pair):
 
 def _projection(seed=93):
     model = JaxProjection(CTX_DIM)
-    params = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 4, 512)))["params"]
+    params = jax.eval_shape(model.init, jax.random.key(0), jnp.zeros((1, 4, 512)))["params"]
     return model, randomize_params(params, seed, scale=0.05)
 
 

@@ -12,6 +12,8 @@ card's check can tell the two apart.  Also: the tf32 rounding, the
 pre-pass's plain version and the launch plan.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,8 @@ port's unfused UNet on the same weights (atol 1e-5: one GEMM of 3C outputs
 for three of C, the same products summed in another blocking).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np
@@ -24,7 +26,8 @@ from ml_stable_diffusion_torch.convert.from_jax import unet_state_dict
 from ml_stable_diffusion_torch.convert.optimize import fuse_qkv_params
 from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
 
-from helpers import CTX_DIM, randomize_params, tiny_unet
+from helpers import CTX_DIM, randomize_params
+from torch_helpers import tiny_unet
 
 
 def _pair(xl):

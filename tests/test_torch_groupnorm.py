@@ -14,6 +14,8 @@ x = a_c * z + b_c with per-channel scales in [0.5, 2] and offsets in
 [-2, 2].  On the CPU the kernel is never launched.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

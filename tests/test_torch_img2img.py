@@ -13,6 +13,8 @@ rtol 1e-6, since XLA's and PyTorch's float32 ``exp`` differ by one ulp on
 about a tenth of inputs), and the JAX pipeline's ValueErrors.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import copy
 import dataclasses
 
@@ -33,8 +35,8 @@ from ml_stable_diffusion_torch.models.vae import sample_diagonal_gaussian
 from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 from ml_stable_diffusion_torch.schedulers import SCHEDULER_MAP
 
-from helpers import CTX_DIM, tiny_unet
-from torch_helpers import pipelines
+from helpers import CTX_DIM
+from torch_helpers import pipelines, tiny_unet, traced
 
 HW = (64, 64)
 SEED = 21
@@ -51,15 +53,16 @@ _MASK[:, 31:33] = 0.5
 
 
 def _unet(in_channels=4, heads=(2, 2), channels=(16, 32), time_cond_proj_dim=None):
-    """A tiny Flax SD UNet with these settings, Flax-initialised."""
+    """A tiny Flax SD UNet with these settings and its params' shapes
+    (``pipelines`` seeds every weight)."""
     if time_cond_proj_dim:
-        return tiny_unet(time_cond_proj_dim=time_cond_proj_dim)
-    model, _ = tiny_unet()
+        return traced(tiny_unet, time_cond_proj_dim=time_cond_proj_dim)
+    model, _ = traced(tiny_unet)
     cfg = dataclasses.replace(model.config, in_channels=in_channels,
                               num_attention_heads=heads, block_out_channels=channels)
     model = JaxUNet(cfg)
-    params = jax.jit(model.init)(jax.random.key(1), jnp.zeros((1, 8, 8, in_channels)),
-                                 jnp.zeros((1,)), jnp.zeros((1, 77, CTX_DIM)))["params"]
+    params = jax.eval_shape(model.init, jax.random.key(1), jnp.zeros((1, 8, 8, in_channels)),
+                            jnp.zeros((1,)), jnp.zeros((1, 77, CTX_DIM)))["params"]
     return model, params
 
 

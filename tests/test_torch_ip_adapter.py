@@ -18,6 +18,8 @@
   packages; SD3 refuses an IP-Adapter in both.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import functools
 
 import numpy as np
@@ -46,16 +48,16 @@ from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 
 import test_torch_controlnet as cnt
 import test_torch_sdxl as xlt
-from helpers import CTX_DIM, randomize_params, tiny_unet
+from helpers import CTX_DIM, randomize_params
 from test_ip_adapter import _plus_image_proj
-from torch_helpers import pipelines, sd3_pipelines, sdxl_pipelines
+from torch_helpers import pipelines, sd3_pipelines, sdxl_pipelines, tiny_unet, traced
 
 HW = (64, 64)
 VISION = dict(image_size=16, patch_size=8, hidden_size=16, intermediate_size=32,
               num_hidden_layers=2, num_attention_heads=2, projection_dim=8)
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: the tiny Flax UNet, initialised once for the module
-_tiny_unet = functools.cache(tiny_unet)
+_tiny_unet = functools.cache(functools.partial(traced, tiny_unet))
 
 
 def _port_names(paths):

@@ -14,6 +14,8 @@ files are the state dicts of port modules with seeded weights (the port's
 keys are diffusers'; the JAX loader reading them checks that).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import json
 
 import numpy as np

@@ -16,6 +16,9 @@
   their pipelines' parity tests (1e-3), and ``clear_loras`` bit-exact.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
+import dataclasses
 import functools
 
 import numpy as np
@@ -43,8 +46,16 @@ from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 import test_lora
 import test_torch_sd3 as sd3t
 import test_torch_sdxl as xlt
-from helpers import flax_params_to_diffusers_sd, randomize_params, tiny_text_encoder, tiny_unet
-from torch_helpers import _load, pipelines, sd3_pipelines, sdxl_pipelines
+from helpers import flax_params_to_diffusers_sd, randomize_params
+from torch_helpers import (
+    _load,
+    pipelines,
+    sd3_pipelines,
+    sdxl_pipelines,
+    tiny_text_encoder,
+    tiny_unet,
+    traced,
+)
 
 HW = (64, 64)
 GEN = dict(prompt="a cat", negative_prompt="blurry", step_count=2, guidance_scale=5.0,
@@ -116,31 +127,35 @@ def test_formats_parse_to_the_same_deltas_as_jax():
 @functools.cache
 def _tiny(kind):
     """The tiny Flax models, initialised once for the module."""
-    if kind == "unet_xl":
-        return tiny_unet(cross_dim=xlt.XL_CTX, xl=True)
-    return {"te": tiny_text_encoder, "unet": tiny_unet, "mmdit": sd3t._tiny_mmdit}[kind]()
+    return {"te": tiny_text_encoder, "unet": tiny_unet}[kind]()
+
+
+def _port(cls, cfg_cls, model):
+    return cls(cfg_cls(**dataclasses.asdict(model.config)))
 
 
 @functools.cache
 def _families():
-    """family -> (port module, Flax params, JAX translator, target,
-    Flax-path -> port key, extra names the JAX walk reads its own way)."""
-    (te, te_p), (unet, unet_p), (xl, xl_p), (mm, mm_p) = (
-        _tiny(k) for k in ("te", "unet", "unet_xl", "mmdit"))
+    """family -> (port module (its weights are not read), Flax params or their
+    shapes, JAX translator, target, Flax-path -> port key, extra names the
+    JAX walk reads its own way)."""
+    (te, te_p), (unet, unet_p) = _tiny("te"), _tiny("unet")
+    xl, xl_p = traced(tiny_unet, cross_dim=xlt.XL_CTX, xl=True)
+    mm, mm_p = sd3t._tiny_mmdit()
     unet_extra = ["down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_out.1",
                   "down_blocks.0.attentions.0.transformer_blocks.0.ff.net.1",
                   "down_blocks.0.attentions", "conv_norm_out", "add_embedding.linear_1",
                   "time_embedding.linear_1", "up_blocks.1.upsamplers.0.conv"]
     return {
-        "unet": (_load(UNet2DConditionModel, UNetConfig, unet, unet_p, unet_state_dict), unet_p,
+        "unet": (_port(UNet2DConditionModel, UNetConfig, unet), unet_p,
                  JL.unet_flax_path, "unet", unet_state_dict, unet_extra),
-        "unet_xl": (_load(UNet2DConditionModel, UNetConfig, xl, xl_p, unet_state_dict), xl_p,
+        "unet_xl": (_port(UNet2DConditionModel, UNetConfig, xl), xl_p,
                     JL.unet_flax_path, "unet", unet_state_dict, unet_extra),
-        "clip": (_load(CLIPTextEncoder, CLIPTextConfig, te, te_p, clip_text_state_dict), te_p,
+        "clip": (_port(CLIPTextEncoder, CLIPTextConfig, te), te_p,
                  JL.clip_flax_path, "text_encoder", clip_text_state_dict,
                  ["text_model.encoder.layers.0.self_attn.fc1", "layers.1.mlp.q_proj",
                   "encoder.layers.0.self_attn.q_proj", "text_model.encoder.layers.7.mlp.fc1"]),
-        "mmdit": (_load(MMDiT, MMDiTConfig, mm, mm_p, mmdit_state_dict), mm_p,
+        "mmdit": (_port(MMDiT, MMDiTConfig, mm), mm_p,
                   JL.mmdit_flax_path, "transformer", mmdit_state_dict,
                   ["transformer_blocks.0.attn.to_q.extra", "transformer_blocks.1.attn.to_add_out",
                    "transformer_blocks.1.ff_context.net.2", "pos_embed.proj"]),

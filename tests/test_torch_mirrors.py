@@ -7,6 +7,8 @@ SDXL's mirrored head indexing, and the MMDiT pos-embed crop are all checked
 NUMERICALLY, not by element counts.  Each family also proves the gate TRIPS
 on a deliberately mis-wired port (swapped transformer blocks / resnets)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np

@@ -12,6 +12,8 @@ model in float32 (measured: ~118 dB, max abs 5e-5 of a ~6.5 peak) and atol
 tests/test_torch_flash_card.py and chip_smoke.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np
@@ -178,8 +180,8 @@ def _tiny_mmdit(qk_norm):
                          hidden_size=32, num_heads=4, context_dim=128, pooled_dim=64,
                          pos_embed_max_size=16, qk_norm=qk_norm)
     model = JaxMMDiT(cfg)
-    params = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 8, 8, 16)), jnp.zeros((1,)),
-                                 jnp.zeros((1, 10, 128)), jnp.zeros((1, 64)))["params"]
+    params = jax.eval_shape(model.init, jax.random.key(0), jnp.zeros((1, 8, 8, 16)),
+                            jnp.zeros((1,)), jnp.zeros((1, 10, 128)), jnp.zeros((1, 64)))["params"]
     return model, randomize_params(params, seed=21 + qk_norm)
 
 

@@ -7,6 +7,8 @@ through both.  Tolerance: rtol = atol = 1e-4.  The full-size SD-2.1 configs
 are checked for layout only (keys and shapes, from ``jax.eval_shape``).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np
@@ -37,7 +39,8 @@ from ml_stable_diffusion_torch.models.unet import (
 )
 from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
 
-from helpers import randomize_params, tiny_text_encoder, tiny_unet, tiny_vae
+from helpers import randomize_params
+from torch_helpers import tiny_text_encoder, tiny_unet, tiny_vae, traced
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -51,7 +54,7 @@ def _port(cls, cfg_cls, jax_model):
 
 
 def test_clip_text_encoder_matches_flax():
-    model, params = tiny_text_encoder()
+    model, params = traced(tiny_text_encoder)
     params = randomize_params(params, seed=5)
     port = _port(CLIPTextEncoder, CLIPTextConfig, model)
     port.load_state_dict(clip_text_state_dict(_np_tree(params)), strict=True)
@@ -76,7 +79,7 @@ def test_timestep_embedding_matches_flax(t):
 
 
 def test_unet_matches_flax():
-    model, params = tiny_unet()
+    model, params = traced(tiny_unet)
     params = randomize_params(params, seed=6)
     port = _port(UNet2DConditionModel, UNetConfig, model)
     port.load_state_dict(unet_state_dict(_np_tree(params)), strict=True)
@@ -93,7 +96,7 @@ def test_unet_matches_flax():
 
 
 def test_vae_decoder_matches_flax():
-    (dec, params), _ = tiny_vae()
+    (dec, params), _ = traced(tiny_vae)
     params = randomize_params(params, seed=7)
     port = _port(VAEDecoder, VAEConfig, dec)
     port.load_state_dict(vae_decoder_state_dict(_np_tree(params)), strict=True)

@@ -11,6 +11,8 @@ is also held: 1e-5 in float32, 1e-2 in bfloat16 (measured on the CPU:
 tests/test_torch_flash_card.py and by chip_smoke.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,8 @@ against the JAX package's, on the CPU.
   allows.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import itertools
 
 import jax.numpy as jnp

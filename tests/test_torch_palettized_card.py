@@ -7,6 +7,8 @@ a machine that has only the port's dependencies:
     python -m pytest --noconftest -q tests/test_torch_palettized_card.py
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import pytest
 import torch
 

@@ -8,6 +8,8 @@ port pulls in no JAX, fields the JAX pipeline ignores are ignored, and an
 IP-Adapter image without an adapter raises the JAX pipeline's error.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import subprocess
 import sys
 
@@ -141,7 +143,7 @@ def test_import_pulls_in_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'ml_stable_diffusion_tpu',\n"
-        "                              'tokenizers', 'transformers')]\n"
+        "                              'tokenizers', 'transformers', 'optax', 'orbax')]\n"
         "assert not bad, bad\n"
         "need = {'models.mmdit', 'pipelines.sd3', 'schedulers.flow', 'ops.flash_attention',\n"
         "        'pipelines.sdxl', 'ops.groupnorm', 'ops.palettized', 'compress.palettize',\n"
@@ -151,7 +153,8 @@ def test_import_pulls_in_no_jax():
         "        'tokenizer.t5', 'models.t5', 'models.controlnet_sd3', 'convert.lora',\n"
         "        'convert.textual_inversion', 'convert.ip_adapter', 'convert.clip_vision',\n"
         "        'models.clip_vision', 'models.ip_adapter', 'pipelines.program', 'serving',\n"
-        "        'ops.int8', 'compress.w8a8', 'convert.optimize'}\n"
+        "        'ops.int8', 'compress.w8a8', 'convert.optimize', 'parallel.train',\n"
+        "        'parallel.checkpoint', 'utils.profiling'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -10,6 +10,8 @@ pipelines are the port's own tiny modules (no JAX compile); only the key
 test reads the JAX source.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import ast
 import copy
 import inspect

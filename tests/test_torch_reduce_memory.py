@@ -10,6 +10,8 @@ the JAX ``_stage_bundle`` keys for SD and SDXL (as JAX
 tests/test_pipeline_sd.py:155 and test_pipeline_sdxl.py:148 check them).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import copy
 
 import numpy as np

@@ -9,6 +9,8 @@ says; and ``load_pipeline_from_artifacts`` on a JAX-written bundle with a
 safety checker and a ControlNet.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import json
 
 import numpy as np
@@ -36,8 +38,8 @@ from ml_stable_diffusion_torch.ops import flash_attention as flash_module
 from ml_stable_diffusion_torch.ops.attention import set_attention_implementation
 from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 
-from helpers import CTX_DIM, randomize_params, tiny_tokenizer, tiny_unet
-from torch_helpers import pipelines, port_safety_checker
+from helpers import CTX_DIM, randomize_params, tiny_tokenizer
+from torch_helpers import pipelines, port_safety_checker, tiny_unet, traced
 
 HW = (64, 64)
 TINY_SAFETY = JaxSafetyConfig(image_size=32, patch_size=8, hidden_size=32,
@@ -50,7 +52,8 @@ def _checker(seed=101, thresholds=None):
     """The tiny Flax checker, seeded N(0, 0.2) weights; ``thresholds``
     overrides both threshold banks."""
     model = JaxSafetyChecker(TINY_SAFETY)
-    params = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
+    # the seeded weights replace the init's: its shapes are enough
+    params = jax.eval_shape(model.init, jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
     params = dict(randomize_params(params, seed))
     if thresholds is not None:
         for key in ("concept_embeds_weights", "special_care_embeds_weights"):
@@ -179,9 +182,9 @@ def test_load_pipeline_with_safety_checker_and_controlnet(tmp_path):
     root = tmp_path / "bundle"
     root.mkdir()
     tiny_tokenizer(root)
-    cn = JaxControlNet(tiny_unet()[0].config)
-    cn_params = randomize_params(jax.jit(cn.init)(
-        jax.random.key(5), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
+    cn = JaxControlNet(traced(tiny_unet)[0].config)
+    cn_params = randomize_params(jax.eval_shape(
+        cn.init, jax.random.key(5), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
         jnp.zeros((1, 77, CTX_DIM)), jnp.zeros((1, 64, 64, 3)))["params"], 105)
     safety, safety_params = _checker(106)
     for name, model, params in (

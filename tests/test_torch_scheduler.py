@@ -8,6 +8,8 @@ text encoder, UNet and scheduler from the same initial noise, within the
 golden's own tolerance (rtol = atol = 2e-4).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 from pathlib import Path
 
 import numpy as np

@@ -10,6 +10,8 @@ tests/test_torch_scheduler.py: on random model outputs the latents reach
 at 0.75), as do ``add_noise`` at every step index and ``pred_x0``.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

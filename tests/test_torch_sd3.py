@@ -12,6 +12,8 @@ scheduler rule (DiscreteFlow only, "PNDM" mapping to it),
 pipeline's (their generations: tests/test_torch_controlnet_sd3.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch
@@ -37,8 +39,8 @@ from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder
 from ml_stable_diffusion_torch.pipelines import PipelineConfiguration, StableDiffusion3Pipeline
 from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
 
-from helpers import CTX_DIM, randomize_params, tiny_text_encoder, tiny_tokenizer
-from torch_helpers import _load
+from helpers import CTX_DIM, randomize_params, tiny_tokenizer
+from torch_helpers import _load, tiny_text_encoder, traced
 
 HW = (64, 64)
 T5_LEN = 16
@@ -51,8 +53,10 @@ def _tiny_mmdit():
                          hidden_size=32, num_heads=4, context_dim=MM_CTX, pooled_dim=POOLED,
                          pos_embed_max_size=16)
     model = JaxMMDiT(cfg)
-    params = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 8, 8, 16)), jnp.zeros((1,)),
-                                 jnp.zeros((1, 10, MM_CTX)), jnp.zeros((1, POOLED)))["params"]
+    # every caller seeds its own weights: the init's shapes are enough
+    params = jax.eval_shape(model.init, jax.random.key(0), jnp.zeros((1, 8, 8, 16)),
+                            jnp.zeros((1,)), jnp.zeros((1, 10, MM_CTX)),
+                            jnp.zeros((1, POOLED)))["params"]
     return model, params
 
 
@@ -61,13 +65,14 @@ def _tiny_vae16():
     cfg = JaxVAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
                        norm_num_groups=4, latent_channels=16, use_quant_conv=False)
     dec = JaxVAEDecoder(cfg)
-    return dec, jax.jit(dec.init)(jax.random.key(2), jnp.zeros((1, 8, 8, 16)))["params"]
+    return dec, jax.eval_shape(dec.init, jax.random.key(2), jnp.zeros((1, 8, 8, 16)))["params"]
 
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
     tok1, tok2 = tmp_path_factory.mktemp("l"), tmp_path_factory.mktemp("g")
-    (te1, p1), (te2, p2) = tiny_text_encoder(), tiny_text_encoder(use_projection=True)
+    (te1, p1), (te2, p2) = traced(tiny_text_encoder), traced(tiny_text_encoder,
+                                                             use_projection=True)
     mm, mp = _tiny_mmdit()
     dec, dp = _tiny_vae16()
     p1, p2, mp, dp = (randomize_params(p, seed) for p, seed in
@@ -196,7 +201,7 @@ def t5_parts(tmp_path_factory):
     cfg = dict(vocab_size=256, d_model=MM_CTX, d_kv=16, d_ff=64, num_layers=2, num_heads=4)
     t5 = JaxT5Encoder(JaxT5Config(**cfg))
     ids = jnp.ones((1, T5_LEN), jnp.int32)
-    params = randomize_params(jax.jit(t5.init)(jax.random.key(6), ids, ids)["params"], 37)
+    params = randomize_params(jax.eval_shape(t5.init, jax.random.key(6), ids, ids)["params"], 37)
     port = T5Encoder(T5Config(**cfg))
     port.load_state_dict(t5_state_dict(jax.tree.map(np.asarray, params)), strict=True)
     return ((t5, params), JaxT5Tokenizer(tok_json)), (port.eval(), T5Tokenizer(tok_json))
@@ -242,7 +247,7 @@ def test_t5_and_controlnet_parts_match_jax(pair, t5_parts, part):
     vcfg = JaxVAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
                         norm_num_groups=4, latent_channels=16, use_quant_conv=False)
     enc = JaxVAEEncoder(vcfg)
-    ep = randomize_params(jax.jit(enc.init)(jax.random.key(5), jnp.zeros((1, 64, 64, 3)))[
+    ep = randomize_params(jax.eval_shape(enc.init, jax.random.key(5), jnp.zeros((1, 64, 64, 3)))[
         "params"], 38)
     # only the nets' configurations are read when the inputs are prepared
     jax_pipe.controlnets = [(type("Net", (), {"config": JaxCNConfig(
@@ -294,7 +299,7 @@ def test_img2img_matches_jax(pair):
     cfg = JaxVAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
                        norm_num_groups=4, latent_channels=16, use_quant_conv=False)
     enc = JaxVAEEncoder(cfg)
-    ep = randomize_params(jax.jit(enc.init)(jax.random.key(5), jnp.zeros((1, 64, 64, 3)))[
+    ep = randomize_params(jax.eval_shape(enc.init, jax.random.key(5), jnp.zeros((1, 64, 64, 3)))[
         "params"], 35)
     jax_pipe, port_pipe = (copy.copy(p) for p in pair)
     jax_pipe.vae_encoder, jax_pipe.vae_encoder_params = enc, ep

@@ -19,6 +19,8 @@
   (atol 1e-3, as above).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np
@@ -52,8 +54,8 @@ from ml_stable_diffusion_torch.pipelines import (
 )
 from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
 
-from helpers import CTX_DIM, randomize_params, tiny_text_encoder, tiny_tokenizer, tiny_unet, tiny_vae
-from torch_helpers import _load
+from helpers import CTX_DIM, randomize_params, tiny_tokenizer
+from torch_helpers import _load, tiny_text_encoder, tiny_unet, tiny_vae, traced
 
 HW = (64, 64)
 XL_CTX = 2 * CTX_DIM  # CLIP-L and CLIP-G penultimate states
@@ -64,21 +66,22 @@ GN_FLAGS = {"plain": {}, "fused": {"fused_groupnorm": True},
 
 
 def _tiny_refiner():
-    """tests/test_pipeline_sdxl.py's refiner: 5 time ids, the CLIP-G context."""
-    model, _ = tiny_unet(xl=True)
+    """tests/test_pipeline_sdxl.py's refiner: 5 time ids, the CLIP-G context;
+    its params' shapes (every caller seeds its own weights)."""
+    model, _ = traced(tiny_unet, xl=True)
     cfg = dataclasses.replace(model.config, cross_attention_dim=CTX_DIM,
                               projection_class_embeddings_input_dim=POOLED + 5 * 8)
     model = JaxUNet(cfg)
     added = {"text_embeds": jnp.zeros((1, POOLED)), "time_ids": jnp.zeros((1, 5))}
-    params = jax.jit(lambda k: model.init(k, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
-                                          jnp.zeros((1, 77, CTX_DIM)), added_cond=added))(
-        jax.random.key(1))["params"]
+    params = jax.eval_shape(lambda k: model.init(k, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
+                                                 jnp.zeros((1, 77, CTX_DIM)), added_cond=added),
+                            jax.random.key(1))["params"]
     return model, params
 
 
 @pytest.mark.parametrize("gn", list(GN_FLAGS))
 def test_sdxl_unet_matches_flax(gn):
-    model, params = tiny_unet(cross_dim=XL_CTX, xl=True)
+    model, params = traced(tiny_unet, cross_dim=XL_CTX, xl=True)
     params = randomize_params(params, seed=21)
     jax_model = JaxUNet(dataclasses.replace(model.config, **GN_FLAGS[gn]))
     port = _load(UNet2DConditionModel, UNetConfig, jax_model, params, unet_state_dict)
@@ -107,8 +110,8 @@ def test_sdxl_unet_matches_flax(gn):
 
 
 def test_sdxl_unet_needs_added_cond():
-    model, params = tiny_unet(cross_dim=XL_CTX, xl=True)
-    port = _load(UNet2DConditionModel, UNetConfig, model, params, unet_state_dict)
+    model, _ = traced(tiny_unet, cross_dim=XL_CTX, xl=True)
+    port = UNet2DConditionModel(UNetConfig(**dataclasses.asdict(model.config)))
     with pytest.raises(ValueError, match="added_cond"):
         port(torch.zeros(1, 4, 8, 8), torch.tensor(1.0), torch.zeros(1, 77, XL_CTX))
 
@@ -146,10 +149,11 @@ def test_full_size_sdxl_layout_loads(name, n_ids, ctx):
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
     tok1, tok2 = tmp_path_factory.mktemp("l"), tmp_path_factory.mktemp("g")
-    (te1, p1), (te2, p2) = tiny_text_encoder(), tiny_text_encoder(use_projection=True)
-    unet, up = tiny_unet(cross_dim=XL_CTX, xl=True)
+    (te1, p1), (te2, p2) = traced(tiny_text_encoder), traced(tiny_text_encoder,
+                                                             use_projection=True)
+    unet, up = traced(tiny_unet, cross_dim=XL_CTX, xl=True)
     ref_unet, rp = _tiny_refiner()
-    (dec, dp), _ = tiny_vae()
+    (dec, dp), _ = traced(tiny_vae)
     p1, p2, up, rp, dp = (randomize_params(p, seed) for p, seed in
                           ((p1, 41), (p2, 42), (up, 43), (rp, 44), (dp, 45)))
     jax_pipe = JaxSDXL(tokenizer=tiny_tokenizer(tok1), tokenizer2=tiny_tokenizer(tok2),
@@ -342,7 +346,7 @@ def test_img2img_with_refiner_matches_jax(pair, case):
     from torch_helpers import port_vae_encoder
 
     jax_pipe, port_pipes = pair
-    _, (enc, ep) = tiny_vae()
+    _, (enc, ep) = traced(tiny_vae)
     ep = randomize_params(ep, 46)
     jax_pipe = copy.copy(jax_pipe)
     jax_pipe.vae_encoder, jax_pipe.vae_encoder_params = enc, ep

@@ -8,6 +8,8 @@ tests/test_serving.py holds the JAX server); an img2img submit runs alone;
 (configuration, batch size); ``shutdown`` ends the batcher.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import ast
 import inspect
 import textwrap

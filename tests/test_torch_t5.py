@@ -16,6 +16,8 @@ stated bf16 tolerance with the port's bf16 weights (its bias table float32)
 against Flax ``dtype=bfloat16`` on float32 params.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import base64
 import json
 import random

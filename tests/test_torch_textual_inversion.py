@@ -14,6 +14,8 @@
   both equal to JAX's (SD3's T5 sees the placeholder's text as it is).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np
@@ -34,8 +36,8 @@ from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
 from ml_stable_diffusion_torch.tokenizer.prompt_weights import weighted_token_chunks
 
-from helpers import CTX_DIM, VOCAB, tiny_text_encoder, tiny_tokenizer
-from torch_helpers import _load, pipelines, sd3_pipelines, sdxl_pipelines
+from helpers import CTX_DIM, VOCAB, tiny_tokenizer
+from torch_helpers import _load, pipelines, sd3_pipelines, sdxl_pipelines, tiny_text_encoder
 
 HW = (64, 64)
 

@@ -5,6 +5,8 @@ JAX one with the ``regex`` module.  Both must give the same ids, non-ASCII
 prompts included.  The host noise sources must give bit-identical arrays.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 

@@ -14,6 +14,8 @@ The pipelines (generations against JAX, staged, serving):
 tests/test_torch_w8a8_pipelines.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 import functools
 
@@ -35,8 +37,8 @@ from ml_stable_diffusion_torch.models.mmdit import MMDiT, MMDiTConfig
 from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
 from ml_stable_diffusion_torch.ops import int8
 
-from helpers import CTX_DIM, randomize_params, tiny_unet
-from torch_helpers import _load
+from helpers import CTX_DIM, randomize_params
+from torch_helpers import _load, tiny_unet, traced
 
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 #: the JAX defaults with the upsampler skip enable_w8a8 adds for convolutions
@@ -121,7 +123,7 @@ def test_serving_swap_refuses_unsupported_convs(conv_kw):
 
 @functools.lru_cache(maxsize=None)
 def _unet_pair():
-    model, params = tiny_unet()
+    model, params = traced(tiny_unet)
     params = randomize_params(params, 5)
     return model, params, _load(UNet2DConditionModel, UNetConfig, model, params, unet_state_dict)
 

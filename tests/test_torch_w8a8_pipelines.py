@@ -12,6 +12,8 @@ the JAX package's, on the CPU.
 The ops, names, calibration and recipe: tests/test_torch_w8a8.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np

@@ -1,8 +1,12 @@
 """Tiny JAX models and their port counterparts on the same weights, for the
 tests/test_torch_*.py parity tests."""
 
-import dataclasses
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 
+import dataclasses
+import functools
+
+import flax.linen
 import jax
 import numpy as np
 import torch
@@ -29,15 +33,47 @@ from ml_stable_diffusion_torch.models.vae import VAEConfig, VAEDecoder, VAEEncod
 from ml_stable_diffusion_torch.pipelines import StableDiffusionPipeline
 from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
 
-from helpers import (
-    CTX_DIM,
-    VOCAB,
-    randomize_params,
-    tiny_text_encoder,
-    tiny_tokenizer,
-    tiny_unet,
-    tiny_vae,
-)
+import helpers
+from helpers import CTX_DIM, VOCAB, randomize_params, tiny_tokenizer
+
+
+def _once(make):
+    """``make`` from tests/helpers.py, run once a process for each set of
+    arguments: a tiny Flax model and its initial params, whose jitted
+    ``init`` costs 1 to 9 s a call.  Each caller gets containers of its own
+    around the same (immutable) arrays."""
+    made = functools.cache(make)
+
+    @functools.wraps(make)
+    def tiny(*args, **kw):
+        return jax.tree.map(lambda x: x, made(*args, **kw))
+
+    return tiny
+
+
+tiny_text_encoder = _once(helpers.tiny_text_encoder)
+tiny_unet = _once(helpers.tiny_unet)
+tiny_vae = _once(helpers.tiny_vae)
+
+
+def traced(make, *args, **kw):
+    """``make(*args, **kw)`` with the Flax inits inside it traced by
+    ``jax.eval_shape``, not compiled: the same structure, every param a
+    ``ShapeDtypeStruct``.  For callers that replace every weight
+    (``randomize_params``), which need the shapes only.  A maker made
+    ``_once`` is traced through its uncached original: a cache filled
+    under the trace would hand out its abstract values."""
+    make = getattr(make, "__wrapped__", make)
+    modules = {}
+
+    def arrays():
+        leaves, modules["tree"] = jax.tree_util.tree_flatten(make(*args, **kw))
+        modules.update((i, x) for i, x in enumerate(leaves) if isinstance(x, flax.linen.Module))
+        return [None if i in modules else x for i, x in enumerate(leaves)]
+
+    leaves = jax.eval_shape(arrays)
+    tree = modules.pop("tree")
+    return jax.tree_util.tree_unflatten(tree, [modules.get(i, x) for i, x in enumerate(leaves)])
 
 
 def _load(cls, cfg_cls, jax_model, params, convert):
@@ -80,9 +116,13 @@ def pipelines(tmp_path, weight_seed=None, unet=None, encoder=False, controlnets=
     and ``safety_checker``: (Flax module, params) pairs, taken as they are;
     ``multilingual``: (Flax MultilingualProjection, params, embed_fn)."""
     jax_tok = tiny_tokenizer(tmp_path)
-    te, te_p = tiny_text_encoder()
-    unet, unet_p = unet or tiny_unet()
-    (dec, dec_p), (enc, enc_p) = tiny_vae()
+    # seeded weights replace the init's: its shapes are enough
+    made = tiny_text_encoder, tiny_unet, tiny_vae
+    if weight_seed is not None:
+        made = [functools.partial(traced, m) for m in made]
+    te, te_p = made[0]()
+    unet, unet_p = unet or made[1]()
+    (dec, dec_p), (enc, enc_p) = made[2]()
     if weight_seed is not None:
         te_p = randomize_params(te_p, weight_seed)
         unet_p = randomize_params(unet_p, weight_seed + 1)
@@ -117,9 +157,10 @@ def sdxl_pipelines(tmp_path, refiner=False):
 
     import test_torch_sdxl as xlt
 
-    (te1, p1), (te2, p2) = tiny_text_encoder(), tiny_text_encoder(use_projection=True)
-    unet, up = tiny_unet(cross_dim=xlt.XL_CTX, xl=True)
-    (dec, dp), _ = tiny_vae()
+    (te1, p1), (te2, p2) = traced(tiny_text_encoder), traced(tiny_text_encoder,
+                                                             use_projection=True)
+    unet, up = traced(tiny_unet, cross_dim=xlt.XL_CTX, xl=True)
+    (dec, dp), _ = traced(tiny_vae)
     p1, p2, up, dp = (randomize_params(p, s) for p, s in ((p1, 41), (p2, 42), (up, 43), (dp, 45)))
     ref = None
     if refiner:
@@ -154,7 +195,8 @@ def sd3_pipelines(tmp_path):
 
     import test_torch_sd3 as sd3t
 
-    (te1, p1), (te2, p2) = tiny_text_encoder(), tiny_text_encoder(use_projection=True)
+    (te1, p1), (te2, p2) = traced(tiny_text_encoder), traced(tiny_text_encoder,
+                                                             use_projection=True)
     mm, mp = sd3t._tiny_mmdit()
     dec, dp = sd3t._tiny_vae16()
     p1, p2, mp, dp = (randomize_params(p, s) for p, s in ((p1, 31), (p2, 32), (mp, 33), (dp, 34)))
