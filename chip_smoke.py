@@ -10,7 +10,11 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    versions, the TF32 settings; build every kernel from csrc/, print ptxas's
    register use and any wgmma it had to serialise, and count the HGMMA
    (wgmma) instructions in the SASS of the flash and dequant-matmul
-   libraries (``cuobjdump -sass``; 0 fails the run).
+   libraries (``cuobjdump -sass``; 0 fails the run); build the native host
+   libraries (``utils/native.py``: ``make -C native BUILD=build/native``)
+   and time the build, so that no later phase's seconds hold it (the first
+   safetensors read, phase 20's, would build them otherwise); a failed
+   build fails the run.
 2. Every kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it plus ragged ones, with timings of the kernel (CUDA
    events and the profiler's device time per launch), the plain version and
@@ -129,7 +133,8 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    dtypes they run in (UNet bf16, CLIP and VAE float32; the port's
    ``save_file``), ``convert.load.load_pipeline`` on it, and one generation
    whose latents must equal phase 3's of the same prompt and seed bit for
-   bit; the directory is removed.
+   bit; the directory is kept for phases 28, 31 and 32 and removed after
+   phase 32.
 21. The adapters on phase 11's SD-1.5 pipeline, with seeded random weights
    in the published layouts and geometries, written to and read from files:
    a kohya LoRA (rank 16, alpha 8, fp16) over every UNet attention and FF
@@ -194,7 +199,7 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    and one captured replay's s/step in turns with the bf16 pipeline,
    every generation's counts the bf16 path's (1401 flash and 680 GroupNorm;
    480 multi-stream), busy share, the denoiser's bytes.
-28. Phase 20's diffusers directory, kept until here, loaded with
+28. Phase 20's diffusers directory (kept until phase 32) loaded with
    ``fuse_qkv=True``: its latents against phase 3's of the same prompt and
    seed (rel RMS), 301 flash, s/step in turns with phase 3's pipeline.
 29. Staged: phase 9's pipeline in palettized program mode, offloaded and
@@ -214,6 +219,24 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    require grad; the state saved and restored bit for bit, the next step's
    loss equal from both under deterministic algorithms; one step under the
    trace.
+31. The command line on phase 20's directory, after phase 28:
+   ``cli.generate`` with phase 20's first generation flag for flag (the
+   PNG read back by ``utils/png.py`` bit-equal to phase 20's image, the
+   counters grown by phase 20's launches, ``_name``'s file name);
+   ``cli.convert --convert-all --check-output-correctness
+   --bundle-resources-for-generation`` (each convert-time gate's dB at full
+   width in float32 on the card, at least 35; the bundle's bytes and
+   seconds; ``load_pipeline_from_artifacts`` on the bundle giving phase
+   20's latents bit for bit); ``cli.benchmark --repeats 1 --step-count 20``
+   beside phase 3's captured s/step.
+32. The native host libraries, built in phase 1, each required, so that
+   a native path not taken fails the run: phase 1's build seconds; the C++ BPE's ids against the
+   Python tokenizer's on PROMPTS and phase 16's four-window prompt;
+   ``denormalize_to_uint8``'s converter against its numpy rule on phase
+   3's first latents decoded in float32; the C++ unigram Viterbi against
+   the Python segmentation on phase 18's ``tokenizer.json``; the C++
+   safetensors header parse against the Python parse of phase 20's UNet
+   file.  Then phase 20's directory is removed.
    Each phase group's seconds and the whole run's are printed.
 
 The main paths run their captured programs (pipelines/program.py): each
@@ -228,7 +251,8 @@ Phase 2 holds the multi-stream kernel at SD3 ControlNet's batch-1 shape too.
 Every kernel launch counter is set to 0 just before each main path (phases
 3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, each
 path of 15, 16, 17, 18, 19, 20, 21 and 22, each path's turns of 26, 27 and
-28, the staged run of 29, and phase 10 for the fused
+28, the staged run of 29, 31's generate, bundle generation and benchmark,
+and phase 10 for the fused
 dequant-matmul, whose main path it is) and read just after it; phase 13 reads them around each
 generation.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
@@ -2144,7 +2168,8 @@ def run_diffusers_path(pipe, counters, report, sd21_results):
     """Phase 20: phase 3's modules through a diffusers directory and
     ``load_pipeline``; the same prompt and seed give phase 3's latents bit
     for bit.  -> (the path's readings, the checks, the directory's
-    ``TemporaryDirectory``, kept for phase 28: clean it up after)."""
+    ``TemporaryDirectory``, kept for phases 28, 31 and 32: clean it up
+    after them, the generation's result)."""
     import numpy as np
 
     from ml_stable_diffusion_torch.convert.load import load_pipeline
@@ -2184,7 +2209,7 @@ def run_diffusers_path(pipe, counters, report, sd21_results):
     del loaded
     free_card()
     return res, dict(directory_bytes=nbytes, save_s=save_s, load_s=load_s,
-                     latents_bit_equal=same), tmp
+                     latents_bit_equal=same), tmp, results[0]
 
 
 # -- phases 21 and 22 ----------------------------------------------------------------
@@ -3516,6 +3541,202 @@ def run_fuse_qkv(pipe, root: Path, counters, sd21_results):
     return out
 
 
+# -- phases 31 and 32 ----------------------------------------------------------------
+
+#: the convert-time gates phase 31.2 must print (phase 20's directory holds
+#: no safety checker)
+CONVERT_GATES = {"text_encoder", "unet", "vae_decoder", "vae_encoder"}
+
+
+def run_command_line(tmpdir: Path, counters, diffusers_res, diffusers_first, sd21_main) -> dict:
+    """Phase 31: the port's command line on phase 20's diffusers directory.
+    31.1 ``generate`` with phase 20's first generation flag for flag: its
+    PNG, read back by ``utils/png.py``, bit-equal to phase 20's image, the
+    counters grown by phase 20's launches, the file name ``_name``'s.  31.2
+    ``convert --convert-all --check-output-correctness
+    --bundle-resources-for-generation``: each convert-time gate's dB (full
+    width, float32, on the card), the bundle's bytes and seconds, and
+    ``load_pipeline_from_artifacts`` on the bundle giving phase 20's
+    latents bit for bit with phase 20's launches.  31.3 ``benchmark
+    --repeats 1 --step-count 20 --scheduler DPMSolverMultistep``: its
+    report beside phase 3's captured s/step, the warm-up's and the repeat's
+    launches."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.cli import benchmark, convert, generate
+    from ml_stable_diffusion_torch.convert.load import load_pipeline_from_artifacts
+    from ml_stable_diffusion_torch.utils import png
+
+    root, spec = tmpdir / "sd21", PATHS["sd21"]
+    want = diffusers_res["launches"]
+    out = {}
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # 31.1 generate
+    argv = [PROMPTS[0], "-i", str(root), "-o", str(tmpdir / "generate"), "--seed", "1000",
+            "--step-count", str(STEPS), "--scheduler", spec["scheduler"], "--guidance-scale",
+            str(spec["guidance"]), "--rng", "numpy", "--disable-safety", "--size",
+            "x".join(map(str, spec["image_hw"]))]
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    paths = generate.run(generate.parser_spec().parse_args(argv))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    free_card()
+    name = generate._name(PROMPTS[0], 1000, 0)
+    same = bool(np.array_equal(png.read_png(paths[0]), diffusers_first.images[0]))
+    out["generate"] = dict(seconds=secs, file=paths[0].name, png_bit_equal=same,
+                           launches=launched)
+    log(f"phase 31.1: generate -> {paths[0].name} in {secs:.2f} s (the pipeline's load "
+        f"included); PNG {'bit-equal' if same else 'DIFFERENT'} to phase 20's image; "
+        f"launches {launched} (phase 20's {want})")
+    if [p.name for p in paths] != [name] or not same or launched != want:
+        fail(f"generate: files {[p.name for p in paths]} (want {name}), PNG bit-equal {same}, "
+             f"launches {launched} (want {want})")
+
+    # 31.2 convert, then the bundle's generation
+    bundle = tmpdir / "bundle"
+    t0 = time.perf_counter()
+    report = convert.run(convert.parser_spec().parse_args(
+        ["-i", str(root), "-o", str(bundle), "--convert-all", "--check-output-correctness",
+         "--bundle-resources-for-generation"]))
+    convert_s = time.perf_counter() - t0
+    free_card()
+    nbytes = sum(f.stat().st_size for f in bundle.rglob("*") if f.is_file())
+    gates = report["psnr_db"]
+    for label, db in sorted(gates.items()):
+        log(f"phase 31.2: convert gate {label}: {db:.2f} dB (>= 35; full width, float32 on "
+            f"the card)")
+    log(f"phase 31.2: convert --convert-all --check-output-correctness: {nbytes / 1e9:.3f} GB "
+        f"bundle in {convert_s:.2f} s (the gates and the reload checks included)")
+    if set(gates) != CONVERT_GATES or min(gates.values()) < 35.0:
+        fail(f"convert gates {gates}: want {sorted(CONVERT_GATES)}, each >= 35 dB")
+    t0 = time.perf_counter()
+    loaded = load_pipeline_from_artifacts(bundle, compute_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reset_counters(counters)
+    res = loaded.generate_images(main_cfg("sd21", 0), image_hw=spec["image_hw"])
+    bundle_launched = counts()
+    del loaded
+    free_card()
+    same_latents = bool(np.array_equal(res.latents, diffusers_first.latents))
+    out["convert"] = dict(psnr_db=gates, bundle_bytes=nbytes, seconds=convert_s,
+                          bundle_load_s=load_s, latents_bit_equal=same_latents,
+                          launches=bundle_launched)
+    log(f"phase 31.2: load_pipeline_from_artifacts in {load_s:.2f} s; latents "
+        f"{'bit-equal' if same_latents else 'DIFFERENT'} to phase 20's; launches "
+        f"{bundle_launched}")
+    if not same_latents or bundle_launched != want:
+        fail(f"the bundle's generation: latents bit-equal {same_latents}, launches "
+             f"{bundle_launched} (want {want})")
+
+    # 31.3 benchmark: the warm-up captures, the repeat replays
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    bench = benchmark.run(benchmark.parser_spec().parse_args(
+        ["-i", str(root), "--repeats", "1", "--step-count", str(STEPS), "--scheduler",
+         "DPMSolverMultistep", "-o", str(tmpdir / "benchmark.json")]))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    free_card()
+    want_bench = {k: want[k] + spec["per_generation"][k] for k in want}
+    out["benchmark"] = dict(report=bench, seconds=secs, launches=launched,
+                            phase3_seconds_per_step=sd21_main["seconds_per_step"])
+    log(f"phase 31.3: benchmark {json.dumps(bench)} in {secs:.2f} s; its s/step "
+        f"{bench['seconds_per_step_median'] * 1e3:.2f} ms against phase 3's captured "
+        f"{sd21_main['seconds_per_step'] * 1e3:.2f} ms ({card_line()}); launches {launched}")
+    if launched != want_bench:
+        fail(f"benchmark: launches {launched}, want {want_bench} (a first call and a replay)")
+    return out
+
+
+def run_native_libraries(pipe, tmpdir: Path, sd21_first) -> dict:
+    """Phase 32: the native host libraries (``utils/native.py``, built in
+    phase 1), each required (a native path not taken fails the run): the
+    build's seconds; the C++ BPE's ids against the Python tokenizer's on
+    PROMPTS and phase 16's four-window prompt; ``denormalize_to_uint8``'s
+    converter against its numpy rule on phase 3's first latents decoded in
+    float32; the C++ unigram Viterbi against the Python segmentation on
+    phase 18's ``tokenizer.json``; the C++ safetensors header parse against
+    the Python parse of phase 20's UNet file."""
+    import numpy as np
+
+    from ml_stable_diffusion_torch.convert import native_io
+    from ml_stable_diffusion_torch.tokenizer import CLIPTokenizer
+    from ml_stable_diffusion_torch.tokenizer.native import NativeCLIPTokenizer
+    from ml_stable_diffusion_torch.tokenizer.t5 import T5Tokenizer
+    from ml_stable_diffusion_torch.utils import native
+    from ml_stable_diffusion_torch.utils.image import denormalize_to_uint8_numpy
+    from ml_stable_diffusion_torch.utils.native_image import denormalize_to_uint8_native
+
+    if native.build_seconds is None:
+        fail("the native libraries were not built in phase 1")
+    out = dict(build_s=native.build_seconds, build_dir=str(native.BUILD_DIR))
+    log(f"phase 32: native libraries built in phase 1 in {native.build_seconds:.2f} s into "
+        f"{native.BUILD_DIR}")
+
+    texts = PROMPTS + [LONG_PROMPT]
+    tokdir = tmpdir / "sd21" / "tokenizer"
+    py = CLIPTokenizer.from_pretrained_dir(tokdir)
+    nat = NativeCLIPTokenizer(tokdir / "vocab.json", tokdir / "merges.txt", fallback=py)
+    for text in texts:
+        if nat.encode(text) != py.encode(text) or not all(
+                np.array_equal(a, b) for a, b in zip(nat.tokenize(text), py.tokenize(text))):
+            fail(f"native BPE ids differ from the Python tokenizer's on {text!r}")
+    if nat.native_calls < 2 * len(texts):
+        fail(f"the native BPE encoded {nat.native_calls} of {2 * len(texts)} prompts")
+    out["bpe"] = dict(prompts=len(texts), native_calls=nat.native_calls, ids_equal=True)
+
+    with torch.inference_mode():
+        z = torch.from_numpy(sd21_first.latents).to("cuda").permute(0, 3, 1, 2)
+        x = pipe.vae_decoder(z / pipe.default_latent_scale).permute(0, 2, 3, 1).float()
+        x = np.ascontiguousarray(x.cpu().numpy())
+    t0 = time.perf_counter()
+    got = denormalize_to_uint8_native(x)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = denormalize_to_uint8_numpy(x)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    same = bool(np.array_equal(got, want))
+    # the pipeline's own decode rounds halves to even on the card
+    off_by_rounding = int((got != sd21_first.images).sum())
+    out["image"] = dict(values=int(x.size), equal=same, native_ms=native_ms, numpy_ms=numpy_ms,
+                        differ_from_device_rounding=off_by_rounding)
+    if not same:
+        fail(f"native denormalize_to_uint8 differs from numpy on {int((got != want).sum())} "
+             "values")
+
+    t5_path = t5_tokenizer_json(tmpdir / "t5_tokenizer.json")
+    nat5, py5 = T5Tokenizer(t5_path), T5Tokenizer(t5_path, prefer_native=False)
+    if not nat5.uses_native:
+        fail("T5Tokenizer did not take the native unigram path")
+    for text in texts:
+        if nat5.encode(text) != py5.encode(text):
+            fail(f"native unigram ids differ from the Python path's on {text!r}")
+    if nat5.native_calls == 0:
+        fail("the native unigram encoded no prompt")
+    out["unigram"] = dict(prompts=len(texts), native_calls=nat5.native_calls, ids_equal=True)
+
+    unet_file = tmpdir / "sd21" / "unet" / "diffusion_pytorch_model.safetensors"
+    t0 = time.perf_counter()
+    parsed = native_io.parse_table(unet_file, native=True)
+    native_parse_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    parsed_py = native_io.parse_table(unet_file, native=False)
+    python_parse_ms = (time.perf_counter() - t0) * 1e3
+    same_table = parsed[0] == parsed_py[0] and sorted(parsed[1]) == sorted(parsed_py[1])
+    out["header"] = dict(tensors=len(parsed[1]), equal=same_table, native_ms=native_parse_ms,
+                         python_ms=python_parse_ms)
+    if not same_table:
+        fail("the native safetensors header parse differs from the Python parse")
+    log(f"phase 32: native paths taken and equal: BPE {out['bpe']}, image {out['image']}, "
+        f"unigram {out['unigram']}, header {out['header']}")
+    return out
+
+
 def run_serving_preset(w8):
     """Phase 25's preset: the dense W8A8 SD-2.1 pipeline with DeepCache at
     interval 2 behind a server of batch 4: four submits coalesced into one
@@ -4485,7 +4706,7 @@ def main():
     )
     from ml_stable_diffusion_torch.ops.groupnorm import group_norm_silu_cuda
     from ml_stable_diffusion_torch.ops.palettized import palettized_dense_fused_cuda
-    from ml_stable_diffusion_torch.utils import cuda_build
+    from ml_stable_diffusion_torch.utils import cuda_build, native
     from ml_stable_diffusion_torch.utils.numerics import apply_numerics, numerics_settings
 
     counters = {"flash_attention": flash_attention_cuda,
@@ -4518,6 +4739,11 @@ def main():
     for lib in libs:
         if hgmma is not None and lib.stem.split("-")[0] in WGMMA_LIBS and not hgmma[lib.name]:
             fail(f"{lib.name} holds no HGMMA instruction: its kernel does not run on wgmma")
+    # the native host libraries, timed here rather than inside the first
+    # phase that reads a safetensors file (phase 20's load)
+    if native.build_native(force=True) is None:
+        fail("the native libraries did not build (make -C native)")
+    log(f"native libraries built in {native.build_seconds:.2f} s into {native.BUILD_DIR}")
 
     rows, pal_calls = check_kernels()
     log(f"phases 1 and 2: {time.perf_counter() - t_start:.1f} s")
@@ -4544,11 +4770,13 @@ def main():
     sd3_checks, adapters, results = {}, {}, {"sd21": [], "sd3": [], "sdxl": []}
     #: phase 23 by path; phases 24 and 25
     graphs, reduce_memory, serving = {}, None, None
-    #: phases 26 and 27 by path, 28, 29, 30; seconds of phases 26 to 30
+    #: phases 26 and 27 by path, 28, 29, 30, 31, 32; seconds of phases 26 to 32
     w8a8, fuse_qkv, staged, training, phase_s = {}, {}, {}, {}, {}
+    command_line, native_libs = {}, {}
 
     def sd21_more(pipe):
-        """Phases 23, 30, 26, 25, 12, 13, 20 and 28 on phase 3's pipeline."""
+        """Phases 23, 30, 26, 25, 12, 13, 20, 28, 31 and 32 on phase 3's
+        pipeline."""
         nonlocal schedulers, inpainting, serving
         graphs["sd21"] = run_graphs_vs_eager(pipe, "sd21", counters)
         t1 = time.perf_counter()
@@ -4565,15 +4793,23 @@ def main():
         paths, inpainting = run_img2img_paths(pipe, counters, report)
         main_paths.update(paths)
         schedulers = run_scheduler_sweep(pipe, counters)
-        main_paths["sd21_diffusers"], sd3_checks["diffusers_loader"], tmp = run_diffusers_path(
-            pipe, counters, report, results["sd21"])
-        t1 = time.perf_counter()
+        (main_paths["sd21_diffusers"], sd3_checks["diffusers_loader"], tmp,
+         diffusers_first) = run_diffusers_path(pipe, counters, report, results["sd21"])
         try:
+            t1 = time.perf_counter()
             fuse_qkv.update(run_fuse_qkv(pipe, Path(tmp.name) / "sd21", counters,
                                          results["sd21"]))
+            phase_s["28"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            command_line.update(run_command_line(
+                Path(tmp.name), counters, main_paths["sd21_diffusers"], diffusers_first,
+                main_paths["sd21"]))
+            phase_s["31"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            native_libs.update(run_native_libraries(pipe, Path(tmp.name), results["sd21"][0]))
+            phase_s["32"] = time.perf_counter() - t1
         finally:
             tmp.cleanup()
-        phase_s["28"] = time.perf_counter() - t1
 
     def sd3_more(pipe):
         """Phase 23, phase 14's SD3 img2img, then phases 18 and 19, on phase
@@ -4721,10 +4957,11 @@ def main():
                     "sd3_t5_controlnet_loader": sd3_checks, "adapters": adapters,
                     "graphs_vs_eager": graphs, "reduce_memory": reduce_memory,
                     "serving": serving, "w8a8": w8a8, "fuse_qkv": fuse_qkv, "staged": staged,
-                    "training": training,
+                    "training": training, "command_line": command_line,
+                    "native_libraries": native_libs,
                     "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
-    log(f"seconds of phases 26 to 30: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+    log(f"seconds of phases 26 to 32: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f"; the whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -7,23 +7,28 @@ holes.  The writer lays the tensors out in descending-itemsize order, so
 every offset is a multiple of its own itemsize, and pads the header to 8
 bytes: its files are byte for byte the JAX package's for the same tensors.
 
-- ``load_file``: the header is a few KB of JSON, parsed in Python with
-  every byte span bounds-checked.  Tensors are copied out of one shared
-  ``mmap``.  BF16 is read as int16
-  and viewed as ``torch.bfloat16``: neither ``ml_dtypes`` nor
-  ``safetensors`` is needed.  The F8 types raise.
+- ``load_file``: the header table is parsed, every byte span bounds-checked
+  against the file, by the native C++ parser (``native/io``, through
+  ``utils/native.py``) where it builds, else by the same checks in Python
+  (``parse_table(native=True / False)`` forces one).  Tensors are copied out of one
+  shared ``mmap``.  BF16 is read as int16 and viewed as ``torch.bfloat16``:
+  neither ``ml_dtypes`` nor ``safetensors`` is needed.  The F8 types raise.
 - ``save_file``: torch tensors or numpy arrays.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
+import logging
 import mmap
 import struct
 from pathlib import Path
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 _ALIGN = 8
 
@@ -46,8 +51,71 @@ def _to_torch(t) -> torch.Tensor:
         np.ascontiguousarray(t))
 
 
+def _load_lib():
+    from ..utils.native import load_library
+
+    lib = load_library("io")
+    lib.sdtpu_st_parse.restype = ctypes.c_void_p
+    lib.sdtpu_st_parse.argtypes = [ctypes.c_char_p]
+    lib.sdtpu_st_errmsg.restype = ctypes.c_char_p
+    lib.sdtpu_st_errmsg.argtypes = [ctypes.c_void_p]
+    for name, res in (("count", ctypes.c_int64), ("data_offset", ctypes.c_int64),
+                      ("ndim", ctypes.c_int32), ("begin", ctypes.c_int64),
+                      ("end", ctypes.c_int64)):
+        fn = getattr(lib, f"sdtpu_st_{name}")
+        fn.restype = res
+        fn.argtypes = ([ctypes.c_void_p] if name in ("count", "data_offset")
+                       else [ctypes.c_void_p, ctypes.c_int64])
+    for name in ("name", "dtype"):
+        fn = getattr(lib, f"sdtpu_st_{name}")
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.sdtpu_st_shape.restype = None
+    lib.sdtpu_st_shape.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.POINTER(ctypes.c_int64)]
+    lib.sdtpu_st_free.restype = None
+    lib.sdtpu_st_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _parse_table_native(path: Path):
+    """-> (data_offset, [(name, dtype_str, shape, begin, end)]) by the C++
+    parser; ``OSError`` when its library cannot be built."""
+    lib = _load_lib()
+    h = lib.sdtpu_st_parse(str(path).encode())
+    try:
+        err = lib.sdtpu_st_errmsg(h)
+        if err:
+            raise ValueError(f"{path}: {err.decode()}")
+        table = []
+        for i in range(lib.sdtpu_st_count(h)):
+            nd = lib.sdtpu_st_ndim(h, i)
+            shape = (ctypes.c_int64 * max(nd, 1))()
+            lib.sdtpu_st_shape(h, i, shape)
+            table.append((lib.sdtpu_st_name(h, i).decode(), lib.sdtpu_st_dtype(h, i).decode(),
+                          tuple(shape[:nd]), lib.sdtpu_st_begin(h, i), lib.sdtpu_st_end(h, i)))
+        return lib.sdtpu_st_data_offset(h), table
+    finally:
+        lib.sdtpu_st_free(h)
+
+
+def parse_table(path: str | Path, native: bool | None = None):
+    """-> (data_offset, [(name, dtype_str, shape, begin, end)]): the C++
+    parser where it builds (``native=True``: or ``OSError``), else Python
+    (``native=False``: always)."""
+    path = Path(path)
+    if native is not False:
+        try:
+            return _parse_table_native(path)
+        except OSError:
+            if native:
+                raise
+            logger.info("native safetensors parser unavailable; parsing in Python")
+    return _parse_table(path)
+
+
 def _parse_table(path: Path):
-    """-> (data_offset, [(name, dtype_str, shape, begin, end)])."""
+    """-> (data_offset, [(name, dtype_str, shape, begin, end)]), in Python."""
     size = path.stat().st_size
     with open(path, "rb") as f:
         if size < 8:
@@ -75,9 +143,10 @@ def _parse_table(path: Path):
 
 
 def load_file(path: str | Path) -> dict[str, torch.Tensor]:
-    """Read a safetensors file -> {name: CPU tensor}."""
+    """Read a safetensors file -> {name: CPU tensor}, its header by
+    ``parse_table``."""
     path = Path(path)
-    data_offset, table = _parse_table(path)
+    data_offset, table = parse_table(path)
     out = {}
     with open(path, "rb") as f:
         mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)

@@ -2,9 +2,10 @@
 ml_stable_diffusion_tpu/tokenizer/t5.py).
 
 The JAX package reads ``tokenizer.json`` through the HF ``tokenizers``
-library, with a native C++ Viterbi for plain ASCII.  This copy needs neither:
-it parses the JSON itself and runs what ``tokenizers`` (0.22) runs for
-``encode(text, add_special_tokens=False)``, in pure Python:
+library, with a native C++ Viterbi for plain ASCII.  This copy does without
+``tokenizers``: it parses the JSON itself and runs what ``tokenizers`` (0.22)
+runs for ``encode(text, add_special_tokens=False)``, in pure Python (and
+the same C++ Viterbi where it applies, below):
 
 1. the added tokens (``</s>``, ``<pad>``, ...) are split out of the raw text,
    leftmost-longest, before normalisation; each is its own id;
@@ -34,18 +35,33 @@ emoji after a zero-width joiner is taken to join it).
 Any other normalizer or pre-tokenizer type, an added token with
 ``lstrip``, ``rstrip``, ``single_word`` or ``normalized`` set, a byte
 fallback, truncation or padding in the file raise ``ValueError``.
+
+The native fast path (``prefer_native=True``, the default): the C++ Viterbi
+of ``native/unigram`` (through ``utils/native.py``) segments the plain-ASCII
+prompts, as the JAX package's does, where the file is a Unigram model behind
+a ``Metaspace`` pre-tokenizer (U+2581, prepend always, split): printable
+ASCII, single-spaced, without an added token (on which T5's ``Precompiled``
+normalizer is the identity).  Every other prompt, and a chunk the C++ code
+cannot cover, goes to the Python path.  At load the native encoder is held
+against the Python path on a probe corpus, and any difference turns it off
+for the tokenizer, as does a library that cannot be built
+(``T5Tokenizer.uses_native`` says which path it took).
 """
 
 from __future__ import annotations
 
 import base64
+import ctypes
 import json
+import logging
 import re
 import struct
 import unicodedata
 from pathlib import Path
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 #: Unicode White_Space (Rust's ``char::is_whitespace``, which ``Strip`` and
 #: ``WhitespaceSplit`` use; Python's ``str.isspace`` adds U+001C-U+001F)
@@ -390,10 +406,99 @@ class Unigram:
         return [self.ids.get(p, self.unk_id) for p in reversed(pieces)]
 
 
-class T5Tokenizer:
-    """``tokenizer.json`` -> ids; ``tokenize`` adds EOS, pads and masks."""
+# -- the native path -----------------------------------------------------------------
 
-    def __init__(self, tokenizer_json: str | Path, eos_id: int = 1, pad_id: int = 0):
+#: the self-check corpus of the native encoder
+_PROBES = (
+    "a photo of an astronaut riding a horse on mars",
+    "hello world",
+    "the quick brown fox jumps over the lazy dog.",
+    "8k, highly detailed, trending on artstation!",
+    "one, two; three: four-five (six) 'seven'",
+    "a",
+    "",
+    "watercolor? masterpiece... 1girl 4k",
+)
+
+
+def _load_unigram_lib():
+    from ..utils.native import load_library
+
+    lib = load_library("unigram")
+    lib.sdtpu_unigram_create.restype = ctypes.c_void_p
+    lib.sdtpu_unigram_create.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32]
+    lib.sdtpu_unigram_error.restype = ctypes.c_char_p
+    lib.sdtpu_unigram_error.argtypes = [ctypes.c_void_p]
+    lib.sdtpu_unigram_destroy.restype = None
+    lib.sdtpu_unigram_destroy.argtypes = [ctypes.c_void_p]
+    lib.sdtpu_unigram_encode.restype = ctypes.c_int32
+    lib.sdtpu_unigram_encode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]
+    return lib
+
+
+class NativeUnigram:
+    """The C++ Viterbi unigram encoder; ``encode`` returns None where it
+    cannot give the Python path's answer (a chunk no piece covers).
+
+    A piece listed twice takes its last id and score in ``tokenizers`` (and
+    in ``Unigram``), its first in the C++ map: every earlier entry is handed
+    to the C++ code as a private-use string that no eligible prompt holds,
+    so that the ids and the scores the search sees are the Python path's."""
+
+    def __init__(self, vocab: list, special_tokens):
+        self._lib = _load_unigram_lib()
+        last = {piece: i for i, (piece, _) in enumerate(vocab)}
+        blob = bytearray()
+        for i, (piece, score) in enumerate(vocab):
+            raw = (piece if last[piece] == i else f"\ue000{i}").encode("utf-8")
+            blob += struct.pack("<I", len(raw)) + raw + struct.pack("<d", float(score))
+        self._blob = bytes(blob)  # kept alive for the handle
+        self._handle = self._lib.sdtpu_unigram_create(self._blob, len(self._blob), len(vocab))
+        err = self._lib.sdtpu_unigram_error(self._handle)
+        if err:
+            raise RuntimeError(f"native unigram: {err.decode()}")
+        self._specials = tuple(special_tokens)
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.sdtpu_unigram_destroy(self._handle)
+            self._handle = None
+
+    def eligible(self, text: str) -> bool:
+        return (text.isascii() and (text == "" or text.isprintable()) and "  " not in text
+                and text == text.strip() and not any(s in text for s in self._specials))
+
+    def encode(self, text: str) -> list[int] | None:
+        if not text:
+            return []  # an empty pre-tokenization has no pieces
+        buf = (ctypes.c_int32 * 1024)()
+        n = self._lib.sdtpu_unigram_encode(self._handle, text.encode("utf-8"), buf, 1024)
+        return None if n < 0 else list(buf[:n])
+
+
+def _native_for(spec: dict) -> NativeUnigram | None:
+    """The native encoder iff ``tokenizer.json`` is what the C++ code
+    implements: a Unigram model without byte fallback behind a
+    ``Metaspace(U+2581, prepend always, split)`` pre-tokenizer."""
+    model = spec.get("model") or {}
+    pre = spec.get("pre_tokenizer") or {}
+    if model.get("type") != "Unigram" or model.get("byte_fallback"):
+        return None
+    scheme = pre.get("prepend_scheme",
+                     "always" if pre.get("add_prefix_space", True) else "never")
+    if (pre.get("type") != "Metaspace" or pre.get("replacement") != "\u2581"
+            or scheme != "always" or pre.get("split", True) is not True):
+        return None
+    return NativeUnigram(model["vocab"], [t["content"] for t in spec.get("added_tokens") or []])
+
+
+class T5Tokenizer:
+    """``tokenizer.json`` -> ids; ``tokenize`` adds EOS, pads and masks.
+    ``prefer_native``: the C++ path where it applies and builds."""
+
+    def __init__(self, tokenizer_json: str | Path, eos_id: int = 1, pad_id: int = 0,
+                 prefer_native: bool = True):
         spec = json.loads(Path(tokenizer_json).read_text(encoding="utf-8"))
         for key in ("truncation", "padding"):
             if spec.get(key) is not None:
@@ -411,6 +516,37 @@ class T5Tokenizer:
         self.model = Unigram(spec["model"])
         self.eos_id = eos_id
         self.pad_id = pad_id
+        self._native = None
+        #: prompts the C++ encoder segmented (the rest went to Python)
+        self.native_calls = 0
+        if not prefer_native:
+            return
+        try:
+            enc = _native_for(spec)
+        except (RuntimeError, OSError) as e:
+            logger.info("native unigram unavailable: %s", e)
+            return
+        if enc is not None and self._self_check(enc):
+            self._native = enc
+
+    def _self_check(self, native: NativeUnigram) -> bool:
+        """Whether the native encoder gives the Python path's ids on the
+        probe corpus (score ties, or a normalizer that is not the identity
+        on ASCII, would show here)."""
+        for text in _PROBES:
+            got = native.encode(text) if native.eligible(text) else None
+            if got is None:
+                continue
+            want = self._encode_python(text)
+            if got != want:
+                logger.warning("native unigram self-check mismatch on %r (%s != %s); using "
+                               "the Python path", text, got, want)
+                return False
+        return True
+
+    @property
+    def uses_native(self) -> bool:
+        return self._native is not None
 
     def _split_added(self, text: str):
         """-> [(piece, start, added id or None)]: the added tokens split out,
@@ -432,7 +568,15 @@ class T5Tokenizer:
         return out
 
     def encode(self, text: str) -> list[int]:
-        """Segment (no EOS, no padding)."""
+        """Segment (no EOS, no padding): the native path where eligible."""
+        if self._native is not None and self._native.eligible(text):
+            ids = self._native.encode(text)
+            if ids is not None:
+                self.native_calls += 1
+                return ids
+        return self._encode_python(text)
+
+    def _encode_python(self, text: str) -> list[int]:
         ids: list[int] = []
         for piece, start, tok_id in self._split_added(text):
             if tok_id is not None:

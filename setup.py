@@ -27,6 +27,10 @@ setup(
             "sdtpu-convert=ml_stable_diffusion_tpu.cli.convert:main",
             "sdtpu-benchmark=ml_stable_diffusion_tpu.cli.benchmark:main",
             "sdtpu-compress=ml_stable_diffusion_tpu.cli.compress:main",
+            "sdtorch-generate=ml_stable_diffusion_torch.cli.generate:main",
+            "sdtorch-convert=ml_stable_diffusion_torch.cli.convert:main",
+            "sdtorch-benchmark=ml_stable_diffusion_torch.cli.benchmark:main",
+            "sdtorch-compress=ml_stable_diffusion_torch.cli.compress:main",
         ]
     },
 )

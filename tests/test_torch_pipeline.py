@@ -154,7 +154,10 @@ def test_import_pulls_in_no_jax():
         "        'convert.textual_inversion', 'convert.ip_adapter', 'convert.clip_vision',\n"
         "        'models.clip_vision', 'models.ip_adapter', 'pipelines.program', 'serving',\n"
         "        'ops.int8', 'compress.w8a8', 'convert.optimize', 'parallel.train',\n"
-        "        'parallel.checkpoint', 'utils.profiling'}\n"
+        "        'parallel.checkpoint', 'utils.profiling', 'cli.generate', 'cli.convert',\n"
+        "        'cli.benchmark', 'cli.compress', 'convert.verify', 'convert.torch_mirrors',\n"
+        "        'utils.clip_score', 'utils.png', 'utils.native', 'utils.native_image',\n"
+        "        'tokenizer.native'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
