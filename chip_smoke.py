@@ -238,6 +238,23 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    safetensors header parse against the Python parse of phase 20's UNet
    file.  Then phase 20's directory is removed.
    Each phase group's seconds and the whole run's are printed.
+33. Tensor and spatial parallelism (``parallel/``).  33.1, last on phase 3's
+   pipeline: one replay of its unsharded program, then ``pipe.shard`` over a
+   one-rank NCCL mesh (``make_mesh(1)``; the collectives issued as at any
+   world size, so the generation's graph captures NCCL calls) and phase 3's
+   warm-up and first timed generation again: 301 flash launches each, the
+   latents against phase 3's, ms/step beside the unsharded replay's.
+   33.2 and 33.3, after the palettized phases: two ranks on the one card
+   over gloo (NCCL takes one rank a device), each a process of its own
+   (``--parallel-rank``): the full-width SD-2.1 UNet (variance-preserving
+   bf16 weights) at (2, 4, 64, 64), unsharded, spatially sharded and tensor
+   sharded at tp=2, each sharded output against the unsharded one (PSNR >=
+   40 dB) with each rank's flash launches and shapes; phase 3's pipeline
+   sharded at tp=2, a captured generation refused, then 4 steps (a depth
+   cut for time) eagerly against the unsharded generation; the SDXL base
+   UNet at 1024x1024 on the fused GroupNorm the same way, with the
+   GroupNorm kernel's launches.  Then the flash kernel at the sharded shapes
+   no earlier phase times, against its plain version, with its bound.
 
 The main paths run their captured programs (pipelines/program.py): each
 key's first generation runs the body once eagerly as warm-up, captures it
@@ -252,7 +269,7 @@ Every kernel launch counter is set to 0 just before each main path (phases
 3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, each
 path of 15, 16, 17, 18, 19, 20, 21 and 22, each path's turns of 26, 27 and
 28, the staged run of 29, 31's generate, bundle generation and benchmark,
-and phase 10 for the fused
+33.1's unsharded replay and sharded generations, and phase 10 for the fused
 dequant-matmul, whose main path it is) and read just after it; phase 13 reads them around each
 generation.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
@@ -4389,6 +4406,294 @@ LINE_ROW_KEYS = ("label", "q_lens", "sk", "B", "H", "D", "shape", "groups", "app
                  "gather_matmul_device_ms", "bound_ms", "bound_by")
 
 
+# -- phase 33: tensor and spatial parallelism -----------------------------------------
+
+#: sharded forwards against the unsharded one on the same card, in bf16
+PARALLEL_MIN_PSNR_DB = 40.0
+#: 33.2's sharded SD-2.1 generation: a depth cut for time (gloo stages every
+#: collective through the host)
+PARALLEL_STEPS = 4
+#: the flash shapes that only the sharded forwards launch (their other
+#: shapes are phase 2's): SD-2.1 at tp=2 with the heads split (levels 2 and
+#: 3: 10 -> 5 and 20 -> 10; level 1's 5 heads take the generic form), and
+#: the spatial forwards' local query rows over all keys (SD-2.1's 16x16
+#: level leaves 128 query rows a rank, below the 256-row dispatch threshold)
+PARALLEL_FLASH_SHAPES = [
+    ("sd21 tp2 32x32", (1024,), 1024, 2, 5, 64, torch.bfloat16, {}),
+    ("sd21 tp2 16x16", (256,), 256, 2, 10, 64, torch.bfloat16, {}),
+    ("sd21 rows/2 64x64", (2048,), 4096, 2, 5, 64, torch.bfloat16, {}),
+    ("sd21 rows/2 32x32", (512,), 1024, 2, 10, 64, torch.bfloat16, {}),
+    ("sdxl rows/2 64x64", (2048,), 4096, 2, 10, 64, torch.bfloat16, {}),
+    ("sdxl rows/2 32x32", (512,), 1024, 2, 20, 64, torch.bfloat16, {}),
+]
+#: launches of one UNet call in each mode: (flash, group_norm_silu).  The
+#: spatial SD-2.1 call's 16x16 level has 128 local query rows: plain path
+PARALLEL_LAUNCHES = {("sd21", "unsharded"): (15, 0), ("sd21", "tensor"): (15, 0),
+                     ("sd21", "spatial"): (10, 0), ("sdxl", "unsharded"): (70, 34),
+                     ("sdxl", "tensor"): (70, 34), ("sdxl", "spatial"): (70, 34)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_nccl_one_rank(pipe, counters, sd21_results) -> dict:
+    """33.1: phase 3's pipeline on a one-rank NCCL mesh, its generation one
+    captured program whose collectives are NCCL calls: one replay of the
+    unsharded program, then ``shard`` and phase 3's warm-up and first timed
+    generation again, their latents against phase 3's."""
+    import torch.distributed as dist
+
+    from ml_stable_diffusion_torch.parallel import make_mesh
+
+    before = run_main_path(pipe, "sd21", counters, timed=1, plain=False, warmup=False)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        pipe.shard(make_mesh(1))
+        runs, captures = [], len(pipe.programs.captures)
+        res = run_main_path(pipe, "sd21", counters, timed=1, plain=False, results=runs)
+        captured = len(pipe.programs.captures) - captures
+        if captured != 2:
+            fail(f"33.1: the sharded pipeline captured {captured} programs, want 2 (the "
+                 f"generation's and the decode's)")
+    finally:
+        dist.destroy_process_group()
+    diffs = [float(abs(r.latents - ref.latents).max()) for r, ref in zip(runs, sd21_results)]
+    rel = max(diffs) / max(float(abs(sd21_results[0].latents).max()), 1e-12)
+    if not rel <= GEN_MAX_REL_ERR:
+        fail(f"33.1: the one-rank sharded latents differ from phase 3's by {rel} (rel) > "
+             f"{GEN_MAX_REL_ERR}")
+    out = dict(ms_per_step=1e3 * res["seconds_per_step"],
+               unsharded_ms_per_step=1e3 * before["seconds_per_step"],
+               launches=res["launches"], max_abs_vs_phase3=diffs, rel_vs_phase3=rel,
+               bit_equal=all(d == 0.0 for d in diffs), backend="nccl")
+    log(f"33.1 one-rank NCCL mesh, captured: {out['ms_per_step']:.2f} ms/step against "
+        f"{out['unsharded_ms_per_step']:.2f} unsharded in turn (phase 3: "
+        f"{1e3 * statistics.median(r.seconds_per_step for r in sd21_results[1:]):.2f}); "
+        f"launches {res['launches']} (warm-up + timed); latents against phase 3's: max abs "
+        f"{diffs} ({'bit-equal' if out['bit_equal'] else 'not bit-equal: a row-parallel '
+        'Linear adds its bias after the float32 reduce, to the bf16-rounded product, where '
+        'nn.Linear adds it inside the GEMM'}), rel {rel:.3g} (max {GEN_MAX_REL_ERR})")
+    return out
+
+
+def _recording(modules, name, shapes):
+    """Wrap the dispatch function ``name`` where each of ``modules`` calls it
+    to append its first input's shape to ``shapes``; -> a function that puts
+    them back.  The kernel wrappers below stay as they are, their
+    ``.launches`` counting."""
+    originals = [getattr(m, name) for m in modules]
+
+    def wrap(fn):
+        def recorded(*args, **kw):
+            shapes.append(tuple(args[0].shape))
+            return fn(*args, **kw)
+        return recorded
+
+    for m, fn in zip(modules, originals):
+        setattr(m, name, wrap(fn))
+    return lambda: [setattr(m, name, fn) for m, fn in zip(modules, originals)]
+
+
+def _sharded_forwards(label, unet, inputs, mesh, counters):
+    """One UNet call unsharded, spatially sharded and tensor sharded (the
+    UNet sharded in place last); each sharded output against the unsharded
+    one (PSNR), and each call's flash and GroupNorm launches and shapes."""
+    from ml_stable_diffusion_torch.models import unet as unet_module
+    from ml_stable_diffusion_torch.ops import flash_attention as flash_module
+    from ml_stable_diffusion_torch.parallel import (
+        layers,
+        make_spatial_sharded_forward,
+        make_tensor_sharded_forward,
+    )
+
+    sample, t, ctx, *rest = inputs
+    kw = {"added_cond": rest[0]} if rest else {}
+    out, ref = {}, None
+    for mode in ("unsharded", "spatial", "tensor"):
+        if mode == "spatial":
+            fn = make_spatial_sharded_forward(unet, mesh)
+        elif mode == "tensor":
+            _, fn = make_tensor_sharded_forward(unet, mesh)
+        else:
+            fn = unet
+        # the dispatch functions, as ops/attention.py and the resnets (and the
+        # spatial GroupNorm) call them
+        flash_shapes, gn_shapes_seen = [], []
+        undo_flash = _recording([flash_module], "flash_attention", flash_shapes)
+        undo_gn = _recording([unet_module, layers], "group_norm_silu", gn_shapes_seen)
+        before = {k: f.launches for k, f in counters.items()}
+        try:
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                y = fn(sample, t, ctx, **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            undo_flash()
+            undo_gn()
+        launched = {k: f.launches - before[k] for k, f in counters.items()}
+        row = dict(seconds=seconds, flash_launches=launched["flash_attention"],
+                   group_norm_silu_launches=launched["group_norm_silu"],
+                   flash_shapes=sorted(set(flash_shapes)),
+                   group_norm_shapes=sorted(set(gn_shapes_seen)))
+        if mode == "unsharded":
+            ref = y
+        else:
+            row["max_abs"], row["psnr_db"], row["peak"] = psnr_db(y.float(), ref.float())
+        out[mode] = row
+    return out
+
+
+def parallel_rank_main(rank: int, world: int, tmp: Path):
+    """One of 33.2/33.3's two ranks on the one card, over gloo: the full-width
+    SD-2.1 UNet's forwards at (2, 4, 64, 64), a sharded SD-2.1 generation of
+    PARALLEL_STEPS steps (eager: a gloo mesh cannot be captured) against the
+    unsharded one, and the SDXL-base UNet's forwards at 1024x1024 (fused
+    GroupNorm).  Writes ``rank{rank}.json`` into ``tmp``."""
+    import torch.distributed as dist
+
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from ml_stable_diffusion_torch.ops.flash_attention import flash_attention_cuda
+    from ml_stable_diffusion_torch.ops.groupnorm import group_norm_silu_cuda
+    from ml_stable_diffusion_torch.parallel import make_mesh
+    from ml_stable_diffusion_torch.utils.numerics import apply_numerics
+
+    torch.cuda.set_device(0)
+    apply_numerics()
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=rank,
+                            world_size=world)
+    counters = {"flash_attention": flash_attention_cuda, "group_norm_silu": group_norm_silu_cuda}
+    try:
+        mesh = make_mesh(world)
+        out = {"backend": str(dist.get_backend()), "rank": rank}
+        # 33.2: the SD-2.1 UNet with variance-preserving weights, as phase 4
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        with torch.device("meta"):
+            unet = UNet2DConditionModel(UNetConfig.sd21())
+        unet = materialize(unet, gen, torch.bfloat16, std=None)
+        inputs = (torch.randn(2, 4, 64, 64, generator=gen, device="cuda"),
+                  torch.tensor(500.0, device="cuda"),
+                  torch.randn(2, 77, 1024, generator=gen, device="cuda"))
+        out["sd21"] = _sharded_forwards("sd21", unet, inputs, mesh, counters)
+        del unet
+        free_card()
+        # 33.2: phase 3's pipeline sharded at tp=2, PARALLEL_STEPS steps
+        with tempfile.TemporaryDirectory() as tokdir:
+            pipe = build_sd21_pipeline(Path(tokdir))
+        cfg = main_cfg("sd21", 0, step_count=PARALLEL_STEPS)
+        with torch.inference_mode():
+            for _ in range(2):  # a capture, then the replay compared and timed
+                ref = pipe.generate_images(cfg, image_hw=(512, 512))
+        pipe.shard(mesh)
+        try:
+            pipe.generate_images(cfg, image_hw=(512, 512))
+            fail("33.2: a captured generation on a gloo mesh ran; it must raise")
+        except RuntimeError as e:
+            if "execution = 'eager'" not in str(e):
+                raise
+            out["captured_refusal"] = str(e)
+        pipe.execution = "eager"
+        before = flash_attention_cuda.launches
+        t0 = time.perf_counter()
+        res = pipe.generate_images(cfg, image_hw=(512, 512))
+        diff = float(abs(res.latents - ref.latents).max())
+        out["generation"] = dict(
+            steps=PARALLEL_STEPS, seconds=time.perf_counter() - t0,
+            seconds_per_step=res.seconds_per_step, unsharded_seconds_per_step=ref.seconds_per_step,
+            flash_launches=flash_attention_cuda.launches - before, max_abs=diff,
+            rel=diff / max(float(abs(ref.latents).max()), 1e-12),
+            finite=bool(torch.isfinite(torch.from_numpy(res.latents)).all()))
+        del pipe, ref, res
+        free_card()
+        # 33.3: the SDXL base UNet at 1024x1024 on the fused GroupNorm, as phase 8
+        unet, inputs = sdxl_unet_and_inputs(torch.Generator(device="cuda").manual_seed(8))
+        out["sdxl"] = _sharded_forwards("sdxl", unet, inputs, mesh, counters)
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_parallel_ranks(counters) -> dict:
+    """33.2 and 33.3: two ranks on the one card over gloo (NCCL takes one
+    rank a device), each in a process of its own; their forwards, launches
+    and shapes checked here.  Then the kernel at the sharded shapes that no
+    earlier phase timed, against its plain version, with its bound."""
+    from ml_stable_diffusion_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_reference,
+    )
+
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        outs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
+        procs = [subprocess.Popen([sys.executable, __file__, "--parallel-rank", str(r),
+                                   str(world), str(tmp)], stdout=fh, stderr=subprocess.STDOUT)
+                 for r, fh in enumerate(outs)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p, fh in zip(procs, outs):
+                p.kill()
+                p.wait()
+                fh.close()
+        for r, p in enumerate(procs):
+            text = (tmp / f"rank{r}.log").read_text()
+            for line in text.splitlines()[-40:]:
+                log(f"  [rank {r}] {line}")
+            if p.returncode != 0:
+                fail(f"33.2/33.3: rank {r} exited {p.returncode}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    known = {(B, q[0], sk, H, D) for _, q, sk, B, H, D, dt, _ in FLASH_SHAPES
+             if dt == torch.bfloat16}
+    new = {(B, q[0], sk, H, D) for _, q, sk, B, H, D, _, _ in PARALLEL_FLASH_SHAPES}
+    for r, out in enumerate(ranks):
+        for model in ("sd21", "sdxl"):
+            for mode, row in out[model].items():
+                want = PARALLEL_LAUNCHES[(model, mode)]
+                got = (row["flash_launches"], row["group_norm_silu_launches"])
+                if got != want:
+                    fail(f"33: rank {r} {model} {mode}: launched (flash, GroupNorm) {got}, "
+                         f"want {want}")
+                if mode != "unsharded" and not row["psnr_db"] >= PARALLEL_MIN_PSNR_DB:
+                    fail(f"33: rank {r} {model} {mode} against unsharded: PSNR "
+                         f"{row['psnr_db']} dB < {PARALLEL_MIN_PSNR_DB}")
+                for B, S, H, D in map(tuple, row["flash_shapes"]):
+                    if not any((B, S, H, D) == (b, q, h, d) for b, q, _, h, d in known | new):
+                        fail(f"33: rank {r} {model} {mode} launched the kernel at q "
+                             f"{(B, S, H, D)}, a shape no phase times")
+                log(f"33 rank {r} {model} {mode}: {row['flash_launches']} flash, "
+                    f"{row['group_norm_silu_launches']} GroupNorm launches, q shapes "
+                    f"{row['flash_shapes']}, GroupNorm shapes {row['group_norm_shapes']}, "
+                    f"{row['seconds']:.3f} s (gloo, eager)"
+                    + ("" if mode == "unsharded" else
+                       f"; against unsharded: max abs {row['max_abs']:.4g}, PSNR "
+                       f"{row['psnr_db']:.2f} dB (min {PARALLEL_MIN_PSNR_DB})"))
+        g = out["generation"]
+        if not (g["finite"] and g["rel"] <= GEN_MAX_REL_ERR):
+            fail(f"33.2: rank {r}'s sharded generation against unsharded: rel {g['rel']} "
+                 f"(max {GEN_MAX_REL_ERR}), finite {g['finite']}")
+        log(f"33.2 rank {r} SD-2.1 tp=2 generation, {g['steps']} steps (a depth cut for "
+            f"time), eager over gloo: {1e3 * g['seconds_per_step']:.1f} ms/step against "
+            f"{1e3 * g['unsharded_seconds_per_step']:.1f} unsharded (a replay); "
+            f"{g['flash_launches']} flash launches; latents max abs {g['max_abs']:.4g}, rel "
+            f"{g['rel']:.3g} (max {GEN_MAX_REL_ERR}); captured run refused: "
+            f"{out['captured_refusal']!r}")
+        if ranks[0]["generation"]["max_abs"] != g["max_abs"]:
+            fail("33.2: the ranks' sharded generations differ")
+    rows = check_kernel(lambda qs, k, v: [flash_attention_cuda(qs[0], k, v)],
+                        lambda qs, k, v: [flash_attention_reference(qs[0], k, v)],
+                        PARALLEL_FLASH_SHAPES)
+    return {"ranks": ranks, "flash_rows": rows}
+
+
 def line_rows(rows):
     """``rows`` with only the keys the kernels line keeps."""
     return [{k: r[k] for k in LINE_ROW_KEYS if k in r} for r in rows]
@@ -4691,6 +4996,12 @@ def main():
         compare_trees(Path(sys.argv[2]).resolve())
         log(card)
         return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--parallel-rank":
+        if not torch.cuda.is_available():
+            print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
+            return 1
+        parallel_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+        return 0
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} [--profile {'|'.join(PROFILE_BUILDERS)} | "
               f"--compare PARENT_CHECKOUT]", file=sys.stderr)
@@ -4773,6 +5084,8 @@ def main():
     #: phases 26 and 27 by path, 28, 29, 30, 31, 32; seconds of phases 26 to 32
     w8a8, fuse_qkv, staged, training, phase_s = {}, {}, {}, {}, {}
     command_line, native_libs = {}, {}
+    #: phase 33
+    parallel = {}
 
     def sd21_more(pipe):
         """Phases 23, 30, 26, 25, 12, 13, 20, 28, 31 and 32 on phase 3's
@@ -4810,6 +5123,10 @@ def main():
             phase_s["32"] = time.perf_counter() - t1
         finally:
             tmp.cleanup()
+        # phase 33.1, last on this pipeline: shard leaves it split
+        t1 = time.perf_counter()
+        parallel["nccl_one_rank"] = run_nccl_one_rank(pipe, counters, results["sd21"])
+        phase_s["33.1"] = time.perf_counter() - t1
 
     def sd3_more(pipe):
         """Phase 23, phase 14's SD3 img2img, then phases 18 and 19, on phase
@@ -4929,6 +5246,10 @@ def main():
     staged["palettized_program_mode"] = palettized.pop("staged_program_mode")
     model_checks["palettized"] = check_palettized_witness(counters, pal_calls)
     log(f"phases of the palettized path (9, 29.1, 10): {time.perf_counter() - t0:.1f} s")
+    free_card()
+    t1 = time.perf_counter()
+    parallel.update(run_parallel_ranks(counters))
+    phase_s["33.2-33.3"] = time.perf_counter() - t1
 
     launches = {p: r["launches"] for p, r in main_paths.items()}
     kernels = [
@@ -4958,10 +5279,10 @@ def main():
                     "graphs_vs_eager": graphs, "reduce_memory": reduce_memory,
                     "serving": serving, "w8a8": w8a8, "fuse_qkv": fuse_qkv, "staged": staged,
                     "training": training, "command_line": command_line,
-                    "native_libraries": native_libs,
+                    "native_libraries": native_libs, "parallel": parallel,
                     "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
-    log(f"seconds of phases 26 to 32: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+    log(f"seconds of phases 26 to 33: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f"; the whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

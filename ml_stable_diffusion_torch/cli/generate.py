@@ -11,8 +11,10 @@ except:
   ``cuda:1``, ``cpu``) and defaults to ``cuda``;
 - ``--attention-implementation xla`` selects the port's plain path, so a
   command line written for ``sdtpu-generate`` runs unchanged;
-- ``--mesh`` exits: tensor parallelism waits for a machine with more than
-  one card;
+- ``--mesh tp=N | dp=D,tp=T`` runs one process per card under ``torchrun
+  --nproc-per-node D*T`` (without a matching ``WORLD_SIZE`` it exits and
+  says so); the pipeline is sharded after the adapters, every rank
+  generates, and rank 0 writes the images;
 - input images are read, and the results written, by ``utils/png.py``; an
   input whose size differs from ``--size`` (or that is not a PNG it reads)
   goes through Pillow (``utils/image.py:pil_to_tensor``), which the
@@ -29,6 +31,7 @@ import functools
 import importlib
 import json
 import logging
+import os
 from pathlib import Path
 
 logger = logging.getLogger(__name__)
@@ -120,9 +123,34 @@ def parser_spec() -> argparse.ArgumentParser:
                    help="--save-every previews decode predicted-x0 instead of the noisy "
                         "latents")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="not available: tensor parallelism waits for a machine with more "
-                        "than one card")
+                   help="shard the pipeline over dp*tp cards, one process each, started by "
+                        "torchrun --nproc-per-node dp*tp; SPEC is 'tp=N' or 'dp=D,tp=T'; "
+                        "rank 0 writes the images")
     return p
+
+
+def _parse_mesh(spec: str, device):
+    """'tp=N' / 'dp=D,tp=T' -> the (dp, tp) mesh over this command's
+    processes, one per card, as torchrun starts them (its environment names
+    the rank, the world size and the rendezvous); NCCL on the card, gloo on
+    the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import make_mesh
+
+    kv = dict(part.split("=") for part in spec.split(","))
+    dp, tp = int(kv.get("dp", 1)), int(kv.get("tp", 1))
+    world = os.environ.get("WORLD_SIZE")
+    if world != str(dp * tp):
+        raise SystemExit(
+            f"--mesh {spec} runs one process per card on {dp * tp} cards: start the command "
+            f"with torchrun --nproc-per-node {dp * tp} (WORLD_SIZE is {world or 'unset'})")
+    if not dist.is_initialized():
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return make_mesh(dp * tp, dp=dp, tp=tp, device_type=device.type)
 
 
 def _load_embedder(spec: str, script: str):
@@ -193,11 +221,11 @@ def run(args) -> list:
     from ..utils import png
     from ..utils.rng import make_random_source
 
-    if args.mesh:
-        raise SystemExit("--mesh: tensor and spatial parallelism are not ported yet; they "
-                         "wait for a machine with more than one card")
     make_random_source(args.rng, args.seed)  # --rng jax: the pipeline's own ValueError
     device = torch.device(args.device)
+    mesh = _parse_mesh(args.mesh, device) if args.mesh else None
+    # every rank generates the same images; the first writes them
+    writes = mesh is None or torch.distributed.get_rank() == 0
     prompt = args.prompt_opt or args.prompt or ""
     h, w = (int(x) for x in args.size.split("x"))
 
@@ -232,6 +260,8 @@ def run(args) -> list:
         scales, skip = _w8a8_scales(pipe, args.w8a8_scales) if args.w8a8_scales else (None,
                                                                                         None)
         pipe.enable_w8a8(scales, skip_patterns=skip)
+    if mesh is not None:  # after the adapters: they change whole weights
+        pipe.shard(mesh)
     if args.reduce_memory:
         pipe.offload_params_to_host()
 
@@ -267,6 +297,8 @@ def run(args) -> list:
     handler = None
     if args.save_every > 0:
         def handler(progress):
+            if not writes:
+                return True
             if progress.step % args.save_every == 0:
                 for i, im in enumerate(progress.current_images):
                     png.write_png(out_dir / _name(prompt, args.seed, i, step=progress.step), im)
@@ -274,7 +306,7 @@ def run(args) -> list:
 
     result = pipe.generate_images(cfg, progress_handler=handler, image_hw=(h, w))
     paths = []
-    for i, im in enumerate(result.images):
+    for i, im in enumerate(result.images if writes else ()):
         paths.append(png.write_png(out_dir / _name(prompt, args.seed, i), im))
         if result.nsfw_flags[i]:
             logger.warning("image %d flagged by safety checker", i)

@@ -345,14 +345,23 @@ def load_t5(module_dir: str | Path, dtype=torch.bfloat16,
 
 def load_pipeline(checkpoint_dir: str | Path, custom_vae_dir=None, refiner_dir=None,
                   controlnet_dirs=(), compute_dtype=torch.bfloat16, fuse_qkv: bool = False,
-                  multilingual_encoder=None, device: str | torch.device = "cuda"):
+                  multilingual_encoder=None, device: str | torch.device = "cuda", mesh=None):
     """An SD / SDXL / SD3 pipeline on ``device`` from a diffusers-layout
     checkpoint directory, the family read from ``model_index.json``.
     ``custom_vae_dir`` replaces the checkpoint's VAE; ``refiner_dir`` (SDXL)
     is a checkpoint whose ``unet/`` is the refiner; ``controlnet_dirs`` (SD
     and SD3) are ControlNet directories; ``multilingual_encoder`` is the SD
     pipeline's ``(MultilingualProjection, embed_fn)`` (an SD 1.x/2.x
-    feature: SDXL and SD3 raise ``ValueError``)."""
+    feature: SDXL and SD3 raise ``ValueError``); ``mesh``: a
+    ``parallel.make_mesh`` mesh the assembled pipeline is sharded over
+    (``pipe.shard(mesh)``)."""
+    pipe = _assemble_pipeline(checkpoint_dir, custom_vae_dir, refiner_dir, controlnet_dirs,
+                              compute_dtype, fuse_qkv, multilingual_encoder, device)
+    return pipe if mesh is None else pipe.shard(mesh)
+
+
+def _assemble_pipeline(checkpoint_dir, custom_vae_dir, refiner_dir, controlnet_dirs,
+                       compute_dtype, fuse_qkv, multilingual_encoder, device):
     from ..pipelines import (
         StableDiffusion3Pipeline,
         StableDiffusionPipeline,
@@ -429,10 +438,11 @@ def _state_dict(params: dict, convert) -> dict:
 
 
 def load_pipeline_from_artifacts(artifact_dir: str | Path, compute_dtype=torch.bfloat16,
-                                 device: str | torch.device = "cuda"):
+                                 device: str | torch.device = "cuda", mesh=None):
     """Assemble an SD / SDXL / SD3 pipeline from an artifact bundle on
     ``device``: the denoisers in ``compute_dtype``, the text encoders and
-    the VAE decoder and encoder in float32."""
+    the VAE decoder and encoder in float32; with ``mesh``, sharded over it
+    once assembled (``pipe.shard(mesh)``)."""
     from ..pipelines import (
         StableDiffusion3Pipeline,
         StableDiffusionPipeline,
@@ -475,7 +485,7 @@ def load_pipeline_from_artifacts(artifact_dir: str | Path, compute_dtype=torch.b
         for key, pal in pal_map.items():
             if pal is not None:
                 pipe.install_palettized(key, pal, dtype=compute_dtype)
-        return pipe
+        return pipe if mesh is None else pipe.shard(mesh)
 
     def controlnet(name):
         manifest = json.loads((root / f"{name}.json").read_text())

@@ -221,6 +221,8 @@ class ResnetBlock2D(nn.Module):
             self.conv_shortcut = None
 
     def _gn_silu(self, x, norm: nn.GroupNorm):
+        if hasattr(norm, "gn_silu"):  # split over image rows (parallel/layers.py)
+            return norm.gn_silu(x, self.gn)
         if self.gn == "fused":
             return group_norm_silu(x, norm.weight, norm.bias, norm.num_groups,
                                    norm.eps).to(norm.weight.dtype)
@@ -242,12 +244,17 @@ class Attention(nn.Module):
     """QKV attention over (B, S, C) through the shared dispatch.  ``ip``:
     (IP-Adapter tokens (B, S_ip, C_ctx), scale) for a cross attention that
     ``load_ip_adapter`` gave ``to_k_ip``/``to_v_ip``.  ``fuse_qkv`` (self
-    attention only): one ``to_qkv`` projection, split in three."""
+    attention only): one ``to_qkv`` projection, split in three.  The head
+    count follows the projections' widths (``head_dim`` each), so a
+    tensor-parallel rank whose projections hold its heads runs its own
+    (parallel/layers.py); ``self_attention_kv`` is where spatial sharding
+    gathers the keys and values of every rank's tokens."""
 
     def __init__(self, query_dim: int, heads: int, context_dim: int | None = None,
                  fuse_qkv: bool = False):
         super().__init__()
         self.heads = heads
+        self.head_dim = query_dim // heads
         if fuse_qkv:
             if context_dim is not None:
                 raise ValueError("fuse_qkv is for self attention: its k and v read x")
@@ -259,17 +266,23 @@ class Attention(nn.Module):
             self.to_v = nn.Linear(context_dim, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
 
+    def self_attention_kv(self, k, v):
+        return k, v
+
     def forward(self, x, context=None, ip=None):
+        is_self = context is None
         context = x if context is None else context
-        B, Sq, C = x.shape
+        B, Sq, _ = x.shape
         Sk = context.shape[1]
-        H = self.heads
+        D = self.head_dim
         if hasattr(self, "to_qkv"):
-            q, k, v = (t.view(B, Sq, H, C // H) for t in self.to_qkv(x).chunk(3, dim=-1))
+            q, k, v = (t.view(B, Sq, -1, D) for t in self.to_qkv(x).chunk(3, dim=-1))
         else:
-            q = self.to_q(x).view(B, Sq, H, C // H)
-            k = self.to_k(context).view(B, Sk, H, C // H)
-            v = self.to_v(context).view(B, Sk, H, C // H)
+            q = self.to_q(x).view(B, Sq, -1, D)
+            k = self.to_k(context).view(B, Sk, -1, D)
+            v = self.to_v(context).view(B, Sk, -1, D)
+        if is_self:
+            k, v = self.self_attention_kv(k, v)
         out = dot_product_attention(q, k, v)
         if ip is not None:
             tokens, scale = ip
@@ -277,10 +290,10 @@ class Attention(nn.Module):
                 raise ValueError("IP-Adapter tokens reached a cross attention without "
                                  "to_k_ip/to_v_ip: load_ip_adapter on this UNet first")
             S_ip = tokens.shape[1]
-            k_ip = self.to_k_ip(tokens).view(B, S_ip, H, C // H)
-            v_ip = self.to_v_ip(tokens).view(B, S_ip, H, C // H)
+            k_ip = self.to_k_ip(tokens).view(B, S_ip, -1, D)
+            v_ip = self.to_v_ip(tokens).view(B, S_ip, -1, D)
             out = out + scale * dot_product_attention(q, k_ip, v_ip)
-        return self.to_out[0](out.reshape(B, Sq, C))
+        return self.to_out[0](out.reshape(B, Sq, -1))
 
 
 class _GEGLUProj(nn.Module):

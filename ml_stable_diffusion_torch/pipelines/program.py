@@ -31,7 +31,8 @@ The key (``program_key``) is JAX's generate_images key, field for field
 (``JAX_KEY_FIELDS``), then what the port's body bakes that JAX's key lacks,
 then the name, shape and dtype of every static input (``jax.jit`` retraces on
 a new input shape by itself, a graph does not) with the host flags the body
-branches on, then the denoiser's dtype.
+branches on, then the denoiser's dtype, then a sharded pipeline's mesh shape
+and rank (``mesh_key``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 #: the fields of the JAX program key, as its source spells them, in order
 #: (ml_stable_diffusion_tpu/pipelines/sd.py:1327-1336); ``program_key``
@@ -72,8 +74,16 @@ def input_signature(inputs: dict) -> tuple:
                  for name, v in sorted(inputs.items()))
 
 
-def program_key(jax_part: tuple, port_part: tuple, inputs: dict, dtype) -> tuple:
-    return (jax_part, port_part, input_signature(inputs), str(dtype))
+def mesh_key(mesh) -> tuple | None:
+    """A sharded pipeline's mesh shape and this process's rank (None
+    unsharded): each rank captures its own program over its own shards."""
+    if mesh is None:
+        return None
+    return tuple(mesh.shape), dist.get_rank()
+
+
+def program_key(jax_part: tuple, port_part: tuple, inputs: dict, dtype, mesh=None) -> tuple:
+    return (jax_part, port_part, input_signature(inputs), str(dtype), mesh)
 
 
 def kernel_counters() -> dict[str, Callable]:

@@ -122,7 +122,7 @@ from ..utils.image import nchw_to_nhwc, pil_to_tensor
 from ..utils.numerics import apply_numerics
 from ..utils.rng import make_random_source
 from .config import PipelineConfiguration
-from .program import ProgramCache, jax_key, program_key, weights_fingerprint
+from .program import ProgramCache, jax_key, mesh_key, program_key, weights_fingerprint
 
 TEXT_LEN = 77
 
@@ -381,6 +381,8 @@ class StableDiffusionPipeline:
         #: card) or "eager" (the same body launched op by op)
         self.execution = "program"
         self._programs = ProgramCache()
+        #: shard: the (dp, tp) DeviceMesh the modules are placed on
+        self.mesh = None
         #: offload_params_to_host: id(module) -> its packed host weights
         self._host_weights: dict[int, _HostWeights] = {}
         #: the staged path's last transfers: (stage, bytes, seconds)
@@ -421,6 +423,7 @@ class StableDiffusionPipeline:
         (alpha / rank) * up @ down``.  Repeated calls stack.  Apply before
         ``install_palettized``.  A target this pipeline has no component for
         raises ``ValueError``."""
+        self._refuse_sharded("apply_lora")
         from ..convert.lora import TARGET_TE, TARGET_TE2, LoRAAdapter, load_lora, merge_lora
 
         adapter = lora if isinstance(lora, LoRAAdapter) else load_lora(lora)
@@ -439,6 +442,7 @@ class StableDiffusionPipeline:
 
     def clear_loras(self):
         """Put back the weights every ``apply_lora`` changed, bit for bit."""
+        self._refuse_sharded("clear_loras")
         from ..convert.lora import restore_loras
 
         for attr, originals in self._lora_originals.items():
@@ -460,6 +464,7 @@ class StableDiffusionPipeline:
         dtype on its device.  ``ValueError`` for a denoiser that is not a
         UNet, a checkpoint of another UNet, or a PLUS resampler whose output
         is not the UNet's cross-attention width."""
+        self._refuse_sharded("load_ip_adapter")
         from ..convert.ip_adapter import (install_ip_projections, load_ip_adapter_state,
                                           port_ip_adapter, resampler_geometry)
         from ..models.ip_adapter import IPImageProjection, IPResampler
@@ -597,6 +602,7 @@ class StableDiffusionPipeline:
         them at its end, so dense copies of those weights do not stay on the
         device between generations.  The rest of the state dict is loaded
         now."""
+        self._refuse_sharded("install_palettized")
         attr = self._PALETTIZED_ATTRS[module_key]
         module = getattr(self, attr)
         dtype = dtype if dtype is not None else next(self.unet.parameters()).dtype
@@ -675,6 +681,7 @@ class StableDiffusionPipeline:
         and on the staged path with the base "unet" stage only (the SDXL
         refiner stays as it is).  The programs are dropped: a graph holds the
         activation scales as kernel arguments."""
+        self._refuse_sharded("enable_w8a8")
         from ..compress.w8a8 import (
             DEFAULT_SKIP_PATTERNS,
             ConstantScales,
@@ -795,6 +802,55 @@ class StableDiffusionPipeline:
                 self._release_palettized(ids)
                 for pack in packs:
                     pack.back()
+
+    # -- tensor parallelism ------------------------------------------------------
+
+    def _refuse_sharded(self, what: str):
+        if self.mesh is not None:
+            raise RuntimeError(f"{what} changes weights that shard() has split over the "
+                               "mesh: call it before shard")
+
+    def shard(self, mesh):
+        """Place every model's weights onto a (dp, tp) ``DeviceMesh``
+        (``parallel.make_mesh``) in place, as the JAX ``shard`` (:640-675):
+        the text encoders, the denoisers, the VAE decoder and encoder, the
+        safety checker, the ControlNets and the multilingual projection
+        follow ``parallel.sharding.param_sharding_rules`` over tp; W8A8 int8
+        layers and weights served palettized in program mode stay
+        replicated.  Every rank (one process per card) then runs the same
+        generation on the same inputs and returns the same result.  The
+        programs are dropped; with an NCCL mesh a generation is still one
+        captured program, while a gloo group cannot be captured on the card:
+        set ``execution = "eager"`` (a captured run raises)."""
+        from ..parallel.sharding import shard_params
+
+        if self._host_weights:
+            raise RuntimeError("shard places weights on the cards; this pipeline's are "
+                               "offloaded to the host (offload_params_to_host)")
+        if self.mesh is not None:
+            raise RuntimeError("this pipeline is sharded already")
+        bundle = self._params_bundle()
+        modules = [m for key, ms in bundle.items() if key not in ("ip_proj", "ip_vision")
+                   for m in ms]
+        modules += [m for m in (self.vae_decoder, self.safety_checker) if m is not None]
+        palettized = {id(m): set(pal) for m, pal, _ in self._palettized_modules()}
+        for module in {id(m): m for m in modules}.values():
+            shard_params(module, mesh, replicate=palettized.get(id(module), ()))
+        self.mesh = mesh
+        self._programs.clear()
+        return self
+
+    def _check_capturable(self):
+        """A captured program on the card needs collectives a graph can hold
+        (NCCL); gloo stages through the host, eagerly."""
+        if self.mesh is not None and self.device.type == "cuda":
+            backends = [str(torch.distributed.get_backend(self.mesh.get_group(axis)))
+                        for axis in self.mesh.mesh_dim_names]
+            if not all("nccl" in b for b in backends):
+                raise RuntimeError(
+                    f"this pipeline is sharded over a {'/'.join(sorted(set(backends)))} mesh, "
+                    "whose collectives a CUDA graph cannot capture: set "
+                    "pipe.execution = 'eager'")
 
     # -- scheduler -------------------------------------------------------------
 
@@ -1230,7 +1286,8 @@ class StableDiffusionPipeline:
             inputs = {"z": z}
             # the attention dispatch in effect is baked into the graph too
             prog = self._programs.get(("decode", scale, shift, str(dtype), z.shape,
-                                       attention.ATTENTION_IMPLEMENTATION_IN_EFFECT.value),
+                                       attention.ATTENTION_IMPLEMENTATION_IN_EFFECT.value,
+                                       mesh_key(self.mesh)),
                                       weights_fingerprint(self._all_modules()), inputs,
                                       lambda b: self._decode_body(b["z"], scale, shift),
                                       self.device)
@@ -1253,11 +1310,15 @@ class StableDiffusionPipeline:
         """Whether a generation runs as captured programs (the default):
         not with a progress handler, palettized weights in program mode
         (rebound on every call), offloaded weights (moved on every call) or
-        ``execution = "eager"``."""
+        ``execution = "eager"``.  Raises for a capture on the card of a
+        pipeline sharded over a mesh that is not NCCL's."""
         if self.execution not in ("program", "eager"):
             raise ValueError(f"execution must be 'program' or 'eager', got {self.execution!r}")
-        return (self.execution == "program" and progress_handler is None
-                and not self.palettized_side and not self._host_weights)
+        captures = (self.execution == "program" and progress_handler is None
+                    and not self.palettized_side and not self._host_weights)
+        if captures:
+            self._check_capturable()
+        return captures
 
     def _plan_generation(self, cfg: PipelineConfiguration, image_hw,
                          progress_handler) -> _Generation:
@@ -1305,7 +1366,8 @@ class StableDiffusionPipeline:
             jax_key(cfg, gen.N, gen.h, gen.w, gen.guidance_on, len(cfg.controlnet_inputs),
                     gen.img2img, gen.inpaint, gen.ip_on, cfg.strength if gen.img2img else 1.0,
                     self._conditioning_cache_key(cfg)),
-            (cfg.encoder_scale_factor,), inputs, next(self.unet.parameters()).dtype)
+            (cfg.encoder_scale_factor,), inputs, next(self.unet.parameters()).dtype,
+            mesh_key(self.mesh))
         return self._programs.get(key, weights_fingerprint(self._all_modules()), inputs,
                                   lambda buffers: self._body(gen, buffers), self.device)
 

@@ -99,7 +99,7 @@ def test_generate_rng_jax_and_mesh_exit(ckpt, tmp_path):
     with pytest.raises(ValueError, match="jax.random"):
         run(generate, GEN[:-2] + ["--rng", "jax", "-i", str(ckpt), "-o", str(tmp_path),
                                     "--device", "cpu"])
-    with pytest.raises(SystemExit, match="more than one card"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         run(generate, GEN + ["-i", str(ckpt), "-o", str(tmp_path), "--mesh", "tp=2"])
     assert generate.parser_spec().parse_args(["-i", "x"]).device == "cuda"
     assert generate.parser_spec().parse_args(["-i", "x"]).rng == "numpy"

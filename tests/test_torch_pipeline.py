@@ -157,7 +157,8 @@ def test_import_pulls_in_no_jax():
         "        'parallel.checkpoint', 'utils.profiling', 'cli.generate', 'cli.convert',\n"
         "        'cli.benchmark', 'cli.compress', 'convert.verify', 'convert.torch_mirrors',\n"
         "        'utils.clip_score', 'utils.png', 'utils.native', 'utils.native_image',\n"
-        "        'tokenizer.native'}\n"
+        "        'tokenizer.native', 'parallel.mesh', 'parallel.sharding', 'parallel.layers',\n"
+        "        'parallel.inference'}\n"
         "assert {p.__name__ + '.' + m for m in need} <= set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
