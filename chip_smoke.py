@@ -255,6 +255,19 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    UNet at 1024x1024 on the fused GroupNorm the same way, with the
    GroupNorm kernel's launches.  Then the flash kernel at the sharded shapes
    no earlier phase times, against its plain version, with its bound.
+34. The training step over a (dp, tp) mesh (``make_train_step(..., mesh)``).
+   34.1, right after 33.1 on its one-rank NCCL group: phase 30's SD-2.1
+   UNet, batch, AdamW and fixed draws through ``make_mesh(1)`` (every
+   sharded layer installed, its collectives NCCL calls over one rank),
+   a warm-up step each, then three steps in turn with the unsharded step:
+   the losses within rel 1e-5 of phase 30's, ms/step of each, no
+   hand-written kernel launched.  34.2, in phase 33's two gloo ranks after
+   33.3 (dp = 1, tp = 2), the card freed first: one SGD step at lr 1 (the
+   update is minus the gradient) against the unsharded one, the loss and
+   the gathered update (relative RMS); one AdamW step, every tp-replicated
+   parameter bit-equal on both ranks; its checkpoint saved at tp = 2 and
+   restored unsharded, bit-equal to the live state; s/step and each rank's
+   peak memory (two ranks on one card over gloo: nothing about scaling).
 
 The main paths run their captured programs (pipelines/program.py): each
 key's first generation runs the body once eagerly as warm-up, captures it
@@ -269,7 +282,8 @@ Every kernel launch counter is set to 0 just before each main path (phases
 3, 5, both runs of 7, both modes of 9, 11, both runs of 12, both of 14, each
 path of 15, 16, 17, 18, 19, 20, 21 and 22, each path's turns of 26, 27 and
 28, the staged run of 29, 31's generate, bundle generation and benchmark,
-33.1's unsharded replay and sharded generations, and phase 10 for the fused
+33.1's unsharded replay and sharded generations, 34.1's training steps,
+and phase 10 for the fused
 dequant-matmul, whose main path it is) and read just after it; phase 13 reads them around each
 generation.  Prints a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and last
@@ -295,6 +309,7 @@ path's flash ms per generation.
 from __future__ import annotations
 
 import copy
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -3982,6 +3997,22 @@ def check_kernels_refuse_grad(counters):
     return sorted(raised)
 
 
+def training_unet_and_batch():
+    """Phases 30 and 34's SD-2.1 UNet (float32, seeded N(0, 0.02) weights)
+    and batch (2 latents of 4x64x64 and a 77x1024 context from seeded host
+    noise, a generator on the card for the draws)."""
+    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
+
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(UNetConfig.sd21())
+    unet = materialize(unet, torch.Generator(device="cuda").manual_seed(30), torch.float32)
+    host = torch.Generator().manual_seed(30)
+    batch = {"latents": torch.randn(TRAIN_BATCH, 4, 64, 64, generator=host).cuda(),
+             "context": torch.randn(TRAIN_BATCH, 77, 1024, generator=host).cuda(),
+             "generator": torch.Generator(device="cuda")}
+    return unet, batch
+
+
 def train_steps(step_fn, state, batch, steps: int = TRAIN_STEPS):
     """``steps`` steps on the fixed batch, the draws fixed (the generator
     seeded alike before each) -> (state, losses, ms per step by CUDA
@@ -4029,7 +4060,6 @@ def run_training(counters) -> dict:
     and one step under ``utils.profiling.trace`` (30.4)."""
     import os
 
-    from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
     from ml_stable_diffusion_torch.parallel import (
         adamw,
         make_train_step,
@@ -4038,16 +4068,10 @@ def run_training(counters) -> dict:
     )
     from ml_stable_diffusion_torch.utils.profiling import trace, trace_summary
 
-    with torch.device("meta"):
-        unet = UNet2DConditionModel(UNetConfig.sd21())
-    unet = materialize(unet, torch.Generator(device="cuda").manual_seed(30), torch.float32)
+    unet, batch = training_unet_and_batch()
     n_params = sum(p.numel() for p in unet.parameters())
     if n_params != SD21_UNET_PARAMS:
         fail(f"phase 30: the SD-2.1 UNet has {n_params} parameters, want {SD21_UNET_PARAMS}")
-    host = torch.Generator().manual_seed(30)
-    batch = {"latents": torch.randn(TRAIN_BATCH, 4, 64, 64, generator=host).cuda(),
-             "context": torch.randn(TRAIN_BATCH, 77, 1024, generator=host).cuda(),
-             "generator": torch.Generator(device="cuda")}
     out = {"parameters": n_params}
     states = {}
     reset_counters(counters)
@@ -4441,28 +4465,35 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_nccl_one_rank(pipe, counters, sd21_results) -> dict:
-    """33.1: phase 3's pipeline on a one-rank NCCL mesh, its generation one
-    captured program whose collectives are NCCL calls: one replay of the
-    unsharded program, then ``shard`` and phase 3's warm-up and first timed
-    generation again, their latents against phase 3's."""
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group in this process (33.1 and 34.1)."""
     import torch.distributed as dist
 
-    from ml_stable_diffusion_torch.parallel import make_mesh
-
-    before = run_main_path(pipe, "sd21", counters, timed=1, plain=False, warmup=False)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
                             world_size=1, device_id=torch.device("cuda", 0))
     try:
-        pipe.shard(make_mesh(1))
-        runs, captures = [], len(pipe.programs.captures)
-        res = run_main_path(pipe, "sd21", counters, timed=1, plain=False, results=runs)
-        captured = len(pipe.programs.captures) - captures
-        if captured != 2:
-            fail(f"33.1: the sharded pipeline captured {captured} programs, want 2 (the "
-                 f"generation's and the decode's)")
+        yield
     finally:
         dist.destroy_process_group()
+
+
+def run_nccl_one_rank(pipe, counters, sd21_results) -> dict:
+    """33.1, inside ``one_rank_nccl``: phase 3's pipeline on a one-rank NCCL
+    mesh, its generation one captured program whose collectives are NCCL
+    calls: one replay of the unsharded program, then ``shard`` and phase 3's
+    warm-up and first timed generation again, their latents against phase
+    3's."""
+    from ml_stable_diffusion_torch.parallel import make_mesh
+
+    before = run_main_path(pipe, "sd21", counters, timed=1, plain=False, warmup=False)
+    pipe.shard(make_mesh(1))
+    runs, captures = [], len(pipe.programs.captures)
+    res = run_main_path(pipe, "sd21", counters, timed=1, plain=False, results=runs)
+    captured = len(pipe.programs.captures) - captures
+    if captured != 2:
+        fail(f"33.1: the sharded pipeline captured {captured} programs, want 2 (the "
+             f"generation's and the decode's)")
     diffs = [float(abs(r.latents - ref.latents).max()) for r, ref in zip(runs, sd21_results)]
     rel = max(diffs) / max(float(abs(sd21_results[0].latents).max()), 1e-12)
     if not rel <= GEN_MAX_REL_ERR:
@@ -4551,11 +4582,12 @@ def _sharded_forwards(label, unet, inputs, mesh, counters):
 
 
 def parallel_rank_main(rank: int, world: int, tmp: Path):
-    """One of 33.2/33.3's two ranks on the one card, over gloo: the full-width
+    """One of 33.2-34.2's two ranks on the one card, over gloo: the full-width
     SD-2.1 UNet's forwards at (2, 4, 64, 64), a sharded SD-2.1 generation of
     PARALLEL_STEPS steps (eager: a gloo mesh cannot be captured) against the
-    unsharded one, and the SDXL-base UNet's forwards at 1024x1024 (fused
-    GroupNorm).  Writes ``rank{rank}.json`` into ``tmp``."""
+    unsharded one, the SDXL-base UNet's forwards at 1024x1024 (fused
+    GroupNorm), then the training step at tp=2 (``tp_training_rank``).
+    Writes ``rank{rank}.json`` into ``tmp``."""
     import torch.distributed as dist
 
     from ml_stable_diffusion_torch.models.unet import UNet2DConditionModel, UNetConfig
@@ -4614,16 +4646,23 @@ def parallel_rank_main(rank: int, world: int, tmp: Path):
         # 33.3: the SDXL base UNet at 1024x1024 on the fused GroupNorm, as phase 8
         unet, inputs = sdxl_unet_and_inputs(torch.Generator(device="cuda").manual_seed(8))
         out["sdxl"] = _sharded_forwards("sdxl", unet, inputs, mesh, counters)
+        del unet, inputs
+        free_card()
+        # 34.2: the training step at tp=2
+        before = {k: f.launches for k, f in counters.items()}
+        out["training"] = tp_training_rank(mesh, tmp)
+        out["training"]["launches"] = {k: f.launches - before[k] for k, f in counters.items()}
         (tmp / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
 def run_parallel_ranks(counters) -> dict:
-    """33.2 and 33.3: two ranks on the one card over gloo (NCCL takes one
-    rank a device), each in a process of its own; their forwards, launches
-    and shapes checked here.  Then the kernel at the sharded shapes that no
-    earlier phase timed, against its plain version, with its bound."""
+    """33.2, 33.3 and 34.2: two ranks on the one card over gloo (NCCL takes
+    one rank a device), each in a process of its own; their forwards,
+    launches and shapes and their training steps checked here.  Then the
+    kernel at the sharded shapes that no earlier phase timed, against its
+    plain version, with its bound."""
     from ml_stable_diffusion_torch.ops.flash_attention import (
         flash_attention_cuda,
         flash_attention_reference,
@@ -4688,10 +4727,221 @@ def run_parallel_ranks(counters) -> dict:
             f"{out['captured_refusal']!r}")
         if ranks[0]["generation"]["max_abs"] != g["max_abs"]:
             fail("33.2: the ranks' sharded generations differ")
+        check_tp_training_rank(r, out["training"], ranks[0]["training"])
     rows = check_kernel(lambda qs, k, v: [flash_attention_cuda(qs[0], k, v)],
                         lambda qs, k, v: [flash_attention_reference(qs[0], k, v)],
                         PARALLEL_FLASH_SHAPES)
     return {"ranks": ranks, "flash_rows": rows}
+
+
+# -- phase 34: the training step over a (dp, tp) mesh ---------------------------------
+
+#: 34.2's SGD step: at lr 1 the update p_after - p_before is minus the
+#: gradient, to within the rounding of p (at phase 30's lr 1e-5 it would be
+#: at the scale of p's last bit)
+TP_SGD_LR = 1.0
+#: 34.1's losses against phase 30's, 34.2's against the unsharded step's
+TP_LOSS_MAX_REL = 1e-5
+#: 34.2's update against the unsharded one, relative RMS (a gradient scaled
+#: by tp reads tp - 1)
+TP_UPDATE_MAX_REL_RMS = 1e-4
+
+
+def sharded_tensor_count(model) -> int:
+    from ml_stable_diffusion_torch.parallel.layers import shard_layout
+
+    return len(shard_layout(model))
+
+
+def run_tp_training_one_rank(counters, phase30) -> dict:
+    """34.1, inside ``one_rank_nccl``: phase 30's UNet, batch, AdamW and fixed
+    draws through ``make_train_step(mesh=make_mesh(1))`` (every rule's layer
+    installed, its collectives NCCL calls over one rank), after a warm-up
+    step of each on a state of its own, three steps in turn with the
+    unsharded step: the losses against phase 30's, ms/step of each, and no
+    hand-written kernel launched."""
+    from ml_stable_diffusion_torch.parallel import adamw, make_mesh, make_train_step
+
+    unet, batch = training_unet_and_batch()
+    steps = {"unsharded": make_train_step(unet, adamw(TRAIN_LR), device="cuda"),
+             "mesh": make_train_step(unet, adamw(TRAIN_LR), make_mesh(1), device="cuda")}
+    reset_counters(counters)
+    for init_fn, step_fn in steps.values():  # a warm-up step each on a state of its own
+        train_steps(step_fn, init_fn(), batch, steps=1)
+        free_card()
+    states = {k: init_fn() for k, (init_fn, _) in steps.items()}
+    sharded = sharded_tensor_count(states["mesh"].model)
+    losses, ms = {k: [] for k in steps}, {k: [] for k in steps}
+    for _ in range(TRAIN_STEPS):
+        for k, (_, step_fn) in steps.items():
+            states[k], loss, t = train_steps(step_fn, states[k], batch, steps=1)
+            losses[k] += loss
+            ms[k] += t
+    launched = {name: fn.launches for name, fn in counters.items()}
+    if any(launched.values()):
+        fail(f"34.1: the mesh's training steps launched {launched}")
+    want = phase30["no_remat"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], want))
+    if not (all(math.isfinite(x) for x in losses["mesh"]) and rel <= TP_LOSS_MAX_REL):
+        fail(f"34.1: the mesh's losses {losses['mesh']} against phase 30's {want}: rel {rel} "
+             f"> {TP_LOSS_MAX_REL}")
+    out = dict(losses=losses, ms_per_step=ms, rel_vs_phase30=rel, sharded_tensors=sharded,
+               median_ms={k: statistics.median(v) for k, v in ms.items()}, launches=launched)
+    log(f"34.1 one-rank NCCL mesh, training (SD-2.1 UNet f32, AdamW, batch {TRAIN_BATCH}): "
+        f"{sharded} sharded tensors installed; losses {losses['mesh']} against phase "
+        f"30's {want}: max rel {rel:.3g} (max {TP_LOSS_MAX_REL}); in turn with the unsharded "
+        f"step ({losses['unsharded']}): {out['median_ms']['mesh']:.2f} against "
+        f"{out['median_ms']['unsharded']:.2f} ms/step (medians of {TRAIN_STEPS}, events: "
+        f"{[round(x, 2) for x in ms['mesh']]} / {[round(x, 2) for x in ms['unsharded']]}); "
+        f"launches {launched}")
+    del states, steps, unet
+    free_card()
+    return out
+
+
+def rel_rms_of(got: dict, want: dict) -> float:
+    """The relative RMS of ``got`` against ``want`` over all their tensors."""
+    num = sum(float(((got[k].double() - w.double()) ** 2).sum()) for k, w in want.items())
+    den = sum(float((w.double() ** 2).sum()) for w in want.values())
+    return math.sqrt(num / den)
+
+
+def tp_training_rank(mesh, tmp: Path) -> dict:
+    """34.2 on one of the two gloo ranks (dp = 1, tp = 2): phase 30's UNet and
+    batch.  One SGD step (``TP_SGD_LR``) against the unsharded one that rank
+    0 runs first: the loss and the update gathered whole; one AdamW step
+    from a new state: the tp-replicated parameters bit-equal on both ranks;
+    its checkpoint saved at tp = 2, restored unsharded on each rank and cut
+    to its shards, held to the live state.  s/step and peak memory of each
+    step."""
+    import torch.distributed as dist
+
+    from ml_stable_diffusion_torch.parallel import (
+        adamw,
+        make_train_step,
+        restore_train_state,
+        save_train_state,
+        sgd,
+    )
+    from ml_stable_diffusion_torch.parallel.layers import (
+        all_gather,
+        axis_group,
+        full_tensors,
+        shard_layout,
+        take_shards,
+    )
+
+    tp = axis_group(mesh, "tp")
+    unet, batch = training_unet_and_batch()
+    before = unet.state_dict()
+    out = {}
+    if tp.rank == 0:
+        init_fn, step_fn = make_train_step(unet, sgd(TP_SGD_LR), device="cuda")
+        state, loss, t = train_steps(step_fn, init_fn(), batch, steps=1)
+        want = {k: p.detach() - before[k] for k, p in state.params.items()}
+        out["unsharded"] = dict(loss=loss[0], ms=t[0])
+        del state, init_fn, step_fn
+        free_card()
+    dist.barrier(group=tp.group)  # the ranks' steps start together
+
+    def measured(step_fn, state):
+        free_card()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, loss, _ = train_steps(step_fn, state, batch, steps=1)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        return state, dict(loss=loss[0], seconds=seconds, peak_gib=peak / 2**30,
+                           peak_over_start_gib=(peak - start) / 2**30)
+
+    init_fn, step_fn = make_train_step(unet, sgd(TP_SGD_LR), mesh, device="cuda")
+    state = init_fn()
+    out["sharded_tensors"] = sharded_tensor_count(state.model)
+    state, out["sgd"] = measured(step_fn, state)
+    mine = take_shards(state.model, before)
+    got = full_tensors(state.model, {k: p.detach() - mine[k] for k, p in state.params.items()})
+    if tp.rank == 0:
+        out["sgd"]["loss_rel"] = abs(out["sgd"]["loss"] - out["unsharded"]["loss"]) / abs(
+            out["unsharded"]["loss"])
+        out["sgd"]["update_rel_rms"] = rel_rms_of(got, want)
+        del want
+    del state, got, mine, init_fn, step_fn
+
+    init_fn, step_fn = make_train_step(unet, adamw(TRAIN_LR), mesh, device="cuda")
+    state, out["adamw"] = measured(step_fn, init_fn())
+    sharded = shard_layout(state.model)
+    replicated = torch.cat([p.detach().flatten() for k, p in state.params.items()
+                            if k not in sharded])
+    both = all_gather(replicated[None], 0, tp)
+    out["adamw"]["replicated_elements"] = replicated.numel()
+    out["adamw"]["replicated_equal"] = all(torch.equal(x, both[0]) for x in both)
+    del both, replicated
+
+    ckpt = tmp / "tp_checkpoint"
+    t0 = time.perf_counter()
+    save_train_state(ckpt, state)
+    out["checkpoint"] = dict(save_s=time.perf_counter() - t0)
+    init_u, _ = make_train_step(unet, adamw(TRAIN_LR), device="cuda")
+    t0 = time.perf_counter()
+    back = restore_train_state(ckpt, init_u())
+    out["checkpoint"]["restore_s"] = time.perf_counter() - t0
+    # each rank holds the restored whole state, cut to its shards, to its
+    # live one: together, the restored state equals the gathered one
+    def tensors(st, kind):
+        return {k: p.detach() if kind == "params" else st.optimizer.state[p][kind]
+                for k, p in st.params.items()}
+
+    equal = back.step == state.step
+    for kind in ("params", "exp_avg", "exp_avg_sq"):
+        restored = take_shards(state.model, tensors(back, kind))
+        equal = equal and all(torch.equal(restored[k], x)
+                              for k, x in tensors(state, kind).items())
+    out["checkpoint"]["equal"] = equal
+    dist.barrier(group=tp.group)
+    if tp.rank == 0:
+        out["checkpoint"]["bytes"] = sum(f.stat().st_size for f in ckpt.iterdir())
+        shutil.rmtree(ckpt)
+    del back, state
+    free_card()
+    return out
+
+
+def check_tp_training_rank(r: int, tr: dict, rank0: dict):
+    """34.2's checks and lines for rank ``r`` (``rank0``: rank 0's results)."""
+    if any(tr["launches"].values()):
+        fail(f"34.2: rank {r}'s training steps launched {tr['launches']}")
+    if not tr["adamw"]["replicated_equal"]:
+        fail(f"34.2: the tp-replicated parameters differ between the ranks after AdamW")
+    if tr["sgd"]["loss"] != rank0["sgd"]["loss"]:
+        fail(f"34.2: rank {r}'s loss {tr['sgd']['loss']} differs from rank 0's")
+    if not tr["checkpoint"]["equal"]:
+        fail(f"34.2: the tp=2 checkpoint restored unsharded differs from rank {r}'s live state")
+    if r == 0:
+        sgd = tr["sgd"]
+        if not (sgd["loss_rel"] <= TP_LOSS_MAX_REL
+                and sgd["update_rel_rms"] <= TP_UPDATE_MAX_REL_RMS):
+            fail(f"34.2: the tp=2 SGD step against the unsharded one: loss rel "
+                 f"{sgd['loss_rel']} (max {TP_LOSS_MAX_REL}), update rel RMS "
+                 f"{sgd['update_rel_rms']} (max {TP_UPDATE_MAX_REL_RMS})")
+        log(f"34.2 tp=2 training, SD-2.1 UNet f32 batch {TRAIN_BATCH}: "
+            f"{tr['sharded_tensors']} sharded tensors; SGD (lr {TP_SGD_LR}) loss "
+            f"{sgd['loss']!r} against the unsharded "
+            f"{tr['unsharded']['loss']!r} (rel {sgd['loss_rel']:.3g}, max {TP_LOSS_MAX_REL}), "
+            f"update rel RMS {sgd['update_rel_rms']:.3g} (max {TP_UPDATE_MAX_REL_RMS}); "
+            f"checkpoint saved at tp=2 ({tr['checkpoint']['bytes'] / 2**30:.3f} GiB, "
+            f"{tr['checkpoint']['save_s']:.2f} s) restored unsharded in "
+            f"{tr['checkpoint']['restore_s']:.2f} s: parameters, AdamW moments and step "
+            f"bit-equal to the live state on both ranks")
+    for name in ("sgd", "adamw"):
+        st = tr[name]
+        log(f"34.2 rank {r} {name} step at tp=2: {st['seconds']:.3f} s/step, peak "
+            f"{st['peak_gib']:.3f} GiB ({st['peak_over_start_gib']:.3f} over its start); two "
+            f"ranks share one card over gloo (host-staged, eager): this measures nothing "
+            f"about scaling")
+    log(f"34.2 rank {r}: after one AdamW step the {tr['adamw']['replicated_elements']} "
+        f"tp-replicated parameter elements are bit-equal on both ranks; launches "
+        f"{tr['launches']}")
 
 
 def line_rows(rows):
@@ -5123,10 +5373,15 @@ def main():
             phase_s["32"] = time.perf_counter() - t1
         finally:
             tmp.cleanup()
-        # phase 33.1, last on this pipeline: shard leaves it split
-        t1 = time.perf_counter()
-        parallel["nccl_one_rank"] = run_nccl_one_rank(pipe, counters, results["sd21"])
-        phase_s["33.1"] = time.perf_counter() - t1
+        # phase 33.1, last on this pipeline: shard leaves it split; then 34.1
+        # on the same one-rank group
+        with one_rank_nccl():
+            t1 = time.perf_counter()
+            parallel["nccl_one_rank"] = run_nccl_one_rank(pipe, counters, results["sd21"])
+            phase_s["33.1"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            training["tp_one_rank"] = run_tp_training_one_rank(counters, training)
+            phase_s["34.1"] = time.perf_counter() - t1
 
     def sd3_more(pipe):
         """Phase 23, phase 14's SD3 img2img, then phases 18 and 19, on phase
@@ -5249,7 +5504,7 @@ def main():
     free_card()
     t1 = time.perf_counter()
     parallel.update(run_parallel_ranks(counters))
-    phase_s["33.2-33.3"] = time.perf_counter() - t1
+    phase_s["33.2-34.2"] = time.perf_counter() - t1
 
     launches = {p: r["launches"] for p, r in main_paths.items()}
     kernels = [
@@ -5282,7 +5537,7 @@ def main():
                     "native_libraries": native_libs, "parallel": parallel,
                     "numerics": numerics_settings(),
                     "hgmma_instructions": hgmma}))
-    log(f"seconds of phases 26 to 33: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+    log(f"seconds of phases 26 to 34: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f"; the whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -6,15 +6,16 @@ into the generation's CUDA graph (``pipelines/program.py``) and the port's
 CUDA kernels, which take plain tensors, run on the local shards.
 
 Tensor parallelism (``install_tensor_parallel``, which
-``sharding.shard_params`` calls; activations stay replicated, as in JAX):
+``sharding.shard_params`` calls; activations stay replicated, as in JAX),
+for inference and for the training step (``train.py``):
 
 - ``ColumnLinear``: this rank's out-feature rows; the output is all-gathered
   on features (or, in a pair, left local);
 - ``RowLinear``: this rank's in-feature columns over its slice of the input
   (or, in a pair, over the local input), one all-reduce in float32, then
   the bias, added once after the reduce;
-- ``OutChannelConv2d``: a local conv over this rank's out channels, then a
-  gather on the channel axis;
+- ``OutChannelConv2d``: a local conv over this rank's out channels, a
+  gather on the channel axis, then the whole (replicated) bias;
 - ``FeatureShardedEmbedding``, ``ShardedPatchEmbed``: T5's ``shared`` table
   and the MMDiT positional table on their feature axis, gathered after use;
 - the megatron pair in ``models/unet.py``'s ``Attention`` and
@@ -27,6 +28,27 @@ Tensor parallelism (``install_tensor_parallel``, which
   still reads ``Shard(0)``); IP-Adapter's ``to_k_ip``/``to_v_ip`` stay
   replicated and give the local heads only.  Any other attention (a head
   count tp does not divide, a fused ``to_qkv``) runs the generic form.
+
+Each sharded layer names, in ``shards``, the dim and the global indices of
+every tensor it holds a shard of (``shard_layout`` collects them): its
+placements as ``sharding.param_sharding_rules`` reports them, and how
+``full_tensors`` and ``take_shards`` put a sharded state back together and
+split a whole one (the checkpoint, ``train.full_state_dict``).
+
+The backward follows GSPMD's semantics for the JAX step: activations and
+the loss are replicated over tp, so every rank already holds the whole
+gradient of a replicated tensor.  The four differentiable collectives are
+the megatron f/g pairs for that case: ``copy_to_tp`` (identity; the
+backward sums the partial input gradients of a column layer over tp),
+``reduce_from_tp`` (the float32 all-reduce; the backward is the identity),
+``gather_from_tp`` (all-gather; the backward keeps this rank's slice) and
+``scatter_to_tp`` (this rank's slice; the backward all-gathers).
+``torch.distributed.nn.functional`` is not used: its all-reduce sums the
+gradient again and its all-gather reduce-scatters it, which is right when
+each rank has a loss of its own and scales every gradient by tp here.
+Replicated parameters thus get equal gradients on every tp rank and stay
+equal after an update.  ``LocalRowsLinear`` (IP-Adapter) and the spatial
+layers are forward-only: the training step never runs them.
 
 Spatial parallelism (``spatial_copy``; the latent H axis split over tp):
 
@@ -89,10 +111,80 @@ def all_gather(x: torch.Tensor, dim: int, g: AxisGroup) -> torch.Tensor:
 
 
 def all_reduce_f32(y: torch.Tensor, g: AxisGroup) -> torch.Tensor:
-    """The sum over the ranks of ``y``, reduced in float32."""
-    y = y.float().contiguous()
+    """The sum over the ranks of ``y``, reduced in float32 into a new tensor
+    (a gradient handed to a backward may be shared with another branch)."""
+    y = y.to(torch.float32, copy=True).contiguous()
     dist.all_reduce(y, group=g.group)
     return y
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_f32(grad, ctx.g).to(grad.dtype), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, g):
+        ctx.dtype = y.dtype
+        return all_reduce_f32(y, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g, ctx.n = dim, g, x.shape[dim]
+        return all_gather(x, dim, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.g.rank * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _ScatterToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        n = x.shape[dim] // g.size
+        return x.narrow(dim, g.rank * n, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.dim, ctx.g), None, None
+
+
+def copy_to_tp(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """``x`` (replicated) into a layer that computes a part of its output on
+    each rank; the backward sums the ranks' input gradients."""
+    return _CopyToTP.apply(x, g)
+
+
+def reduce_from_tp(y: torch.Tensor, g: AxisGroup) -> torch.Tensor:
+    """``all_reduce_f32(y)``, whose backward hands the (replicated) gradient
+    to each rank's partial sum as it is."""
+    return _ReduceFromTP.apply(y, g)
+
+
+def gather_from_tp(x: torch.Tensor, dim: int, g: AxisGroup) -> torch.Tensor:
+    """``all_gather(x, dim)``, whose backward keeps this rank's slice of the
+    (replicated) gradient."""
+    return _GatherFromTP.apply(x, dim % x.ndim, g)
+
+
+def scatter_to_tp(x: torch.Tensor, dim: int, g: AxisGroup) -> torch.Tensor:
+    """This rank's equal slice of ``x`` (replicated) on ``dim``, whose
+    backward all-gathers the slices' gradients."""
+    return _ScatterToTP.apply(x, dim % x.ndim, g)
 
 
 def _param(t: torch.Tensor, like: nn.Parameter) -> nn.Parameter:
@@ -104,6 +196,46 @@ def _own(n: int, g: AxisGroup) -> slice:
     return slice(g.rank * step, (g.rank + 1) * step)
 
 
+def _index(rows, n: int) -> torch.Tensor:
+    """The global indices ``rows`` (a slice or an index tensor) of ``n``."""
+    return torch.arange(n)[rows]
+
+
+def shard_layout(module: nn.Module) -> dict:
+    """{state-dict key: (dim, global indices this rank holds, tp group)} of
+    every tensor that a sharded layer of ``module`` holds a shard of, as
+    the layer's ``shards`` name them."""
+    return {f"{name}.{leaf}" if name else leaf: (dim, index, m.tp)
+            for name, m in module.named_modules()
+            for leaf, (dim, index) in getattr(m, "shards", {}).items()}
+
+
+def full_tensors(module: nn.Module, tensors: dict) -> dict:
+    """``tensors`` (keyed as ``module.state_dict()``, each of its local
+    shape) with every sharded one gathered over tp into its whole, unsharded
+    shape, its rows in their global order.  Every rank of the tp group
+    calls it."""
+    out = dict(tensors)
+    for key, (dim, index, g) in shard_layout(module).items():
+        if out.get(key) is not None:
+            parts = all_gather(out[key].movedim(dim, 0), 0, g)
+            idx = all_gather(index.to(parts.device), 0, g)
+            whole = torch.empty_like(parts).index_copy_(0, idx, parts)
+            out[key] = whole.movedim(0, dim).contiguous()
+    return out
+
+
+def take_shards(module: nn.Module, tensors: dict) -> dict:
+    """``tensors`` in their whole shapes with every tensor that a layer of
+    ``module`` shards cut to this rank's shard (the inverse of
+    ``full_tensors``)."""
+    out = dict(tensors)
+    for key, (dim, index, _) in shard_layout(module).items():
+        if out.get(key) is not None:
+            out[key] = out[key].index_select(dim, index.to(out[key].device))
+    return out
+
+
 # -- tensor parallelism -----------------------------------------------------------------
 
 
@@ -111,18 +243,18 @@ class ColumnLinear(nn.Module):
     """A ``Linear`` holding the out-feature rows ``rows`` of this rank;
     ``gather``: all-gather the output on features (the generic form)."""
 
-    placements = {"weight": Shard(0), "bias": Shard(0)}
-
     def __init__(self, linear: nn.Linear, g: AxisGroup, rows, gather: bool):
         super().__init__()
         self.tp, self.gather = g, gather
         self.in_features, self.out_features = linear.in_features, linear.out_features
         self.weight = _param(linear.weight[rows], linear.weight)
         self.bias = None if linear.bias is None else _param(linear.bias[rows], linear.bias)
+        index = _index(rows, linear.out_features)
+        self.shards = {"weight": (0, index), "bias": (0, index)}
 
     def forward(self, x):
-        y = F.linear(x, self.weight, self.bias)
-        return all_gather(y, -1, self.tp) if self.gather else y
+        y = F.linear(copy_to_tp(x, self.tp), self.weight, self.bias)
+        return gather_from_tp(y, -1, self.tp) if self.gather else y
 
 
 class RowLinear(nn.Module):
@@ -130,20 +262,19 @@ class RowLinear(nn.Module):
     ``local_input``: the input is already this rank's slice (a pair's second
     half), else the replicated input is sliced here."""
 
-    placements = {"weight": Shard(1), "bias": Replicate()}
-
     def __init__(self, linear: nn.Linear, g: AxisGroup, local_input: bool):
         super().__init__()
         self.tp, self.local_input = g, local_input
         self.in_features, self.out_features = linear.in_features, linear.out_features
-        self.cols = _own(linear.in_features, g)
-        self.weight = _param(linear.weight[:, self.cols], linear.weight)
+        cols = _own(linear.in_features, g)
+        self.weight = _param(linear.weight[:, cols], linear.weight)
         self.bias = None if linear.bias is None else _param(linear.bias, linear.bias)
+        self.shards = {"weight": (1, _index(cols, linear.in_features))}
 
     def forward(self, x):
         if not self.local_input:
-            x = x[..., self.cols]
-        y = all_reduce_f32(F.linear(x, self.weight), self.tp)
+            x = scatter_to_tp(x, -1, self.tp)
+        y = reduce_from_tp(F.linear(x, self.weight), self.tp)
         if self.bias is not None:
             y = y + self.bias.float()
         return y.to(x.dtype)
@@ -159,48 +290,46 @@ class LocalRowsLinear(nn.Linear):
 
 
 class OutChannelConv2d(nn.Module):
-    """A ``Conv2d`` holding this rank's out channels (the bias stays
-    replicated, as the JAX rule leaves it); the output is gathered on the
-    channel axis."""
-
-    placements = {"weight": Shard(0), "bias": Replicate()}
+    """A ``Conv2d`` holding this rank's out channels; the output is gathered
+    on the channel axis, then the bias, replicated as the JAX rule leaves
+    it, is added whole (so every rank gets all of its gradient)."""
 
     def __init__(self, conv: nn.Conv2d, g: AxisGroup):
         super().__init__()
         if conv.groups != 1 or conv.padding_mode != "zeros":
             raise ValueError(f"out-channel sharding takes a dense zero-padded conv, got {conv}")
         self.tp = g
-        self.rows = _own(conv.out_channels, g)
+        rows = _own(conv.out_channels, g)
         self.stride, self.padding, self.dilation = conv.stride, conv.padding, conv.dilation
-        self.weight = _param(conv.weight[self.rows], conv.weight)
+        self.weight = _param(conv.weight[rows], conv.weight)
         self.bias = None if conv.bias is None else _param(conv.bias, conv.bias)
+        self.shards = {"weight": (0, _index(rows, conv.out_channels))}
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias[self.rows]
-        y = F.conv2d(x, self.weight, b, self.stride, self.padding, self.dilation)
-        return all_gather(y, 1, self.tp)
+        y = F.conv2d(copy_to_tp(x, self.tp), self.weight, None, self.stride, self.padding,
+                     self.dilation)
+        y = gather_from_tp(y, 1, self.tp)
+        return y if self.bias is None else y + self.bias[:, None, None]
 
 
 class FeatureShardedEmbedding(nn.Module):
     """An ``Embedding`` holding this rank's feature columns; the looked-up
     rows are gathered on features."""
 
-    placements = {"weight": Shard(1)}
-
     def __init__(self, emb: nn.Embedding, g: AxisGroup):
         super().__init__()
         self.tp = g
-        self.weight = _param(emb.weight[:, _own(emb.weight.shape[1], g)], emb.weight)
+        cols = _own(emb.weight.shape[1], g)
+        self.weight = _param(emb.weight[:, cols], emb.weight)
+        self.shards = {"weight": (1, _index(cols, emb.weight.shape[1]))}
 
     def forward(self, ids):
-        return all_gather(F.embedding(ids, self.weight), -1, self.tp)
+        return gather_from_tp(F.embedding(ids, self.weight), -1, self.tp)
 
 
 class ShardedPatchEmbed(_PatchEmbed):
     """The MMDiT patch embedding with its positional table on this rank's
     feature columns: the cropped table is gathered on features and added."""
-
-    placements = {"pos_embed": Shard(2)}
 
     def forward(self, latents):
         x = self.proj(latents)
@@ -209,7 +338,7 @@ class ShardedPatchEmbed(_PatchEmbed):
         M, d = self.max_size, self.pos_embed.shape[-1]
         top, left = (M - hp) // 2, (M - wp) // 2
         pos = self.pos_embed.view(1, M, M, d)[:, top:top + hp, left:left + wp]
-        pos = all_gather(pos.reshape(1, hp * wp, d), -1, self.tp)
+        pos = gather_from_tp(pos.reshape(1, hp * wp, d), -1, self.tp)
         return x + pos.to(x.dtype)
 
 
@@ -268,8 +397,10 @@ def _tensor_parallel(m: nn.Module, name: str, rule, g: AxisGroup) -> nn.Module |
         return m
     if isinstance(m, _PatchEmbed) and rule(name, "pos_embed") == Shard(2):
         pos = m.pos_embed
-        new = _recast(m, ShardedPatchEmbed, tp=g)
-        new.pos_embed = _param(pos[..., _own(pos.shape[-1], g)], pos)
+        cols = _own(pos.shape[-1], g)
+        new = _recast(m, ShardedPatchEmbed, tp=g,
+                      shards={"pos_embed": (2, _index(cols, pos.shape[-1]))})
+        new.pos_embed = _param(pos[..., cols], pos)
         conv = _tensor_parallel(m.proj, f"{name}.proj", rule, g)
         if conv is not None:
             new.proj = conv

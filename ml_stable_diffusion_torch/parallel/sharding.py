@@ -60,9 +60,9 @@ def tp_size(mesh) -> int:
 
 def _placement(module_name: str, leaf: str, owner: nn.Module, tensor, tp: int):
     """JAX ``_spec_for`` on the port's names and layouts."""
-    own = getattr(owner, "placements", None)
+    own = getattr(owner, "shards", None)
     if own is not None:  # an installed sharded layer reports its own layout
-        return own.get(leaf, Replicate())
+        return Shard(own[leaf][0]) if leaf in own else Replicate()
     col = _named(module_name, _COL)
     # sizes from the modules: a palettized weight in program mode is empty
     if isinstance(owner, nn.Linear):

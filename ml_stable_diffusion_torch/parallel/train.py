@@ -2,12 +2,20 @@
 ml_stable_diffusion_tpu/parallel/train.py).
 
 The JAX step is one jitted program over a (dp, tp) mesh whose state is
-donated.  The port runs the step eagerly on one device and updates the state
-in place: float32 parameters, as the JAX step's optax leaves are, and a
-``torch.optim`` optimizer (``sgd`` and ``adamw`` give optax's).  With a
-``torch.distributed`` process group each rank takes its share of the global
-batch and the gradients are averaged over the group before the update: the
-mesh's ``dp`` axis.  Its ``tp`` axis (tensor parallelism) is not ported.
+donated.  The port runs the step eagerly, one process a card, and updates
+the state in place: float32 parameters, as the JAX step's optax leaves are,
+and a ``torch.optim`` optimizer (``sgd`` and ``adamw`` give optax's).
+
+Over a ``mesh`` (``make_mesh``) the state's model is sharded over tp by the
+rules that inference uses (``sharding.shard_params``), each rank holding its
+shards and the replicated rest, and each rank takes its dp share of the
+global batch, replicated over tp.  As under GSPMD, activations and the loss
+are replicated over tp: the sharded layers' collectives carry the backward
+(``layers.py``), every tp rank gets the same gradient of a replicated
+parameter, and the gradients and the loss are averaged over dp only.
+``process_group`` is the dp-only form of the same step (no tp axis).
+``full_state_dict`` gives the whole parameters back under the unsharded
+keys, as the checkpoint (``checkpoint.py``) stores them.
 
 The step runs the plain attention and plain GroupNorm paths.  The
 hand-written kernels have no backward and their wrappers raise under grad,
@@ -29,6 +37,8 @@ from torch import nn
 
 from ..ops import attention
 from ..schedulers.base import SchedulerConfig
+from .layers import axis_group, full_tensors
+from .sharding import shard_params
 
 
 def sgd(learning_rate: float):
@@ -49,16 +59,27 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float =
 @dataclasses.dataclass
 class TrainState:
     """``model``: the state's own float32 copy of the denoiser, whose
-    parameters are the JAX state's ``params``; ``optimizer``: over them, its
-    ``state_dict()`` the JAX ``opt_state``; ``step``: updates applied."""
+    parameters are the JAX state's ``params`` (this rank's shards under a
+    mesh); ``optimizer``: over them, its ``state_dict()`` the JAX
+    ``opt_state``; ``step``: updates applied; ``mesh``: the (dp, tp) mesh
+    the model is sharded over, or None."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    mesh: object = None
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
+
+
+def full_state_dict(state: TrainState) -> dict[str, torch.Tensor]:
+    """The model's whole state dict under the unsharded keys: each sharded
+    tensor gathered over tp (every rank of the mesh calls it) and put in
+    its global row order by the layer that holds it; the replicated ones
+    are the live tensors, as ``state_dict()`` gives them."""
+    return full_tensors(state.model, state.model.state_dict())
 
 
 def epsilon_mse(model, latents, context, t, noise, alphas_cumprod, added_cond=None,
@@ -89,44 +110,57 @@ def _plain_attention():
         attention.set_attention_implementation(before)
 
 
-def make_train_step(model: nn.Module, optimizer: Callable, scheduler_config=None,
+def make_train_step(model: nn.Module, optimizer: Callable, mesh=None, scheduler_config=None,
                     added_cond_fn: Callable | None = None, remat: bool = False,
                     process_group=None, device: str | torch.device = "cuda"):
     """-> (init_fn, step_fn).
 
     ``model``: a port denoiser built with ``fused_groupnorm=False``;
     ``optimizer``: parameters -> ``torch.optim.Optimizer`` (``sgd``,
-    ``adamw``); ``added_cond_fn(B)``: SDXL's ``added_cond`` for a batch of
-    B; ``process_group``: average the gradients over its ranks, each
+    ``adamw``); ``mesh``: a (dp, tp) ``make_mesh``: the model sharded over
+    tp, the batch split and the gradients averaged over dp;
+    ``added_cond_fn(B)``: SDXL's ``added_cond`` for a batch of B;
+    ``process_group`` (no mesh): average the gradients over its ranks, each
     holding an equal share of the batch.
 
     ``init_fn(state_dict=None)`` -> a ``TrainState`` on ``device``: a
-    float32 copy of ``model`` (``state_dict``, when given, loaded into it
-    strictly), a new optimizer over it, step 0.
+    float32 copy of ``model`` (``state_dict``, the whole unsharded one, when
+    given, loaded into it strictly), sharded over the mesh's tp axis, a new
+    optimizer over its (local) parameters, step 0.
 
     ``step_fn(state, batch)`` -> (state, loss) updates ``state`` in place.
-    ``batch``: ``latents`` (B, C, H, W) clean latents, ``context`` (B, S,
-    C_ctx), and either ``generator``, a ``torch.Generator`` on ``device``
-    that draws ``t ~ U{0..T-1}`` then ``noise ~ N(0, 1)`` for the global
-    batch (each rank seeds it alike and takes its share), or the draws
-    themselves, ``t`` and ``noise`` for this rank's share.  The loss is the
-    global batch's mean.
+    ``batch``: this rank's dp share, the same on every tp rank:
+    ``latents`` (B, C, H, W) clean latents, ``context`` (B, S, C_ctx), and
+    either ``generator``, a ``torch.Generator`` on ``device`` that draws
+    ``t ~ U{0..T-1}`` then ``noise ~ N(0, 1)`` for the global batch (each
+    rank seeds it alike and takes its dp share), or the draws themselves,
+    ``t`` and ``noise`` for this rank's share.  The loss is the global
+    batch's mean.
     """
     if getattr(getattr(model, "config", None), "fused_groupnorm", False):
         raise ValueError("the training step runs the plain GroupNorm path: build the model "
                          "with fused_groupnorm=False (the CUDA kernel has no backward)")
+    if mesh is not None and process_group is not None:
+        raise ValueError("give the step a mesh or a process group, not both: the mesh's dp "
+                         "axis is its process group")
     cfg = scheduler_config or SchedulerConfig()
     device = torch.device(device)
     acp = torch.as_tensor(cfg.alphas_cumprod(), dtype=torch.float32, device=device)
-    rank, world = ((0, 1) if process_group is None
-                   else (dist.get_rank(process_group), dist.get_world_size(process_group)))
+    if mesh is not None:
+        dp = axis_group(mesh, "dp")
+        rank, world, process_group = dp.rank, dp.size, dp.group
+    else:
+        rank, world = ((0, 1) if process_group is None
+                       else (dist.get_rank(process_group), dist.get_world_size(process_group)))
 
     def init_fn(state_dict=None) -> TrainState:
         own = copy.deepcopy(model).to(device=device, dtype=torch.float32)
         if state_dict is not None:
             own.load_state_dict(state_dict, strict=True)
+        if mesh is not None:
+            shard_params(own, mesh)
         own.requires_grad_(True)
-        return TrainState(own, optimizer(own.parameters()))
+        return TrainState(own, optimizer(own.parameters()), mesh=mesh)
 
     def step_fn(state: TrainState, batch: dict):
         latents = batch["latents"].to(device, torch.float32)
@@ -146,7 +180,7 @@ def make_train_step(model: nn.Module, optimizer: Callable, scheduler_config=None
             loss = epsilon_mse(state.model, latents, context, t, noise, acp, added, remat)
             loss.backward()
         loss = loss.detach()
-        if process_group is not None:
+        if world > 1:
             grads = [p.grad for p in state.model.parameters() if p.grad is not None]
             works = [dist.all_reduce(x, group=process_group, async_op=True)
                      for x in grads + [loss]]

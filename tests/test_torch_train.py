@@ -10,6 +10,18 @@ step; the port's step takes them as ``t`` and ``noise``.  Tolerances: the
 loss rtol 1e-5, each gradient a relative RMS of 1e-4, parameters after one
 optimizer step 1e-5 abs.  The data-parallel step runs in two processes on
 gloo (tests/torch_dp_worker.py).
+
+The tensor-parallel step (``make_train_step(..., mesh)``) runs in four gloo
+processes (tests/torch_tp_worker.py, one spawn) on the meshes (dp, tp) =
+(1, 4) and (2, 2), as tests/test_torch_parallel.py names them: the tiny
+UNet's 2 heads take the generic column/row form at tp = 4 and the paired
+attention at tp = 2.  Its gathered gradients are held to JAX's at a
+relative RMS of 1e-4 (a gradient scaled by tp fails it), its SGD step to
+JAX's on ``make_mesh(8, dp=2)`` as the data-parallel one is and to the
+port's unsharded step at 1e-6 abs; remat, the replicated parameters across
+tp ranks and the checkpoint round trips bit for bit; each sharded layer's
+gradients to unsharded autograd at rtol 1e-5 and an atol of 1e-6 of the
+tensor's largest magnitude (float32 sums in another order).
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -45,6 +57,7 @@ from ml_stable_diffusion_torch.ops.palettized import palettized_dense_fused_cuda
 from ml_stable_diffusion_torch.parallel import (
     adamw,
     epsilon_mse,
+    full_state_dict,
     make_train_step,
     restore_train_state,
     save_train_state,
@@ -183,6 +196,26 @@ def test_adamw_takes_optax_defaults():
     assert (group["weight_decay"], group["eps"], group["betas"]) == (1e-4, 1e-8, (0.9, 0.999))
 
 
+def _spawn(worker: str, d: Path, world: int, timeout: int):
+    """``world`` ranks of ``worker`` on ``d``; each rank's log in the failure."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(TESTS.parent), str(TESTS)])}
+    logs = [open(d / f"rank{rank}.log", "w") for rank in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(TESTS / worker), str(d), str(rank),
+                               str(world), str(LR)], env=env, cwd=TESTS.parent,
+                              stdout=log, stderr=subprocess.STDOUT)
+             for rank, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p, log in zip(procs, logs):
+            p.kill()
+            p.wait()
+            log.close()
+    for rank, p in enumerate(procs):
+        assert p.returncode == 0, (d / f"rank{rank}.log").read_text()
+
+
 @pytest.fixture(scope="module")
 def dp_run(ref, tmp_path_factory):
     """Two gloo processes, each on half of the batch: one SGD step on JAX's
@@ -191,22 +224,7 @@ def dp_run(ref, tmp_path_factory):
     torch.save({k: torch.from_numpy(v) for k, v in ref["sd"].items()}, d / "weights.pt")
     torch.save({k: v for k, v in _port_batch(ref).items()}, d / "batch.pt")
     (d / "config.json").write_text(json.dumps(dataclasses.asdict(ref["port"].config)))
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(TESTS.parent), str(TESTS)])}
-    logs = [open(d / f"rank{rank}.log", "w") for rank in range(2)]
-    procs = [subprocess.Popen([sys.executable, str(TESTS / "torch_dp_worker.py"), str(d),
-                               str(rank), "2", str(LR)], env=env, cwd=TESTS.parent,
-                              stdout=log, stderr=subprocess.STDOUT)
-             for rank, log in enumerate(logs)]
-    try:
-        for p in procs:
-            p.wait(timeout=120)
-    finally:
-        for p, log in zip(procs, logs):
-            p.kill()
-            p.wait()
-            log.close()
-    for rank, p in enumerate(procs):
-        assert p.returncode == 0, (d / f"rank{rank}.log").read_text()
+    _spawn("torch_dp_worker.py", d, 2, timeout=120)
     return {mode: torch.load(d / f"{mode}_rank0.pt", weights_only=True)
             for mode in ("draws", "generator")}
 
@@ -238,6 +256,171 @@ def test_data_parallel_generator_draws_match_full_batch(ref, dp_run):
     for k, p in full.params.items():
         np.testing.assert_allclose(got["params"][k].numpy(), p.detach().numpy(), rtol=0,
                                    atol=1e-6, err_msg=k)
+
+
+def _moments(state) -> dict:
+    return {kind: {k: state.optimizer.state[p][kind] for k, p in state.params.items()}
+            for kind in ("exp_avg", "exp_avg_sq")}
+
+
+TP_MESHES = ["tp4", "dp2tp2"]
+
+
+@pytest.fixture(scope="module")
+def tp_run(ref, tmp_path_factory):
+    """Four gloo ranks on each mesh (tests/torch_tp_worker.py), and the
+    port's unsharded steps they are held to: SGD on JAX's draws and on a
+    generator seeded 3, and one AdamW step saved as a checkpoint."""
+    d = tmp_path_factory.mktemp("tp")
+    torch.save({k: torch.from_numpy(v) for k, v in ref["sd"].items()}, d / "weights.pt")
+    torch.save(_port_batch(ref), d / "batch.pt")
+    (d / "config.json").write_text(json.dumps(dataclasses.asdict(ref["port"].config)))
+    init_fn, step_fn = make_train_step(ref["port"], adamw(LR), device="cpu")
+    adamw_state, _ = step_fn(init_fn(), _port_batch(ref))
+    save_train_state(d / "unsharded_ckpt", adamw_state)
+    init_fn, step_fn = make_train_step(ref["port"], sgd(LR), device="cpu")
+    b = _port_batch(ref)
+    sgd_state, sgd_loss = step_fn(init_fn(), b)
+    gen_state, gen_loss = step_fn(init_fn(), {"latents": b["latents"], "context": b["context"],
+                                              "generator": torch.Generator().manual_seed(3)})
+    _spawn("torch_tp_worker.py", d, 4, timeout=240)
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=True) for r in range(4)]
+    return dict(dir=d, ranks=ranks, adamw=adamw_state,
+                sgd=(sgd_loss, {k: p.detach() for k, p in sgd_state.params.items()}),
+                generator=(gen_loss, {k: p.detach() for k, p in gen_state.params.items()}))
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tp_gradients_match_jax(ref, tp_run, mesh):
+    """The gradients gathered over tp (and averaged over dp) are the full
+    batch's, not tp times them."""
+    got, want = tp_run["ranks"][0][mesh]["grads"], ref["grads"]
+    assert set(got) == set(want)
+    worst = max((_rel_rms(got[k], want[k]), k) for k in want)
+    assert worst[0] <= 1e-4, worst
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tp_sgd_step_matches_jax_mesh_step_and_unsharded(ref, tp_run, mesh):
+    res = tp_run["ranks"][0][mesh]
+    np.testing.assert_allclose(float(res["loss"]), ref["mesh_step"][0], rtol=1e-5)
+    for r in tp_run["ranks"][1:]:
+        assert torch.equal(r[mesh]["loss"], res["loss"])
+    full_loss, full = tp_run["sgd"]
+    np.testing.assert_allclose(float(res["loss"]), float(full_loss), rtol=1e-6)
+    jax_params = ref["mesh_step"][1]
+    for k, p in full.items():
+        got = res["params"][k].numpy()
+        np.testing.assert_allclose(got, jax_params[k], rtol=0, atol=1e-5, err_msg=k)
+        np.testing.assert_allclose(got, p.numpy(), rtol=0, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tp_generator_draws_match_full_batch(tp_run, mesh):
+    """Each dp row draws the global batch's t and noise and takes its share;
+    the tp ranks of a row take the same one."""
+    res = tp_run["ranks"][0][mesh]
+    full_loss, full = tp_run["generator"]
+    np.testing.assert_allclose(float(res["generator_loss"]), float(full_loss), rtol=1e-6)
+    for k, p in full.items():
+        np.testing.assert_allclose(res["generator_params"][k].numpy(), p.numpy(), rtol=0,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tp_remat_is_bit_equal(tp_run, mesh):
+    """remat runs the forward's collectives again inside the backward, in one
+    order on every rank: the step's loss and parameters bit-equal."""
+    res = tp_run["ranks"][0][mesh]
+    assert torch.equal(res["remat_loss"], res["loss"])
+    assert res["remat_equal"]
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tp_adamw_keeps_replicated_parameters_equal(tp_run, mesh):
+    """Two AdamW steps on one batch: the loss falls, and every parameter the
+    rules replicate (norms, row layers' and convs' biases, small convs) is
+    bit-equal on all four ranks."""
+    ranks = [r[mesh] for r in tp_run["ranks"]]
+    losses = ranks[0]["adamw_losses"]
+    assert losses[1] < losses[0], losses
+    rep = ranks[0]["replicated"]
+    assert any(k.endswith("bias") and "conv" in k for k in rep), sorted(rep)
+    for r, res in enumerate(ranks[1:], 1):
+        assert res["adamw_losses"] == losses
+        assert res["replicated"].keys() == rep.keys()
+        for k, p in rep.items():
+            assert torch.equal(res["replicated"][k], p), (r, k)
+
+
+#: each sharded layer and the differentiable collectives its backward runs
+LAYER_COLLECTIVES = {"column": ("copy", "gather"), "row": ("scatter", "reduce"),
+                     "pair": ("copy", "reduce"), "conv": ("copy", "gather"),
+                     "embedding": ("gather",)}
+
+
+@pytest.mark.parametrize("layer", sorted(LAYER_COLLECTIVES))
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_sharded_layer_gradients_match_unsharded(tp_run, mesh, layer):
+    """Output, input gradient and whole parameter gradients of each sharded
+    layer against unsharded autograd on the same module and upstream
+    gradient (the pair is a GEGLU FeedForward: its rows in both halves)."""
+    assert {c for cs in LAYER_COLLECTIVES.values() for c in cs} == {
+        "copy", "reduce", "gather", "scatter"}
+    runs = tp_run["ranks"][0][mesh]["layers"][layer]
+    got, want = runs["sharded"], runs["unsharded"]
+
+    def close(a, b, what):
+        b = b.numpy()
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-6 * np.abs(b).max(),
+                                   err_msg=what)
+
+    close(got["y"], want["y"], "y")
+    if layer == "embedding":
+        assert got["x_grad"] is None and want["x_grad"] is None
+    else:
+        close(got["x_grad"], want["x_grad"], "x_grad")
+    assert got["grads"].keys() == want["grads"].keys()
+    for k, g in want["grads"].items():
+        close(got["grads"][k], g, k)
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tp_checkpoint_round_trips(ref, tp_run, mesh):
+    """The sharded state puts the unsharded weights back in their rows (the
+    GEGLU's too); a checkpoint saved at the mesh restores unsharded, and an
+    unsharded one at the mesh, parameters and AdamW moments bit-equal; the
+    state restored at the mesh takes the next step as the live one."""
+    res = tp_run["ranks"][0][mesh]
+    for k, v in ref["sd"].items():
+        assert torch.equal(res["init"][k], torch.from_numpy(v)), k
+    assert res["restored_equal"] and res["next_step_equal"]
+
+    init_fn, _ = make_train_step(ref["port"], adamw(LR), device="cpu")
+    back = restore_train_state(tp_run["dir"] / f"ckpt_{mesh}", init_fn())
+    assert back.step == 2
+    saved = full_state_dict(back)
+    assert saved.keys() == res["saved_params"].keys()
+    for k, p in res["saved_params"].items():
+        assert torch.equal(saved[k], p), k
+    for kind, ts in _moments(back).items():
+        for k, x in ts.items():
+            assert torch.equal(x, res["saved_moments"][kind][k]), (kind, k)
+
+    step, params, moments = res["from_unsharded"]
+    live = tp_run["adamw"]
+    assert step == live.step == 1
+    for k, p in live.params.items():
+        assert torch.equal(params[k], p.detach()), k
+    for kind, ts in _moments(live).items():
+        for k, x in ts.items():
+            assert torch.equal(moments[kind][k], x), (kind, k)
+
+
+def test_step_takes_a_mesh_or_a_process_group():
+    with pytest.raises(ValueError, match="not both"):
+        make_train_step(torch.nn.Linear(2, 2), sgd(LR), mesh=object(), process_group=object(),
+                        device="cpu")
 
 
 def test_checkpoint_round_trip_is_bit_equal(ref, tmp_path):
