@@ -44,6 +44,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 #: the fields of the JAX program key, as its source spells them, in order
 #: (ml_stable_diffusion_tpu/pipelines/sd.py:1327-1336); ``program_key``
 #: computes the same values in the same order
@@ -113,12 +115,14 @@ class GenerationProgram:
     """Static input buffers, a body over them, and (on the card) the graph
     that replays it.  ``inputs``: the first call's inputs, which fix the
     buffers' shapes and dtypes (host arrays; anything else is a host flag
-    handed to the body as it is)."""
+    handed to the body as it is).  ``kind`` names the program in its spans
+    (``program.fill``, ``program.capture``, ``program.run``)."""
 
     def __init__(self, body: Callable[[dict], torch.Tensor], inputs: dict,
-                 device: torch.device, pool=None, on_capture=None):
+                 device: torch.device, pool=None, on_capture=None, kind: str = "generation"):
         self.body = body
         self.device = device
+        self.kind = kind
         self.pool = pool
         self.on_capture = on_capture
         self.buffers: dict = {}
@@ -142,67 +146,72 @@ class GenerationProgram:
         self.pool_bytes = 0
 
     def _fill(self, inputs: dict):
-        for name, v in inputs.items():
-            buf = self.buffers[name]
-            if not isinstance(buf, torch.Tensor):
-                continue
-            src = torch.from_numpy(np.ascontiguousarray(v))
-            if src.shape != buf.shape or src.dtype != buf.dtype:
-                raise ValueError(f"input {name!r} is {tuple(src.shape)} {src.dtype}; the "
-                                 f"program was built for {tuple(buf.shape)} {buf.dtype}")
-            staging = self._staging.get(name)
-            if staging is not None:
-                staging.copy_(src)
-                src = staging
-            buf.copy_(src, non_blocking=True)
+        with profiling.span("program.fill", kind=self.kind):
+            for name, v in inputs.items():
+                buf = self.buffers[name]
+                if not isinstance(buf, torch.Tensor):
+                    continue
+                src = torch.from_numpy(np.ascontiguousarray(v))
+                if src.shape != buf.shape or src.dtype != buf.dtype:
+                    raise ValueError(f"input {name!r} is {tuple(src.shape)} {src.dtype}; the "
+                                     f"program was built for {tuple(buf.shape)} {buf.dtype}")
+                staging = self._staging.get(name)
+                if staging is not None:
+                    staging.copy_(src)
+                    src = staging
+                buf.copy_(src, non_blocking=True)
 
     def __call__(self, inputs: dict) -> torch.Tensor:
         """Fill the buffers from ``inputs`` and run: -> the body's output
         (the program's own tensor: read it before the next call)."""
         self._fill(inputs)
-        if self.device.type != "cuda":
-            return self.body(self.buffers)
-        if self.graph is None:
+        if self.device.type == "cuda" and self.graph is None:
             self._capture()
-        self.graph.replay()
-        for name, fn in kernel_counters().items():
-            fn.launches += self.credits.get(name, 0)
+        with profiling.span("program.run", kind=self.kind):
+            if self.device.type != "cuda":
+                return self.body(self.buffers)
+            self.graph.replay()
+            for name, fn in kernel_counters().items():
+                fn.launches += self.credits.get(name, 0)
         return self.output
 
     def _capture(self):
-        counters = kernel_counters()
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        before = _counts(counters)
-        with torch.cuda.stream(side):
-            self.body(self.buffers)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        self.warmup_launches = {k: v - before[k] for k, v in _counts(counters).items()}
-        torch.cuda.synchronize(self.device)
-        # the warm-up's cached blocks go back to the card first (the capture
-        # would release them itself), so that the growth below is the pool's
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        before = _counts(counters)
-        try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                output = self.body(self.buffers)
-        finally:
-            # a capture launches nothing: its counts become the credit
-            captured = _counts(counters)
-            for name, fn in counters.items():
-                fn.launches = before[name]
-        credits = {k: v - before[k] for k, v in captured.items()}
-        if credits != self.warmup_launches:
-            raise RuntimeError(f"the captured body launched {credits}, its warm-up "
-                               f"{self.warmup_launches}: the body is not one program")
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph, self.output, self.credits = graph, output, credits
-        self.capture_seconds = time.perf_counter() - t0
-        if self.on_capture is not None:
-            self.on_capture(self)
+        """The eager warm-up on a side stream, then the capture."""
+        with profiling.span("program.capture", kind=self.kind) as capture_span:
+            counters = kernel_counters()
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            before = _counts(counters)
+            with torch.cuda.stream(side):
+                self.body(self.buffers)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.warmup_launches = {k: v - before[k] for k, v in _counts(counters).items()}
+            torch.cuda.synchronize(self.device)
+            # the warm-up's cached blocks go back to the card first (the capture
+            # would release them itself), so that the growth below is the pool's
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            before = _counts(counters)
+            try:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    output = self.body(self.buffers)
+            finally:
+                # a capture launches nothing: its counts become the credit
+                captured = _counts(counters)
+                for name, fn in counters.items():
+                    fn.launches = before[name]
+            credits = {k: v - before[k] for k, v in captured.items()}
+            if credits != self.warmup_launches:
+                raise RuntimeError(f"the captured body launched {credits}, its warm-up "
+                                   f"{self.warmup_launches}: the body is not one program")
+            self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+            capture_span.note(pool_bytes=self.pool_bytes)
+            self.graph, self.output, self.credits = graph, output, credits
+            self.capture_seconds = time.perf_counter() - t0
+            if self.on_capture is not None:
+                self.on_capture(self)
 
 
 class ProgramCache:
@@ -229,7 +238,8 @@ class ProgramCache:
         self.pool = None
         self.fingerprint = None
 
-    def get(self, key, fingerprint, inputs: dict, body, device) -> GenerationProgram:
+    def get(self, key, fingerprint, inputs: dict, body, device,
+            kind: str = "generation") -> GenerationProgram:
         """The program of ``key``, built from ``body`` and ``inputs`` when
         missing; every program is dropped first when the weights' addresses
         (``fingerprint``) are not those the cache was built against."""
@@ -241,7 +251,8 @@ class ProgramCache:
             if device.type == "cuda" and self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             prog = self.programs[key] = GenerationProgram(body, inputs, device, self.pool,
-                                                          lambda p: self._captured(key, p))
+                                                          lambda p: self._captured(key, p),
+                                                          kind)
             self.built += 1
         return prog
 

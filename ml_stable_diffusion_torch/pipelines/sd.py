@@ -118,6 +118,7 @@ from ..ops.attention import set_attention_implementation
 from ..schedulers import SCHEDULER_MAP
 from ..schedulers.base import Scheduler, SchedulerConfig, TimestepSpacing
 from ..tokenizer.prompt_weights import empty_chunk_row, weighted_token_chunks
+from ..utils import profiling
 from ..utils.image import nchw_to_nhwc, pil_to_tensor
 from ..utils.numerics import apply_numerics
 from ..utils.rng import make_random_source
@@ -1086,32 +1087,33 @@ class StableDiffusionPipeline:
         configuration asks the starting image (N, 3, H, W), the pixel mask
         (N, 1, H, W), the control images "ctrl_<i>" and the IP-Adapter's
         images.  Arrays are contiguous; anything else is a host flag."""
-        cfg, N, h, w = gen.cfg, gen.N, gen.h, gen.w
-        out = {}
-        for key, v in self._tokenize(cfg).items():
-            if isinstance(v, np.ndarray) and key.startswith(("ids", "mask")):
-                v = v.astype(np.int64)
-            out[key] = np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v
-        noise, step_noises = self._noise(
-            cfg, N, h, w, gen.plan.num_steps if gen.scheduler.needs_noise else 0)
-        out["noise"] = _nchw_host(noise)
-        if step_noises is not None:
-            out["step_noises"] = np.ascontiguousarray(step_noises.transpose(0, 1, 4, 2, 3))
-        out["timesteps"] = np.ascontiguousarray(gen.plan.timesteps)
-        ds = self.vae_downscale
-        H, W = h * ds, w * ds
-        if gen.img2img:
-            image = cfg.starting_image
-            if not isinstance(image, np.ndarray):
-                image = pil_to_tensor(image, size=(H, W))
-            out["image"] = _nchw_host(np.broadcast_to(image, (N, H, W, 3)))
-        if gen.inpaint:
-            out["mask_px"] = _nchw_host(_mask_pixels(cfg.mask_image, N, H, W))
-        for i, im in enumerate(self._ctrl_images(cfg, N)):
-            out[f"ctrl_{i}"] = im
-        if gen.ip_on:
-            out.update(self._ip_inputs(cfg, N))
-        return out
+        with profiling.span("pipeline.host_inputs"):
+            cfg, N, h, w = gen.cfg, gen.N, gen.h, gen.w
+            out = {}
+            for key, v in self._tokenize(cfg).items():
+                if isinstance(v, np.ndarray) and key.startswith(("ids", "mask")):
+                    v = v.astype(np.int64)
+                out[key] = np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v
+            noise, step_noises = self._noise(
+                cfg, N, h, w, gen.plan.num_steps if gen.scheduler.needs_noise else 0)
+            out["noise"] = _nchw_host(noise)
+            if step_noises is not None:
+                out["step_noises"] = np.ascontiguousarray(step_noises.transpose(0, 1, 4, 2, 3))
+            out["timesteps"] = np.ascontiguousarray(gen.plan.timesteps)
+            ds = self.vae_downscale
+            H, W = h * ds, w * ds
+            if gen.img2img:
+                image = cfg.starting_image
+                if not isinstance(image, np.ndarray):
+                    image = pil_to_tensor(image, size=(H, W))
+                out["image"] = _nchw_host(np.broadcast_to(image, (N, H, W, 3)))
+            if gen.inpaint:
+                out["mask_px"] = _nchw_host(_mask_pixels(cfg.mask_image, N, H, W))
+            for i, im in enumerate(self._ctrl_images(cfg, N)):
+                out[f"ctrl_{i}"] = im
+            if gen.ip_on:
+                out.update(self._ip_inputs(cfg, N))
+            return out
 
     def _start(self, gen: _Generation, inputs: dict):
         """-> (latents, inpainting state): the first latents (NCHW) and, for
@@ -1281,21 +1283,25 @@ class StableDiffusionPipeline:
         shift = ((cfg.decoder_shift_factor if cfg else None)
                  or self.default_latent_shift)
         z = np.ascontiguousarray(latents, np.float32)
-        if self._captures():
-            dtype = next(self.vae_decoder.parameters()).dtype
-            inputs = {"z": z}
-            # the attention dispatch in effect is baked into the graph too
-            prog = self._programs.get(("decode", scale, shift, str(dtype), z.shape,
-                                       attention.ATTENTION_IMPLEMENTATION_IN_EFFECT.value,
-                                       mesh_key(self.mesh)),
-                                      weights_fingerprint(self._all_modules()), inputs,
-                                      lambda b: self._decode_body(b["z"], scale, shift),
-                                      self.device)
-            pixels = prog(inputs)
-        else:
-            with self._stage("decode", {"vae_decoder": [self.vae_decoder]}):
-                pixels = self._decode_body(self._dev(z), scale, shift)
-        return pixels.permute(0, 2, 3, 1).cpu().numpy()
+        with profiling.span("pipeline.decode", images=z.shape[0]):
+            if self._captures():
+                dtype = next(self.vae_decoder.parameters()).dtype
+                inputs = {"z": z}
+                with profiling.span("program.lookup", kind="decode"):
+                    # the attention dispatch in effect is baked into the graph too
+                    prog = self._programs.get(
+                        ("decode", scale, shift, str(dtype), z.shape,
+                         attention.ATTENTION_IMPLEMENTATION_IN_EFFECT.value,
+                         mesh_key(self.mesh)),
+                        weights_fingerprint(self._all_modules()), inputs,
+                        lambda b: self._decode_body(b["z"], scale, shift), self.device,
+                        kind="decode")
+                pixels = prog(inputs)
+            else:
+                with self._stage("decode", {"vae_decoder": [self.vae_decoder]}):
+                    pixels = self._decode_body(self._dev(z), scale, shift)
+            with profiling.span("pipeline.fetch"):
+                return pixels.permute(0, 2, 3, 1).cpu().numpy()
 
     # -- public API ----------------------------------------------------------------
 
@@ -1362,14 +1368,16 @@ class StableDiffusionPipeline:
         key lacks (the encoder's latent scale), the inputs' names, shapes
         and dtypes with the host flags, and the denoiser's dtype."""
         cfg = gen.cfg
-        key = program_key(
-            jax_key(cfg, gen.N, gen.h, gen.w, gen.guidance_on, len(cfg.controlnet_inputs),
-                    gen.img2img, gen.inpaint, gen.ip_on, cfg.strength if gen.img2img else 1.0,
-                    self._conditioning_cache_key(cfg)),
-            (cfg.encoder_scale_factor,), inputs, next(self.unet.parameters()).dtype,
-            mesh_key(self.mesh))
-        return self._programs.get(key, weights_fingerprint(self._all_modules()), inputs,
-                                  lambda buffers: self._body(gen, buffers), self.device)
+        with profiling.span("program.lookup", kind="generation"):
+            key = program_key(
+                jax_key(cfg, gen.N, gen.h, gen.w, gen.guidance_on, len(cfg.controlnet_inputs),
+                        gen.img2img, gen.inpaint, gen.ip_on,
+                        cfg.strength if gen.img2img else 1.0,
+                        self._conditioning_cache_key(cfg)),
+                (cfg.encoder_scale_factor,), inputs, next(self.unet.parameters()).dtype,
+                mesh_key(self.mesh))
+            return self._programs.get(key, weights_fingerprint(self._all_modules()), inputs,
+                                      lambda buffers: self._body(gen, buffers), self.device)
 
     def _run_staged(self, gen: _Generation, inputs: dict, progress_handler) -> torch.Tensor:
         """The staged path: the encode stage, then each denoise phase, each
@@ -1396,16 +1404,19 @@ class StableDiffusionPipeline:
         """``progress_handler(PipelineProgress) -> bool | None``: called after
         every step; returning False ends the loop, and what the latents are
         then is decoded."""
-        cfg.validate()
-        gen = self._plan_generation(cfg, image_hw, progress_handler)
+        with profiling.span("pipeline.plan"):
+            cfg.validate()
+            gen = self._plan_generation(cfg, image_hw, progress_handler)
         inputs = self._host_inputs(gen)
         self.stage_transfers = []
+        path = ("staged" if cfg.reduce_memory
+                else "program" if self._captures(progress_handler) else "eager")
 
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            if cfg.reduce_memory:
+        with torch.inference_mode(), profiling.span("pipeline.denoise", path=path):
+            if path == "staged":
                 latents = self._run_staged(gen, inputs, progress_handler)
-            elif self._captures(progress_handler):
+            elif path == "program":
                 latents = self._program(gen, inputs)(inputs)
             else:
                 with self._stage("all", self._params_bundle()):
@@ -1413,7 +1424,8 @@ class StableDiffusionPipeline:
                                                else v for k, v in inputs.items()},
                                          progress_handler)
             # the host fetch waits for the device
-            latents = _host_nhwc(latents)
+            with profiling.span("pipeline.fetch"):
+                latents = _host_nhwc(latents)
         dt = (time.perf_counter() - t0) / gen.plan.num_steps
 
         images = self.decode_latents(latents, cfg)

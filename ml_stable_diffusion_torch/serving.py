@@ -13,7 +13,12 @@ What an app server needs around a pipeline:
   prompts and seeds ride the pipeline's multi-prompt and multi-seed
   support), which replays one captured program for all of them; requests
   that cannot merge go to a worker pool, still ordered by the lock;
-- rolling latency statistics (``utils.timer.SampleTimer``).
+- rolling latency statistics (``utils.timer.SampleTimer``) and each
+  batched request's wait in the queue;
+- spans (``utils.profiling.span``), each carrying its requests' ids:
+  ``serve.idle`` while the batcher finds no work, ``serve.queued`` from a
+  request's enqueue to its batch's close, ``serve.batch`` while a batch
+  forms, ``serve.generate`` from before the lock to the pipeline's return.
 
 A W8A8 pipeline with a DeepCache bucket serves as any other: its batch is
 one merged program (the JAX max-throughput preset).
@@ -22,13 +27,16 @@ one merged program (the JAX max-throughput preset).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
+import statistics
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 
 from .pipelines.config import PipelineConfiguration
 from .pipelines.sd import GenerationResult
+from .utils import profiling
 from .utils.timer import SampleTimer
 
 logger = logging.getLogger(__name__)
@@ -53,6 +61,9 @@ class _Pending:
     cfg: PipelineConfiguration
     image_hw: tuple[int, int]
     future: Future
+    request_id: int = 0
+    #: ``time.perf_counter_ns()`` when ``submit`` queued it
+    enqueued_ns: int = 0
 
 
 class GenerationServer:
@@ -70,6 +81,9 @@ class GenerationServer:
         self.timer = SampleTimer()
         self.requests_served = 0
         self.batches_run = 0
+        #: seconds each batched request waited in the queue, enqueue to take
+        self._queue_waits: list[float] = []
+        self._request_ids = itertools.count(1)
         self._queue: list[_Pending] = []
         self._cv = threading.Condition()
         self._batcher: threading.Thread | None = None
@@ -99,11 +113,20 @@ class GenerationServer:
 
     def generate(self, cfg: PipelineConfiguration,
                  image_hw: tuple[int, int] = (512, 512)) -> GenerationResult:
-        with self._lock:
-            with self.timer:
-                result = self.pipeline.generate_images(cfg, image_hw=image_hw)
-            self.requests_served += 1
-            return result
+        return self._generate(cfg, image_hw, (next(self._request_ids),))
+
+    def _generate(self, cfg: PipelineConfiguration, image_hw: tuple[int, int],
+                  request_ids: tuple[int, ...]) -> GenerationResult:
+        """One generation under the lock, serving the requests
+        ``request_ids`` (more than one: a merged batch)."""
+        with profiling.span("serve.generate", requests=request_ids, images=cfg.image_count):
+            with self._lock:
+                with self.timer:
+                    result = self.pipeline.generate_images(cfg, image_hw=image_hw)
+                self.requests_served += len(request_ids)
+                if len(request_ids) > 1:
+                    self.batches_run += 1
+        return result
 
     # -- dynamic batching ---------------------------------------------------------
 
@@ -140,12 +163,14 @@ class GenerationServer:
         if self._closed:
             raise RuntimeError("server is shut down")
         if not self._batchable(cfg):
-            return self._direct_pool.submit(self.generate, cfg, tuple(image_hw))
+            return self._direct_pool.submit(self._generate, cfg, tuple(image_hw),
+                                            (next(self._request_ids),))
         fut: Future = Future()
-        p = _Pending(cfg, tuple(image_hw), fut)
+        p = _Pending(cfg, tuple(image_hw), fut, next(self._request_ids))
         with self._cv:
             if self._closed:
                 raise RuntimeError("server is shut down")
+            p.enqueued_ns = time.perf_counter_ns()
             self._queue.append(p)
             if self._batcher is None:
                 self._batcher = threading.Thread(target=self._batch_loop, daemon=True)
@@ -165,25 +190,34 @@ class GenerationServer:
         """Wait for work, then collect up to max_batch key-compatible
         requests within the batching window."""
         with self._cv:
-            while not self._queue and not self._closed:
-                self._cv.wait(0.1)
+            if not self._queue and not self._closed:
+                with profiling.span("serve.idle"):
+                    while not self._queue and not self._closed:
+                        self._cv.wait(0.1)
             if not self._queue:
                 return []
-            head_key = self._batch_key(self._queue[0])
-            deadline = time.monotonic() + self.batch_window_s
-            while (len([p for p in self._queue
-                        if self._batch_key(p) == head_key]) < self.max_batch):
-                remaining = deadline - time.monotonic()
-                if remaining <= 0 or self._closed:
-                    break
-                self._cv.wait(remaining)
-            batch, rest = [], []
-            for p in self._queue:
-                if self._batch_key(p) == head_key and len(batch) < self.max_batch:
-                    batch.append(p)
-                else:
-                    rest.append(p)
-            self._queue[:] = rest
+            with profiling.span("serve.batch") as formed:
+                head_key = self._batch_key(self._queue[0])
+                deadline = time.monotonic() + self.batch_window_s
+                while (len([p for p in self._queue
+                            if self._batch_key(p) == head_key]) < self.max_batch):
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0 or self._closed:
+                        break
+                    self._cv.wait(remaining)
+                batch, rest = [], []
+                for p in self._queue:
+                    if self._batch_key(p) == head_key and len(batch) < self.max_batch:
+                        batch.append(p)
+                    else:
+                        rest.append(p)
+                self._queue[:] = rest
+                taken_ns = time.perf_counter_ns()
+                for p in batch:
+                    self._queue_waits.append((taken_ns - p.enqueued_ns) * 1e-9)
+                    profiling.add("serve.queued", p.enqueued_ns, taken_ns,
+                                  request=p.request_id)
+                formed.note(size=len(batch), requests=tuple(p.request_id for p in batch))
             return batch
 
     def _batch_loop(self):
@@ -209,28 +243,38 @@ class GenerationServer:
 
     def _run_batch(self, batch: list[_Pending]) -> GenerationResult:
         first = batch[0]
+        ids = tuple(p.request_id for p in batch)
         if len(batch) == 1:
-            return self.generate(first.cfg, first.image_hw)
+            return self._generate(first.cfg, first.image_hw, ids)
         merged = dataclasses.replace(
             first.cfg,
             prompt=[p.cfg.prompt for p in batch],
             negative_prompt=[p.cfg.negative_prompt for p in batch],
             seed=[p.cfg.seed for p in batch],
             image_count=len(batch))
-        with self._lock:
-            with self.timer:
-                result = self.pipeline.generate_images(merged, image_hw=first.image_hw)
-            self.requests_served += len(batch)
-            self.batches_run += 1
+        result = self._generate(merged, first.image_hw, ids)
         logger.info("batched %d requests into one generation", len(batch))
         return result
 
     def stats(self) -> dict:
+        """The JAX server's fields (``e2e_latency_*``: the generation under
+        the lock), then the batched requests' wait in the queue, enqueue to
+        take: median and 90th percentile (linear interpolation)."""
         t = self.timer
+        with self._cv:
+            waits = list(self._queue_waits)
         return {
             "requests_served": self.requests_served,
             "batches_run": self.batches_run,
             "e2e_latency_mean_s": round(t.mean, 4) if t.samples else None,
             "e2e_latency_median_s": round(t.median, 4) if t.samples else None,
             "e2e_latency_stdev_s": round(t.stdev, 4) if t.samples else None,
+            "queue_wait_median_s": round(statistics.median(waits), 4) if waits else None,
+            "queue_wait_p90_s": round(_p90(waits), 4) if waits else None,
         }
+
+
+def _p90(xs: list[float]) -> float:
+    if len(xs) == 1:
+        return xs[0]
+    return statistics.quantiles(xs, n=10, method="inclusive")[-1]

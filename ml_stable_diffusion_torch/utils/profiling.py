@@ -7,6 +7,12 @@ sums device time by kernel family and by the port's source lines;
 ``cost_summary`` counts a function's flops with ``FlopCounterMode`` and
 bounds its time at the card's peaks.  The JAX module's roofline constants
 are a TPU's; these are the published dense rates of an NVIDIA H100 SXM.
+
+``span`` and ``add`` record the port's own spans (the server's queue and
+batches, a generation's host phases, its programs and decode) in memory,
+on the ``time.perf_counter_ns`` clock, once ``enable()`` has been called;
+``take()`` hands them over.  Recording is off by default, and then
+``span`` returns one shared object that does nothing.
 """
 
 from __future__ import annotations
@@ -15,14 +21,17 @@ import ast
 import contextlib
 import glob
 import gzip
+import itertools
 import json
 import logging
 import os
 import re
 import tempfile
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -77,6 +86,123 @@ def trace(log_dir: str | Path | None = None):
     path = log_dir / f"{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.pt.trace.json.gz"
     prof.export_chrome_trace(str(path))
     logger.info("profile trace written to %s", path)
+
+
+class SpanRecord(NamedTuple):
+    """One finished span.  Times are ``time.perf_counter_ns()``;
+    ``parent_id`` is the span that was open on the same thread when this
+    one opened (None at the top, and for ``add``'s spans)."""
+
+    name: str
+    span_id: int
+    parent_id: int | None
+    thread_id: int
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+class _NoSpan:
+    """What ``span`` returns while recording is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def note(self, **attrs):
+        pass
+
+
+_NO_SPAN = _NoSpan()
+_recording = False
+_records: list[SpanRecord] = []
+_records_lock = threading.Lock()
+_span_ids = itertools.count(1)
+#: ``.stack``: the ids of the calling thread's open spans, innermost last
+_open = threading.local()
+
+
+def _open_stack() -> list[int]:
+    try:
+        return _open.stack
+    except AttributeError:
+        _open.stack = []
+        return _open.stack
+
+
+def _append(record: SpanRecord):
+    with _records_lock:
+        _records.append(record)
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "span_id", "parent_id", "start_ns")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = _open_stack()
+        self.parent_id = stack[-1] if stack else None
+        self.span_id = next(_span_ids)
+        stack.append(self.span_id)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.perf_counter_ns()
+        _open_stack().pop()
+        if _recording:  # a span still open at ``disable()`` is dropped
+            _append(SpanRecord(self.name, self.span_id, self.parent_id,
+                               threading.get_ident(), self.start_ns, end_ns, self.attrs))
+        return None
+
+    def note(self, **attrs):
+        """Attributes known only once the span's work is done."""
+        self.attrs.update(attrs)
+
+
+def enable():
+    """Record spans from now on, in every thread of the process."""
+    global _recording
+    _recording = True
+
+
+def disable():
+    """Stop recording (a span still open is not recorded); what was
+    recorded stays until ``take``."""
+    global _recording
+    _recording = False
+
+
+def span(name: str, **attrs):
+    """A context manager that records the block as the span ``name`` with
+    ``attrs`` (request ids, images, batch size, program kind), nested in the
+    span the thread has open.  While recording is off: one shared object
+    that takes no clock reading and records nothing."""
+    if not _recording:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def add(name: str, start_ns: int, end_ns: int, **attrs):
+    """Record a span whose ends were read on two threads (a request's time
+    in the server's queue), with no parent."""
+    if _recording:
+        _append(SpanRecord(name, next(_span_ids), None, threading.get_ident(), start_ns,
+                           end_ns, attrs))
+
+
+def take() -> list[SpanRecord]:
+    """The spans recorded so far, in the order they closed; clears them."""
+    with _records_lock:
+        out = list(_records)
+        _records.clear()
+    return out
 
 
 def kernel_family(name: str, cat: str = "kernel") -> str:
