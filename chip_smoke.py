@@ -21,7 +21,9 @@ exits non-zero and prints no result.  Phases, each fatal on failure:
    one PyTorch library call computing the same function; beside each row
    the flash tile instantiation or the dequant-matmul's launch plan.  The
    GroupNorm+SiLU shapes are recorded from the SDXL base and refiner UNets
-   themselves.
+   themselves.  The GEGLU gate at the two benchmark cells' shapes must be
+   bit-equal to the eager chain it replaces; its device ms beside the
+   chain's and its bound, per launch and per generation.
 3. The main path at full width: SD-2.1-base 512x512 txt2img, 20 steps of
    DPM-Solver++(2M), CFG batch 2, guidance 7.5, through
    ``StableDiffusionPipeline.generate_images`` with random weights from a
@@ -363,10 +365,17 @@ PROMPTS = ["a photo of an astronaut riding a horse on mars",
 #: 10 at 4096 and 60 at 1024 tokens, and the refiner 41, 20 at 4096, 20 at
 #: 1024 and 1 at 256, plus the VAE mid block; flash_attention_multi_q: one
 #: joint attention per MMDiT block, 24 x 20 steps; group_norm_silu: one per
-#: resnet GroupNorm+SiLU, 34 per SDXL base UNet call and 44 per refiner call)
+#: resnet GroupNorm+SiLU, 34 per SDXL base UNet call and 44 per refiner call;
+#: geglu: one per transformer block, whatever its tokens, GEGLU_PER_CALL)
 #: the VAE mid block's f32 D = 512 head, once per generation on every path:
 #: one of the flash_attention launches, on the 3xTF32 kernel and its pre-pass
 VAE_ATTENTION = {"flash_attention_wide_f32": 1, "flash_split_tf32": 1}
+#: GEGLU gate launches per call of each denoiser: the SD-1.5/2.1 UNet (5 at
+#: each upper level and the mid block's), SDXL base and refiner, an SD-1.5
+#: ControlNet (down blocks 0-2 and the mid block) and an SDXL one (down and
+#: mid), and a DeepCache shallow pass (down block 0 and the last up block)
+GEGLU_PER_CALL = {"sd": 16, "sdxl": 70, "refiner": 41, "sd15_net": 7, "sdxl_net": 34,
+                  "shallow": 5}
 #: img2img and inpainting encode the starting image once: a second head
 VAE_ATTENTION_ENCODE = {name: 2 for name in VAE_ATTENTION}
 #: img2img strength of phases 12 and 14: the last 15 of 20 steps (PNDM: 16
@@ -387,26 +396,30 @@ PATHS = {
                  scheduler="DPMSolverMultistep",
                  per_generation={"flash_attention": 301, "flash_attention_multi_q": 0,
                                  **VAE_ATTENTION, "group_norm_silu": 0,
-                                 "palettized_dense_fused": 0}),
+                                 "palettized_dense_fused": 0,
+                                 "geglu": GEGLU_PER_CALL["sd"] * STEPS}),
     "sd3": dict(label="SD3-medium 1024x1024 (no T5), 20 steps DiscreteFlow, CFG batch 2",
                 image_hw=(1024, 1024), latents=(1, 128, 128, 16), guidance=4.5,
                 scheduler="DiscreteFlow",
                 per_generation={"flash_attention": 1, "flash_attention_multi_q": 480,
                                 **VAE_ATTENTION, "group_norm_silu": 0,
-                                "palettized_dense_fused": 0}),
+                                "palettized_dense_fused": 0, "geglu": 0}),
     "sdxl": dict(label="SDXL-base 1024x1024, 20 steps DPM++ 2M, CFG batch 2, guidance 5",
                  image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
                  scheduler="DPMSolverMultistep",
                  per_generation={"flash_attention": 1401, "flash_attention_multi_q": 0,
                                  **VAE_ATTENTION, "group_norm_silu": 680,
-                                 "palettized_dense_fused": 0}),
+                                 "palettized_dense_fused": 0,
+                                 "geglu": GEGLU_PER_CALL["sdxl"] * STEPS}),
     "sdxl_refiner": dict(label="SDXL base + refiner 1024x1024, refiner_start 0.8 "
                                "(16 + 4 steps DPM++ 2M), CFG batch 2, guidance 5",
                          image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
                          scheduler="DPMSolverMultistep", extra=dict(refiner_start=0.8),
                          per_generation={"flash_attention": 1285,
                                          "flash_attention_multi_q": 0, **VAE_ATTENTION,
-                                         "group_norm_silu": 720, "palettized_dense_fused": 0}),
+                                         "group_norm_silu": 720, "palettized_dense_fused": 0,
+                                         "geglu": GEGLU_PER_CALL["sdxl"] * 16
+                                         + GEGLU_PER_CALL["refiner"] * 4}),
 }
 PATHS.update({
     "sd15": dict(label="SD-1.5 512x512, the default configuration: 20 steps PNDM (21 UNet "
@@ -415,14 +428,17 @@ PATHS.update({
                  per_generation={"flash_attention": 15 * UNET_CALLS["sd15"] + 1,
                                  "flash_attention_multi_q": 0,
                                  **VAE_ATTENTION, "group_norm_silu": 0,
-                                 "palettized_dense_fused": 0}),
+                                 "palettized_dense_fused": 0,
+                                 "geglu": GEGLU_PER_CALL["sd"] * UNET_CALLS["sd15"]}),
     "sd21_img2img": dict(label="SD-2.1-base 512x512 img2img, strength 0.75: 15 of 20 steps "
                                "PNDM (16 UNet calls), CFG batch 2",
                          image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5,
                          scheduler="PNDM",
                          per_generation={"flash_attention": 15 * UNET_CALLS["sd21_img2img"] + 2,
                                          "flash_attention_multi_q": 0, **VAE_ATTENTION_ENCODE,
-                                         "group_norm_silu": 0, "palettized_dense_fused": 0}),
+                                         "group_norm_silu": 0, "palettized_dense_fused": 0,
+                                         "geglu": GEGLU_PER_CALL["sd"]
+                                         * UNET_CALLS["sd21_img2img"]}),
     "sd3_img2img": dict(label="SD3-medium 1024x1024 img2img (no T5), strength 0.75: 15 of 20 "
                               "steps DiscreteFlow, CFG batch 2",
                         image_hw=(1024, 1024), latents=(1, 128, 128, 16), guidance=4.5,
@@ -430,7 +446,7 @@ PATHS.update({
                         per_generation={"flash_attention": 2,
                                         "flash_attention_multi_q": 24 * UNET_CALLS["sd3_img2img"],
                                         **VAE_ATTENTION_ENCODE, "group_norm_silu": 0,
-                                        "palettized_dense_fused": 0}),
+                                        "palettized_dense_fused": 0, "geglu": 0}),
     "sdxl_img2img": dict(label="SDXL-base 1024x1024 img2img, strength 0.75: 15 of 20 steps "
                                "DPM++ 2M, CFG batch 2, guidance 5",
                          image_hw=(1024, 1024), latents=(1, 128, 128, 4), guidance=5.0,
@@ -438,7 +454,9 @@ PATHS.update({
                          per_generation={"flash_attention": 70 * UNET_CALLS["sdxl_img2img"] + 2,
                                          "flash_attention_multi_q": 0, **VAE_ATTENTION_ENCODE,
                                          "group_norm_silu": 34 * UNET_CALLS["sdxl_img2img"],
-                                         "palettized_dense_fused": 0}),
+                                         "palettized_dense_fused": 0,
+                                         "geglu": GEGLU_PER_CALL["sdxl"]
+                                         * UNET_CALLS["sdxl_img2img"]}),
 })
 PATHS["sd21_inpaint"] = dict(PATHS["sd21_img2img"],
                              label="SD-2.1-base 512x512 inpainting (the left half), strength "
@@ -459,26 +477,34 @@ DEEPCACHE_FULL = len(range(0, SD15_CALLS, DEEPCACHE_INTERVAL))
 STOP_AFTER = 10
 
 
-def _sd15_path(label, flash):
+def _sd15_path(label, flash, geglu=GEGLU_PER_CALL["sd"] * SD15_CALLS):
     return dict(label=f"SD-1.5 512x512, PNDM 20 steps (21 UNet calls), CFG batch 2: {label}",
                 image_hw=(512, 512), latents=(1, 64, 64, 4), guidance=7.5, scheduler="PNDM",
                 per_generation={"flash_attention": flash, "flash_attention_multi_q": 0,
                                 **VAE_ATTENTION, "group_norm_silu": 0,
-                                "palettized_dense_fused": 0})
+                                "palettized_dense_fused": 0, "geglu": geglu})
 
 
 PATHS.update({
-    "sd15_controlnet": _sd15_path("one ControlNet", (15 + 6) * SD15_CALLS + 1),
-    "sd15_controlnet2": _sd15_path("two ControlNets", (15 + 12) * SD15_CALLS + 1),
+    "sd15_controlnet": _sd15_path("one ControlNet", (15 + 6) * SD15_CALLS + 1,
+                                  (GEGLU_PER_CALL["sd"] + GEGLU_PER_CALL["sd15_net"])
+                                  * SD15_CALLS),
+    "sd15_controlnet2": _sd15_path("two ControlNets", (15 + 12) * SD15_CALLS + 1,
+                                   (GEGLU_PER_CALL["sd"] + 2 * GEGLU_PER_CALL["sd15_net"])
+                                   * SD15_CALLS),
     "sd15_long_prompt": _sd15_path("a weighted prompt of four 77-token windows",
                                    30 * SD15_CALLS + 1),
     "sd15_multilingual": _sd15_path("the multilingual projection (256 context rows)",
                                     30 * SD15_CALLS + 1),
-    "sd15_batch_one": _sd15_path("serial batch-1 CFG", 2 * 15 * SD15_CALLS + 1),
+    "sd15_batch_one": _sd15_path("serial batch-1 CFG", 2 * 15 * SD15_CALLS + 1,
+                                 2 * GEGLU_PER_CALL["sd"] * SD15_CALLS),
     "sd15_deepcache": _sd15_path(f"DeepCache at interval {DEEPCACHE_INTERVAL}",
-                                 15 * DEEPCACHE_FULL + 5 * (SD15_CALLS - DEEPCACHE_FULL) + 1),
+                                 15 * DEEPCACHE_FULL + 5 * (SD15_CALLS - DEEPCACHE_FULL) + 1,
+                                 GEGLU_PER_CALL["sd"] * DEEPCACHE_FULL
+                                 + GEGLU_PER_CALL["shallow"] * (SD15_CALLS - DEEPCACHE_FULL)),
     "sd15_stop10": _sd15_path(f"a progress handler with previews that stops after step "
-                              f"{STOP_AFTER}", 15 * STOP_AFTER + 1),
+                              f"{STOP_AFTER}", 15 * STOP_AFTER + 1,
+                              GEGLU_PER_CALL["sd"] * STOP_AFTER),
     "sd15_safety": _sd15_path("the safety checker on", 15 * SD15_CALLS + 1),
     "sdxl_controlnet": dict(
         label="SDXL-base 1024x1024 + one SDXL ControlNet, a weighted 2-window dual-encoder "
@@ -487,7 +513,8 @@ PATHS.update({
         scheduler="DPMSolverMultistep",
         per_generation={"flash_attention": (70 + 34) * STEPS + 1, "flash_attention_multi_q": 0,
                         **VAE_ATTENTION, "group_norm_silu": 34 * STEPS,
-                        "palettized_dense_fused": 0}),
+                        "palettized_dense_fused": 0,
+                        "geglu": (GEGLU_PER_CALL["sdxl"] + GEGLU_PER_CALL["sdxl_net"]) * STEPS}),
 })
 #: phase 21: the adapters on phase 11's SD-1.5 pipeline; each launches what
 #: the path without it launches (the IP-Adapter's attention over 4 or 16
@@ -531,7 +558,8 @@ def _sd3_path(label, nets):
                 scheduler="DiscreteFlow",
                 per_generation={"flash_attention": 1 + nets,
                                 "flash_attention_multi_q": (24 + SD3_NET_BLOCKS * nets) * STEPS,
-                                **heads, "group_norm_silu": 0, "palettized_dense_fused": 0})
+                                **heads, "group_norm_silu": 0, "palettized_dense_fused": 0,
+                                "geglu": 0})
 
 
 PATHS.update({
@@ -1119,6 +1147,82 @@ def check_gn_kernel(shapes, groups=32, eps=1e-5):
     return rows
 
 
+#: the GEGLU gate's shapes (tokens a sample, n = 4 x channels, feed-forwards
+#: a UNet call) of the two benchmark cells: sdxl-grid4 (SDXL base at 1024²,
+#: CFG batch 8, 30 steps) and sd21-serve (SD-2.1 at 512², CFG batch 2 to 8,
+#: 20 steps)
+GEGLU_CELLS = {"sdxl-grid4": (8, 30, [(4096, 2560, 10), (1024, 5120, 60)]),
+               "sd21-serve": (2, 20, [(4096, 1280, 5), (1024, 2560, 5), (256, 5120, 5),
+                                      (64, 5120, 1)])}
+
+
+def geglu_shapes():
+    """(label, cell, rows, n, dtype, launches per generation) of each GEGLU
+    shape of the two cells; sd21-serve's at batch 2 (one image) and 8 (four),
+    sdxl-grid4's at its batch 8."""
+    out = []
+    for cell, (batch, steps, shapes) in GEGLU_CELLS.items():
+        for b in sorted({batch, 8}):
+            for tokens, n, calls in shapes:
+                out.append((f"{cell} {b}x{tokens}x{n}", cell, b * tokens, n, torch.bfloat16,
+                            calls * steps if b == batch else 0))
+    return out
+
+
+def _geglu_chain(h):
+    from ml_stable_diffusion_torch.ops.activations import gelu_erf
+
+    a, gate = h.chunk(2, dim=-1)
+    return a * gelu_erf(gate)
+
+
+def check_geglu_kernel(shapes):
+    """Each shape: the GEGLU kernel bit-equal to the eager chain it replaces
+    (chunk, gelu_erf, the product), on gate values over [-12, 12]; device ms
+    per launch of each, by the profiler, and CUDA-event ms; the bound, h read
+    once and the output written once over 3.35 TB/s.  Then each cell's
+    generation: launches x per-launch times, against its least time."""
+    from ml_stable_diffusion_torch.ops.activations import geglu_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows, calls, chains = [], [], []
+    for label, cell, m, n, dtype, per_gen in shapes:
+        h = (4.0 * torch.randn(m, 2 * n, generator=gen, device="cuda")).to(dtype)
+        kernel = functools.partial(geglu_cuda, h)
+        chain = functools.partial(_geglu_chain, h)
+        got, want = kernel(), chain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"geglu {label}: kernel differs from the eager chain by up to "
+                 f"{(got.float() - want.float()).abs().max().item()}")
+        bound_s = (h.numel() + got.numel()) * h.element_size() / PEAK_BYTES_PER_S
+        rows.append(dict(label=label, cell=cell, shape=[m, 2 * n], dtype=str(dtype).split(".")[-1],
+                         bit_equal=True, max_abs_err=0.0, launches_per_generation=per_gen,
+                         ms=time_ms(kernel, reps=20), chain_ms=time_ms(chain, reps=5),
+                         bound_ms=1e3 * bound_s, bound_by="bytes"))
+        calls.append(kernel)
+        chains.append(chain)
+    add_device_ms(rows, {"device_ms": calls, "chain_device_ms": chains})
+    for row in rows:
+        dev = row["device_ms"]
+        share = "not measured" if dev is None else f"{100 * row['bound_ms'] / dev:.1f} %"
+        log(f"geglu {row['label']:28s} {row['shape']} {row['dtype']} bit-equal; kernel "
+            f"{row['ms']:.4f} ms (device {fmt_ms(dev)}, {share} of its bound)  eager chain "
+            f"{row['chain_ms']:.4f} ms (device {fmt_ms(row['chain_device_ms'])})  bound "
+            f"{row['bound_ms']:.4f} ms  launches a generation {row['launches_per_generation']}")
+    for cell in GEGLU_CELLS:
+        counted = [r for r in rows if r["cell"] == cell and r["launches_per_generation"]]
+        per_gen = {key: total(None if r[key] is None else r[key] * r["launches_per_generation"]
+                              for r in counted)
+                   for key in ("device_ms", "chain_device_ms", "bound_ms")}
+        log(f"geglu per {cell} generation: kernel {fmt_ms(per_gen['device_ms'])} ms, eager chain "
+            f"{fmt_ms(per_gen['chain_device_ms'])} ms, bound {per_gen['bound_ms']:.2f} ms "
+            f"({sum(r['launches_per_generation'] for r in counted)} launches)")
+        for row in counted:
+            row["per_generation"] = per_gen
+    return rows
+
+
 def pal_shapes():
     """-> (the recorded {(M, K, N): calls per UNet call} of every
     palettizable nn.Linear of the SD-2.1 UNet at 512x512, CFG batch 2, and
@@ -1256,6 +1360,9 @@ def check_kernels():
     for name, kernel_rows in rows.items():
         check_shape_launches(name, kernel_rows)
     rows["palettized_dense_fused"] = check_pal_kernel(pal_rows)
+    # the GEGLU gate runs on every UNet path; its rows are the two cells'
+    # shapes, not counted against PATHS
+    rows["geglu"] = check_geglu_kernel(geglu_shapes())
     return rows, pal_calls
 
 
@@ -1755,7 +1862,8 @@ def run_scheduler_sweep(pipe, counters):
     for k, (label, p, name, steps, guidance) in enumerate(runs):
         calls = SCHEDULER_MAP[name]().set_timesteps(steps).num_steps
         want = {"flash_attention": 15 * calls + 1, "flash_attention_multi_q": 0,
-                **VAE_ATTENTION, "group_norm_silu": 0, "palettized_dense_fused": 0}
+                **VAE_ATTENTION, "group_norm_silu": 0, "palettized_dense_fused": 0,
+                "geglu": GEGLU_PER_CALL["sd"] * calls}
         cfg = PipelineConfiguration(prompt=PROMPTS[k % len(PROMPTS)], step_count=steps,
                                     guidance_scale=guidance, seed=2000 + k, scheduler=name,
                                     rng="numpy", disable_safety=True)
@@ -3964,6 +4072,7 @@ def check_kernels_refuse_grad(counters):
         flash_attention_multi_q_cuda,
         flash_attention_wide_f32_cuda,
     )
+    from ml_stable_diffusion_torch.ops.activations import geglu_cuda
     from ml_stable_diffusion_torch.ops.groupnorm import group_norm_silu_cuda
     from ml_stable_diffusion_torch.ops.palettized import palettized_dense_fused_cuda
 
@@ -3981,6 +4090,7 @@ def check_kernels_refuse_grad(counters):
         "palettized_dense_fused_cuda": lambda: palettized_dense_fused_cuda(
             leaf(64, 320), torch.zeros(320 * 320 * 6 // 8, dtype=torch.uint8, device="cuda"),
             leaf(64), (320, 320)),
+        "geglu_cuda": lambda: geglu_cuda(leaf(2, 64, 2 * 1280)),
     }
     before = {name: fn.launches for name, fn in counters.items()}
     raised = {}
@@ -5015,6 +5125,7 @@ def kernel_entry(name, source, replaces, rows, main_launches):
 #: kernel name fragments -> group; the first match wins (cuDNN's implicit-GEMM
 #: convolutions carry "gemm" in their names too)
 _KERNEL_GROUPS = (("groupnorm kernel", ("gn_silu",)),
+                  ("geglu kernel", ("geglu",)),
                   ("flash kernel", ("flash_wgmma", "flash_fma", "flash_split", "flash_combine")),
                   ("convolution", ("conv", "fprop", "dgrad", "implicit")),
                   ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
@@ -5176,6 +5287,9 @@ def compare_trees(parent: Path):
 
     table, per_gen = {}, {}
     for name, rows in runs["change"][0].items():
+        if any(name not in run for run in runs["parent"]):
+            log(f"{name}: new in the change, the parent has no rows to compare")
+            continue
         out = []
         for i, row in enumerate(rows):
             both = {who: [run[name][i] for run in runs[who]] for who in runs}
@@ -5265,6 +5379,7 @@ def main():
         flash_attention_wide_f32_cuda,
         flash_split_tf32_cuda,
     )
+    from ml_stable_diffusion_torch.ops.activations import geglu_cuda
     from ml_stable_diffusion_torch.ops.groupnorm import group_norm_silu_cuda
     from ml_stable_diffusion_torch.ops.palettized import palettized_dense_fused_cuda
     from ml_stable_diffusion_torch.utils import cuda_build, native
@@ -5275,7 +5390,8 @@ def main():
                 "flash_attention_wide_f32": flash_attention_wide_f32_cuda,
                 "flash_split_tf32": flash_split_tf32_cuda,
                 "group_norm_silu": group_norm_silu_cuda,
-                "palettized_dense_fused": palettized_dense_fused_cuda}
+                "palettized_dense_fused": palettized_dense_fused_cuda,
+                "geglu": geglu_cuda}
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
@@ -5526,6 +5642,11 @@ def main():
                      "ml_stable_diffusion_tpu/ops/groupnorm.py:64",
                      rows["group_norm_silu"], launches),
         pal_kernel_entry(rows["palettized_dense_fused"], model_checks["palettized"], launches),
+        dict(name="geglu", route="cuda", source="ml_stable_diffusion_torch/csrc/geglu.cu",
+             replaces="the eager gelu_erf chain (XLA's fusion in ml_stable_diffusion_tpu)",
+             launches=sum(n["geglu"] for n in launches.values()),
+             launches_by_path={p: n["geglu"] for p, n in launches.items() if n["geglu"]},
+             max_abs_err=0.0, shapes=rows["geglu"]),
     ]
     log(json.dumps({"main_paths": main_paths, "in_model_checks": model_checks,
                     "palettized_path": palettized, "schedulers": schedulers,

@@ -58,7 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.activations import gelu_erf, quick_gelu
+from ..ops.activations import geglu, gelu_erf, quick_gelu
 from ..ops.attention import dot_product_attention
 from ..ops.groupnorm import group_norm_silu, group_norm_silu_lowmem
 
@@ -303,7 +303,8 @@ class _GEGLUProj(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward; ``net.0.proj`` and ``net.2`` as in diffusers."""
+    """GEGLU feed-forward; ``net.0.proj`` and ``net.2`` as in diffusers, the
+    gate by ``ops/activations.py:geglu``."""
 
     def __init__(self, dim: int, mult: int = 4, fast_gelu: bool = False):
         super().__init__()
@@ -313,8 +314,7 @@ class FeedForward(nn.Module):
                                   nn.Linear(inner, dim)])
 
     def forward(self, x):
-        a, gate = self.net[0].proj(x).chunk(2, dim=-1)
-        return self.net[2](a * self.gelu(gate))
+        return self.net[2](geglu(self.net[0].proj(x), fast=self.gelu is quick_gelu))
 
 
 class BasicTransformerBlock(nn.Module):

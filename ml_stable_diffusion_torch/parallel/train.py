@@ -17,7 +17,7 @@ parameter, and the gradients and the loss are averaged over dp only.
 ``full_state_dict`` gives the whole parameters back under the unsharded
 keys, as the checkpoint (``checkpoint.py``) stores them.
 
-The step runs the plain attention and plain GroupNorm paths.  The
+The step runs the plain attention, GEGLU and GroupNorm paths.  The
 hand-written kernels have no backward and their wrappers raise under grad,
 as the JAX package's Pallas kernels cannot be differentiated either.
 """
@@ -36,6 +36,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops import attention
+from ..ops.activations import plain_geglu
 from ..schedulers.base import SchedulerConfig
 from .layers import axis_group, full_tensors
 from .sharding import shard_params
@@ -101,11 +102,15 @@ def epsilon_mse(model, latents, context, t, noise, alphas_cumprod, added_cond=No
 
 
 @contextlib.contextmanager
-def _plain_attention():
+def _plain_kernels():
+    """The step's plain paths: attention forced to ``PLAIN`` and the GEGLU
+    gate on its chain (``plain_geglu``); the GroupNorm's is the model's
+    ``fused_groupnorm=False``."""
     before = attention.ATTENTION_IMPLEMENTATION_IN_EFFECT
     attention.set_attention_implementation(attention.AttentionImpl.PLAIN)
     try:
-        yield
+        with plain_geglu():
+            yield
     finally:
         attention.set_attention_implementation(before)
 
@@ -176,7 +181,7 @@ def make_train_step(model: nn.Module, optimizer: Callable, mesh=None, scheduler_
             t, noise = batch["t"].to(device), batch["noise"].to(device, torch.float32)
         added = None if added_cond_fn is None else added_cond_fn(B)
         state.optimizer.zero_grad(set_to_none=True)
-        with torch.enable_grad(), _plain_attention():
+        with torch.enable_grad(), _plain_kernels():
             loss = epsilon_mse(state.model, latents, context, t, noise, acp, added, remat)
             loss.backward()
         loss = loss.detach()

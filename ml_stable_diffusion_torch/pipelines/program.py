@@ -96,6 +96,7 @@ def kernel_counters() -> dict[str, Callable]:
         flash_attention_wide_f32_cuda,
         flash_split_tf32_cuda,
     )
+    from ..ops.activations import geglu_cuda
     from ..ops.groupnorm import group_norm_silu_cuda
     from ..ops.palettized import palettized_dense_fused_cuda
 
@@ -104,7 +105,8 @@ def kernel_counters() -> dict[str, Callable]:
             "flash_attention_wide_f32": flash_attention_wide_f32_cuda,
             "flash_split_tf32": flash_split_tf32_cuda,
             "group_norm_silu": group_norm_silu_cuda,
-            "palettized_dense_fused": palettized_dense_fused_cuda}
+            "palettized_dense_fused": palettized_dense_fused_cuda,
+            "geglu": geglu_cuda}
 
 
 def _counts(counters) -> dict[str, int]:

@@ -48,6 +48,7 @@ _FAMILIES = (
     ("group_norm", ("gn_silu", "group_norm", "groupnorm", "rowwisemoments",
                     "computefusedparams", "computeinternalgradients",
                     "computebackwardfusedparams")),
+    ("geglu", ("geglu",)),
     ("layer_norm", ("layer_norm", "gammabeta")),
     ("dequant_matmul", ("dequant_", "splitk_reduce")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "winograd")),
@@ -206,7 +207,7 @@ def take() -> list[SpanRecord]:
 
 
 def kernel_family(name: str, cat: str = "kernel") -> str:
-    """The family of a device event: ``flash``, ``group_norm``,
+    """The family of a device event: ``flash``, ``group_norm``, ``geglu``,
     ``layer_norm``, ``dequant_matmul``, ``conv``, ``layout`` (cuDNN's NCHW
     and NHWC transposes), ``gemm``, ``softmax``, ``elementwise``,
     ``reduction``, ``copy`` (memcpy, memset) or ``other``."""

@@ -114,6 +114,8 @@ def test_trace_summary_synthetic(tmp_path):
 @pytest.mark.parametrize("name,family", [
     ("void flash_wgmma_persistent<2, 40, 2>(PersistentParams)", "flash"),
     ("void gn_silu_kernel<__nv_bfloat16>(GnParams)", "group_norm"),
+    ("void (anonymous namespace)::geglu_vec_kernel<__nv_bfloat16, false>"
+     "(const __nv_bfloat16*, __nv_bfloat16*, long long, long long)", "geglu"),
     ("void dequant_wgmma_bf16<128, 128>(Args)", "dequant_matmul"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "conv"),
     ("nvjet_hsh_256x128_64x4_2x1_v_bz_coopB_TNT", "gemm"),
