@@ -203,6 +203,7 @@ def mmdit_config_from_diffusers(cfg: dict) -> MMDiTConfig:
         pooled_dim=cfg.get("pooled_projection_dim", 2048),
         pos_embed_max_size=cfg.get("pos_embed_max_size", 192),
         qk_norm=cfg.get("qk_norm") is not None,
+        dual_attention_layers=tuple(cfg.get("dual_attention_layers") or ()),
     )
 
 

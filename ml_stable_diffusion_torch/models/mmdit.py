@@ -13,6 +13,14 @@ dtype of its parameters.  Parameter names are the diffusers
 - each block modulates with adaLN-Zero, split ``[shift, scale, gate, shift2,
   scale2, gate2]``; the last block's context stream and the final norm use
   the AdaLayerNormContinuous order ``[scale, shift]``;
+- the blocks in ``dual_attention_layers`` (SD3.5-medium's MMDiT-X: 0-12)
+  are diffusers' dual-attention blocks: a nine-way modulation (the six,
+  then ``[shift, scale, gate]`` of ``attn2``, diffusers'
+  ``SD3AdaLayerNormZeroX``) and ``attn2``, a self-attention over the
+  latent stream alone with its own projections (and qk RMSNorm), which
+  reads the same normalised latents under its own shift and scale and adds,
+  gated, after the joint attention's output (ops/attention.py:
+  dot_product_attention: on the card the flash kernel);
 - the last block (``context_pre_only``) projects the context to q/k/v but
   has no ``to_add_out`` and no ``ff_context``;
 - LayerNorms carry no affine parameters, eps 1e-6; qk RMSNorm (SD3.5) eps
@@ -23,6 +31,11 @@ dtype of its parameters.  Parameter names are the diffusers
   launch of the multi-stream flash kernel per block;
 - SD3 ControlNet residuals (models/controlnet_sd3.py) add to the latent
   stream after the blocks.
+
+Every attention call counts itself by kind in ``.launches`` of
+``mmdit_joint_attention`` and ``mmdit_self_attention``
+(pipelines/program.py:kernel_counters(), so a captured program's replay
+credits them): 24 and 0 a SD3-medium forward, 24 and 13 a SD3.5-medium one.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.activations import gelu_tanh
-from ..ops.attention import joint_dot_product_attention
+from ..ops.attention import dot_product_attention, joint_dot_product_attention
 from .unet import TimestepEmbedding, get_timestep_embedding
 
 
@@ -51,14 +64,37 @@ class MMDiTConfig:
     pos_embed_max_size: int = 192
     #: SD3.5 uses RMS qk-normalization
     qk_norm: bool = False
+    #: the blocks with a second, latent-only self-attention (MMDiT-X)
+    dual_attention_layers: tuple[int, ...] = ()
 
     @classmethod
     def sd3_medium(cls) -> "MMDiTConfig":
         return cls()
 
     @classmethod
+    def sd35_medium(cls) -> "MMDiTConfig":
+        """stabilityai/stable-diffusion-3.5-medium ``transformer/config.json``:
+        the MMDiT-X, 13 dual-attention blocks of 24."""
+        return cls(depth=24, hidden_size=1536, num_heads=24, qk_norm=True,
+                   pos_embed_max_size=384, dual_attention_layers=tuple(range(13)))
+
+    @classmethod
     def sd35_large(cls) -> "MMDiTConfig":
         return cls(depth=38, hidden_size=2432, num_heads=38, qk_norm=True)
+
+
+class AttentionCounter:
+    """The MMDiT's attention calls of one kind, counted in ``.launches`` as
+    the kernel wrappers count theirs."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+#: joint attention calls (the multi-stream flash kernel on the card)
+mmdit_joint_attention = AttentionCounter()
+#: MMDiT-X ``attn2`` calls (the flash kernel's self-attention on the card)
+mmdit_self_attention = AttentionCounter()
 
 
 def _layer_norm(x):
@@ -145,6 +181,7 @@ class _JointAttention(nn.Module):
             q_c, k_c = self.norm_added_q(q_c), self.norm_added_k(k_c)
         k = torch.cat([k_x, k_c], dim=1)
         v = torch.cat([v_x, v_c], dim=1)
+        mmdit_joint_attention.launches += 1
         attn_x, attn_c = joint_dot_product_attention([q_x, q_c], k, v)
         out_x = self.to_out[0](attn_x.reshape(B, Nx, D))
         if not hasattr(self, "to_add_out"):
@@ -152,30 +189,63 @@ class _JointAttention(nn.Module):
         return out_x, self.to_add_out(attn_c.reshape(B, Nc, D))
 
 
-class JointTransformerBlock(nn.Module):
-    """Dual-stream block with joint attention and adaLN-Zero modulation."""
+class _SelfAttention(nn.Module):
+    """MMDiT-X ``attn2``: self-attention over the latent stream (diffusers'
+    ``Attention`` with biases, qk RMSNorm with ``qk_norm``)."""
 
-    def __init__(self, cfg: MMDiTConfig, context_pre_only: bool = False):
+    def __init__(self, cfg: MMDiTConfig):
+        super().__init__()
+        D = cfg.hidden_size
+        self.heads = cfg.num_heads
+        self.to_q, self.to_k, self.to_v = (nn.Linear(D, D) for _ in range(3))
+        self.to_out = nn.ModuleList([nn.Linear(D, D)])
+        if cfg.qk_norm:
+            Dh = D // cfg.num_heads
+            self.norm_q, self.norm_k = _RMSNorm(Dh), _RMSNorm(Dh)
+
+    def forward(self, x):
+        B, N, D = x.shape
+        q, k, v = (p(x).view(B, N, self.heads, D // self.heads)
+                   for p in (self.to_q, self.to_k, self.to_v))
+        if hasattr(self, "norm_q"):
+            q, k = self.norm_q(q), self.norm_k(k)
+        mmdit_self_attention.launches += 1
+        return self.to_out[0](dot_product_attention(q, k, v).reshape(B, N, D))
+
+
+class JointTransformerBlock(nn.Module):
+    """Dual-stream block with joint attention and adaLN-Zero modulation;
+    ``dual``: the MMDiT-X block, with ``attn2`` over the latent stream."""
+
+    def __init__(self, cfg: MMDiTConfig, context_pre_only: bool = False, dual: bool = False):
         super().__init__()
         D = cfg.hidden_size
         self.context_pre_only = context_pre_only
-        self.norm1 = _AdaLN(D, 6)
+        self.norm1 = _AdaLN(D, 9 if dual else 6)
         self.norm1_context = _AdaLN(D, 2 if context_pre_only else 6)
         self.attn = _JointAttention(cfg, context_pre_only)
+        if dual:
+            self.attn2 = _SelfAttention(cfg)
         self.ff = _FeedForward(D)
         if not context_pre_only:
             self.ff_context = _FeedForward(D)
 
     def forward(self, x, ctx, c):
-        sh1, sc1, g1, sh2, sc2, g2 = self.norm1(c).chunk(6, dim=-1)
+        dual = hasattr(self, "attn2")
+        mod = self.norm1(c).chunk(9 if dual else 6, dim=-1)
+        sh1, sc1, g1, sh2, sc2, g2 = mod[:6]
         if self.context_pre_only:
             csc1, csh1 = self.norm1_context(c).chunk(2, dim=-1)
         else:
             csh1, csc1, cg1, csh2, csc2, cg2 = self.norm1_context(c).chunk(6, dim=-1)
 
-        attn_x, attn_c = self.attn(_modulate(_layer_norm(x), sh1, sc1),
+        n = _layer_norm(x)
+        attn_x, attn_c = self.attn(_modulate(n, sh1, sc1),
                                    _modulate(_layer_norm(ctx), csh1, csc1))
         x = x + g1[:, None] * attn_x
+        if dual:
+            sh3, sc3, g3 = mod[6:]
+            x = x + g3[:, None] * self.attn2(_modulate(n, sh3, sc3))
         x = x + g2[:, None] * self.ff(_modulate(_layer_norm(x), sh2, sc2))
         if self.context_pre_only:
             return x, ctx
@@ -227,7 +297,8 @@ class MMDiT(nn.Module):
         self.time_text_embed = _TimeTextEmbed(config)
         self.context_embedder = nn.Linear(config.context_dim, D)
         self.transformer_blocks = nn.ModuleList(
-            JointTransformerBlock(config, context_pre_only=i == config.depth - 1)
+            JointTransformerBlock(config, context_pre_only=i == config.depth - 1,
+                                  dual=i in config.dual_attention_layers)
             for i in range(config.depth))
         self.norm_out = _AdaLN(D, 2)
         self.proj_out = nn.Linear(D, config.patch_size ** 2 * config.out_channels)

@@ -16,6 +16,10 @@ collectives themselves:
   feature axis;
 - everything else replicated, W8A8 int8 layers and palettized weights too.
 
+No rule covers the MMDiT-X dual-attention blocks' ``attn2`` (SD3.5-medium):
+a module that holds one is refused with a ``ValueError`` naming the blocks,
+before anything is placed, rather than run with ``attn2`` replicated.
+
 Layouts translate from Flax's: a Dense kernel is (in, out) where a torch
 ``Linear.weight`` is (out, in), so JAX's column spec ``P(None, "tp")`` is
 ``Shard(0)`` here and the row spec ``P("tp", None)`` is ``Shard(1)``; an
@@ -89,9 +93,23 @@ def _placement(module_name: str, leaf: str, owner: nn.Module, tensor, tp: int):
     return Replicate()
 
 
+def refuse_dual_attention(module: nn.Module):
+    """Raise ``ValueError`` if ``module`` holds MMDiT-X dual-attention
+    blocks, whose ``attn2`` no rule shards."""
+    from ..models.mmdit import JointTransformerBlock
+
+    dual = [name for name, m in module.named_modules()
+            if isinstance(m, JointTransformerBlock) and hasattr(m, "attn2")]
+    if dual:
+        raise ValueError(f"no sharding rule covers the MMDiT-X dual-attention blocks "
+                         f"({', '.join(dual)}): their attn2 would run unsharded")
+
+
 def param_sharding_rules(module: nn.Module, mesh) -> dict:
     """{state-dict key: ``Shard(dim)`` or ``Replicate()``} over the mesh's tp
-    axis, for every parameter and buffer of ``module``."""
+    axis, for every parameter and buffer of ``module``; a module with MMDiT-X
+    dual-attention blocks raises ``ValueError``."""
+    refuse_dual_attention(module)
     tp = tp_size(mesh)
     owners = dict(module.named_modules())
     rules = {}

@@ -88,8 +88,11 @@ def program_key(jax_part: tuple, port_part: tuple, inputs: dict, dtype, mesh=Non
     return (jax_part, port_part, input_signature(inputs), str(dtype), mesh)
 
 
-def kernel_counters() -> dict[str, Callable]:
-    """The kernel wrappers, each counting its launches in ``.launches``."""
+def kernel_counters() -> dict[str, object]:
+    """The kernel wrappers, each counting its launches in ``.launches``, and
+    the MMDiT's attention calls by path (joint, and MMDiT-X self), counted
+    the same way."""
+    from ..models.mmdit import mmdit_joint_attention, mmdit_self_attention
     from ..ops.flash_attention import (
         flash_attention_cuda,
         flash_attention_multi_q_cuda,
@@ -106,7 +109,9 @@ def kernel_counters() -> dict[str, Callable]:
             "flash_split_tf32": flash_split_tf32_cuda,
             "group_norm_silu": group_norm_silu_cuda,
             "palettized_dense_fused": palettized_dense_fused_cuda,
-            "geglu": geglu_cuda}
+            "geglu": geglu_cuda,
+            "mmdit_joint_attention": mmdit_joint_attention,
+            "mmdit_self_attention": mmdit_self_attention}
 
 
 def _counts(counters) -> dict[str, int]:

@@ -822,8 +822,10 @@ class StableDiffusionPipeline:
         generation on the same inputs and returns the same result.  The
         programs are dropped; with an NCCL mesh a generation is still one
         captured program, while a gloo group cannot be captured on the card:
-        set ``execution = "eager"`` (a captured run raises)."""
-        from ..parallel.sharding import shard_params
+        set ``execution = "eager"`` (a captured run raises).  An MMDiT with
+        dual-attention blocks (SD3.5-medium) has no rules: ``ValueError``,
+        before any weight moves."""
+        from ..parallel.sharding import refuse_dual_attention, shard_params
 
         if self._host_weights:
             raise RuntimeError("shard places weights on the cards; this pipeline's are "
@@ -835,7 +837,10 @@ class StableDiffusionPipeline:
                    for m in ms]
         modules += [m for m in (self.vae_decoder, self.safety_checker) if m is not None]
         palettized = {id(m): set(pal) for m, pal, _ in self._palettized_modules()}
-        for module in {id(m): m for m in modules}.values():
+        modules = list({id(m): m for m in modules}.values())
+        for module in modules:  # refused before any module is placed
+            refuse_dual_attention(module)
+        for module in modules:
             shard_params(module, mesh, replicate=palettized.get(id(module), ()))
         self.mesh = mesh
         self._programs.clear()

@@ -253,7 +253,10 @@ def test_sd3_full_size_layout_loads(kind):
     strict load checks), from abstract shapes only."""
     if kind == "mmdit_sd3_medium":
         jcfg, pcfg = JaxMMDiTConfig.sd3_medium(), MMDiTConfig.sd3_medium()
-        assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)
+        fields = dataclasses.asdict(pcfg)
+        # the port's MMDiT-X field (SD3.5-medium), which the JAX MMDiT lacks
+        assert fields.pop("dual_attention_layers") == ()
+        assert fields == dataclasses.asdict(jcfg)
         args = (jnp.zeros((1, 16, 16, 16)), jnp.zeros((1,)),
                 jnp.zeros((1, 154, jcfg.context_dim)), jnp.zeros((1, jcfg.pooled_dim)))
         layout = _layout(JaxMMDiT(jcfg), args, mmdit_state_dict)
@@ -285,8 +288,10 @@ def test_sd3_full_size_layout_loads(kind):
 def test_sd35_large_config_is_the_jax_one():
     """SD3.5-large differs from SD3-medium only in its sizes and qk RMSNorm,
     whose layout the tiny qk_norm model above checks."""
-    assert dataclasses.asdict(MMDiTConfig.sd35_large()) == dataclasses.asdict(
-        JaxMMDiTConfig.sd35_large())
+    fields = dataclasses.asdict(MMDiTConfig.sd35_large())
+    # the port's MMDiT-X field (SD3.5-medium), which the JAX MMDiT lacks
+    assert fields.pop("dual_attention_layers") == ()
+    assert fields == dataclasses.asdict(JaxMMDiTConfig.sd35_large())
 
 
 def test_sd3_pooled_width():

@@ -5,7 +5,8 @@ concurrent ``submit``s give one ``serve.queued`` each and one
 ``serve.batch`` and ``serve.generate`` carrying all three ids, and the
 server's queue-wait statistics read the same clock readings; each
 generation holds its host phases, programs and fetches in order, each
-inside its parent; a second call of a key builds and captures nothing.
+inside its parent, an SD3 generation (MMDiT, T5, rectified flow) the same
+ones; a second call of a key builds and captures nothing.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -21,7 +22,7 @@ from ml_stable_diffusion_torch import serving
 from ml_stable_diffusion_torch.pipelines import PipelineConfiguration
 from ml_stable_diffusion_torch.utils import profiling
 
-from torch_helpers import port_sd_pipeline
+from torch_helpers import port_sd3_pipeline, port_sd_pipeline
 
 HW = (64, 64)
 
@@ -168,6 +169,16 @@ def test_generation_phases_in_order_and_no_second_build(pipe, recording):
     finally:
         pipe.execution = "program"
     assert _generation_phases(profiling.take(), None) == _expected_phases(1, "eager")
+
+
+def test_sd3_generation_holds_the_same_phases(tmp_path, recording):
+    """SD3 inherits the phases from pipelines/sd.py: its MMDiT, T5 and flow
+    steps run inside ``program.run``, its decode in a program of its own."""
+    sd3 = port_sd3_pipeline(tmp_path, seed=93)
+    for seed in (3, 4):
+        sd3.generate_images(_cfg(seed=seed, scheduler="DiscreteFlow", guidance_scale=4.5),
+                            image_hw=HW)
+    assert _generation_phases(profiling.take(), None) == _expected_phases(1) * 2
 
 
 def test_served_batch_carries_every_request_id(pipe, recording):
